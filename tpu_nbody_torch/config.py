@@ -1,0 +1,128 @@
+"""Static configuration and dynamic parameters (port of tpu_nbody.config).
+
+* :class:`SimConfig` — frozen facts about a run: capacity, world extent and
+  the P3M knobs. Only the fields the port runs are carried; see
+  ``tpu_nbody/config.py`` for the Barnes–Hut knobs still to be ported.
+* :class:`Params` — the live-tunable physics scalars. The JAX package keeps
+  them as a pytree of f32 arrays so a jitted step can take new values
+  without recompiling; PyTorch runs eagerly, so here they are Python floats,
+  each rounded to float32 so that every op sees the same value the JAX
+  package's f32 arrays hold.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# Reference defaults (src/main/kotlin/Config.kt:5-38).
+WIDTH_PX = 2400.0
+HEIGHT_PX = 800.0
+G_DEFAULT = 80.0
+DT_DEFAULT = 0.005
+SOFTENING_DEFAULT = 1.0
+THETA_DEFAULT = 0.30
+DISK_R_DEFAULT = 100.0
+DISK_N_DEFAULT = 5_000
+CENTRAL_MASS = 50_000.0
+MIN_R = 8.0
+TOTAL_SATELLITE_MASS = 5_000.0
+# Merge rule defaults (src/main/kotlin/BarnesHutAlg.kt:315-321).
+MERGE_MAX_MASS_DEFAULT = 4_000.0
+
+# GPU demo defaults (src/main/kotlin/gpu/GPU.kt:15-75).
+GPU_WIDTH_PX = 3440.0
+GPU_HEIGHT_PX = 1440.0
+GPU_CENTRAL_MASS = 5_000.0
+GPU_MIN_R = 2.0
+GPU_TOTAL_SATELLITE_MASS = 25_000.0
+
+ROADMAP_NOTE = "not ported yet; see ROADMAP.md, queue 1"
+
+
+def f32(x) -> float:
+    """``x`` rounded to the nearest float32, as a Python float."""
+    return float(np.float32(x))
+
+
+@dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Static simulation configuration (the pm subset of tpu_nbody's).
+
+    ``capacity`` is the fixed body-slot count; the live count is the
+    ``alive`` mask of :class:`tpu_nbody_torch.state.SimState`. Field
+    meanings and defaults are those of ``tpu_nbody.config.SimConfig``.
+    """
+
+    capacity: int
+    world_w: float = WIDTH_PX
+    world_h: float = HEIGHT_PX
+    dim: int = 2
+    # P3M ("pm") solver knobs.
+    mesh_level: int = 11           # world grid = 2^level per side over the root
+    mesh_split: float = 4.0        # short/long split radius in cell units
+    mesh_band: int = 256           # sorted-order block size for F_short
+    mesh_chunk: int = 16384        # bodies per band/rescue chunk (memory bound)
+    mesh_order: int = 2            # mass assignment: only 2 (CIC) is ported
+    mesh_switch: str = "exp4"      # short/long switch: "exp4" or "poly4"
+    mesh_deconvolve: bool = True   # bake the 1/What^2 sharpening into the hats
+    mesh_interlace: bool = False   # half-cell-shifted second mesh: not ported
+    mesh_ny: int = 0               # rectangular mesh rows (0 = square)
+    mesh_rescue: int = 4           # rescue partner blocks per band block
+    mesh_rescue_hot: int = 0       # two-tier rescue: not ported (must be 0)
+    pm_persistent_sort: bool = True  # must be True: the sorted-carry step
+    pm_resort_every: int = 8       # steps between re-sorts
+    pm_mesh_every: int = 1         # F_long subcycling: not ported (must be 1)
+    pm_heavy_cap: int = 0          # heavy-direct F_long: not ported (must be 0)
+    dtype: str = "float32"
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def root_half(self) -> float:
+        """Root quad half-side: max(W, H)/2 + 2, centred at (W/2, H/2)
+        (``src/main/kotlin/BarnesHutAlg.kt:359-362``)."""
+        return max(self.world_w, self.world_h) / 2.0 + 2.0
+
+    @property
+    def root_center(self) -> tuple[float, float]:
+        return (self.world_w / 2.0, self.world_h / 2.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Params:
+    """Physics scalars: G, dt, theta, soft2 = softening², merge_max_mass,
+    merge_min_dist (``merge_min_dist <= 0`` disables merging). Field order
+    is the JAX package's, which its checkpoint format relies on."""
+
+    G: float
+    dt: float
+    theta: float
+    soft2: float
+    merge_max_mass: float
+    merge_min_dist: float
+
+    def __post_init__(self):
+        for f in dataclasses.fields(self):
+            object.__setattr__(self, f.name, f32(getattr(self, f.name)))
+
+    @classmethod
+    def default(
+        cls,
+        G: float = G_DEFAULT,
+        dt: float = DT_DEFAULT,
+        theta: float = THETA_DEFAULT,
+        softening: float = SOFTENING_DEFAULT,
+        merge_max_mass: float = MERGE_MAX_MASS_DEFAULT,
+        merge_min_dist: float = MIN_R,
+    ) -> "Params":
+        return cls(G=G, dt=dt, theta=theta, soft2=softening * softening,
+                   merge_max_mass=merge_max_mass,
+                   merge_min_dist=merge_min_dist)
+
+    def replace(self, **kw) -> "Params":
+        return dataclasses.replace(self, **kw)
