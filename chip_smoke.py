@@ -10,12 +10,16 @@ bench.py), Engine.step(20) once to warm up and twice timed. On the way it
 
 1. requires a CUDA card (exits non-zero otherwise) and prints its name and
    power limit as nvidia-smi reports them;
-2. builds the hand-written kernels from tpu_nbody_torch/csrc with nvcc;
+2. builds the hand-written kernels from tpu_nbody_torch/csrc with nvcc and
+   prints each kernel's registers, failing on any register spill;
 3. holds the band kernel against its plain torch version on the sorted
-   scene (S = 128 poly4 and exp4, S = 256 poly4) and
+   scene (S = 128 poly4 and exp4, S = 256 and 1024 poly4, and S = 128 on a
+   capacity that is not a multiple of the bodies a CTA covers) and
 4. the all-pairs kernel against its plain version (8192 bodies in 2D and
    3D, 4096 targets x 2^20 sources), each within 1e-5 of the largest
-   magnitude, timing both with CUDA events (median of 10);
+   magnitude, timing both with CUDA events (median of 10 timings of one
+   call on an idle card, after 2 warm-ups), and checks that the all-pairs
+   kernel gives the same bits on a second call;
 5. runs the main path with the band launch count set to 0 first, and
    checks one band launch per force pass, finite state and no growth of
    n_alive;
@@ -26,7 +30,10 @@ bench.py), Engine.step(20) once to warm up and twice timed. On the way it
 
 Each launch count in the kernels line covers only the run it describes:
 the band count the three step(20) calls, the all-pairs count the force
-error after them.
+error after them. Each kernel's bound_ms is the larger of its flops over
+the float32 peak and its bytes over the memory rate (pair_work in its
+module); rsqrt_floor_ms is its pairs over the rsqrt unit's rate (16 a
+clock per SM at the card's highest SM clock), a second floor beside it.
 
 It prints one JSON line describing the kernels, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -45,6 +52,9 @@ STEPS = 20          # steps per Engine.step call
 TOL = 1e-5          # kernel vs plain: max |diff| <= TOL * max |plain|
 ERR_LIMIT = 5e-4    # mean relative force error of P3M vs exact
 SAMPLES = 4096      # bodies sampled for the exact force error
+PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, 700 W
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+RSQRT_PER_CLK_SM = 16
 
 
 def _timed_ms(fn, reps=10):
@@ -81,6 +91,19 @@ def _compare(name, kernel_fn, plain_fn):
     print(f"{name}: max|diff| {err:.3e} (max|a| {scale:.3e}) kernel "
           f"{ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def _bounds(work, ms, n_sm, max_clock_hz):
+    """bound_ms, what bounds it, the share of it reached in ``ms``, and the
+    rsqrt unit's floor, for pair_work ``work``."""
+    t_ops = work["flops"] / PEAK_FLOPS
+    t_bytes = work["bytes"] / PEAK_BYTES
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    return dict(bound_ms=bound_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                pct_of_bound=100.0 * bound_ms / ms,
+                rsqrt_floor_ms=1e3 * work["pairs"] / (
+                    RSQRT_PER_CLK_SM * n_sm * max_clock_hz))
 
 
 def _force_error(st, cfg, params, origin, side, samples, g):
@@ -127,6 +150,14 @@ def main() -> int:
         timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    max_clock_hz = 1e6 * float(clk.stdout.strip().splitlines()[0])
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"{n_sm} SMs, highest SM clock {max_clock_hz / 1e6:.0f} MHz",
+          flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
@@ -137,9 +168,13 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.last_build['seconds']:.1f} s, "
           f"cached={_build.last_build['cached']})", flush=True)
-    for line in _build.last_build["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    report = _build.ptxas_report(_build.last_build["log"])
+    for k in report:
+        print(f"  ptxas: {k['name']}: {k['registers']} registers, "
+              f"{k['spill_bytes']} bytes spilled")
+    if not report or any(k["spill_bytes"] for k in report):
+        raise AssertionError("a kernel spills registers (or ptxas printed "
+                             "no report)")
 
     # -- scene (the bench config, bench.py:244-294) --------------------------
     cap = 1 << (N - 1).bit_length()
@@ -165,17 +200,26 @@ def main() -> int:
 
     # -- band kernel vs plain ---------------------------------------------
     results = {}
-    for switch, S in (("poly4", 128), ("exp4", 128), ("poly4", 256)):
+    ragged = N - 1      # not a multiple of the B S = 1024 bodies of a CTA
+    for switch, S, n in (("poly4", 128, cap), ("exp4", 128, cap),
+                         ("poly4", 256, cap), ("poly4", 1024, cap),
+                         ("poly4", 128, ragged)):
+        p_, m_ = spos[:n], smass[:n]
         r = _compare(
-            f"band {switch} S={S} cap={cap}",
-            lambda: band.band_short_range(spos, smass, params.soft2, a,
+            f"band {switch} S={S} cap={n}",
+            lambda: band.band_short_range(p_, m_, params.soft2, a,
                                           band=S, chunk=cfg.mesh_chunk,
                                           switch=switch),
-            lambda: band.band_short_range_ref(spos, smass, params.soft2, a,
+            lambda: band.band_short_range_ref(p_, m_, params.soft2, a,
                                               band=S, chunk=cfg.mesh_chunk,
                                               switch=switch))
-        if (switch, S) == (cfg.mesh_switch, cfg.mesh_band):
-            results["band"] = r
+        if (switch, S, n) == (cfg.mesh_switch, cfg.mesh_band, cap):
+            plan = band._band_plan(cap, S)
+            results["band"] = dict(
+                r, **_bounds(band.pair_work(cap, S, switch), r["ms"], n_sm,
+                             max_clock_hz),
+                plan=dict(T=plan.T, B=plan.B, threads=plan.threads,
+                          smem=plan.smem))
 
     # -- all-pairs kernel vs plain ----------------------------------------
     g = torch.Generator(device=dev).manual_seed(11)
@@ -188,13 +232,25 @@ def main() -> int:
                                                    params.soft2))
     live_mass = torch.where(st.alive, st.mass, 0.0)
     tgt = st.pos[:4096].contiguous()
-    results["allpairs"] = _compare(
+    r = _compare(
         f"allpairs 2D 4096 targets x {cap} sources",
         lambda: forces.accel_allpairs(st.pos, live_mass, params.G,
                                       params.soft2, targets=tgt),
         lambda: forces.accel_allpairs_ref(st.pos, live_mass, params.G,
                                           params.soft2, targets=tgt))
-    del spos, smass, tgt, live_mass
+    first = forces.accel_allpairs(st.pos, live_mass, params.G, params.soft2,
+                                  targets=tgt)
+    second = forces.accel_allpairs(st.pos, live_mass, params.G,
+                                   params.soft2, targets=tgt)
+    if not torch.equal(first, second):
+        raise AssertionError("allpairs: two calls on the same inputs differ")
+    print("allpairs: two calls give the same bits", flush=True)
+    ap_plan = forces._card_plan(4096, cap, 2, dev)
+    results["allpairs"] = dict(
+        r, **_bounds(forces.pair_work(4096, cap, 2), r["ms"], n_sm,
+                     max_clock_hz),
+        plan=dict(T=forces.T, blocks=ap_plan.blocks, splits=ap_plan.splits))
+    del spos, smass, tgt, live_mass, first, second
 
     # -- force error of the initial scene (the JAX package's measurement
     #    point: mean 1.70e-4 for this config at N=1M) -----------------------
@@ -262,11 +318,12 @@ def main() -> int:
         dict(name="band_short_range", route="cuda",
              source="tpu_nbody_torch/csrc/band.cu",
              replaces="tpu_nbody/ops/band_pallas.py:43",
-             launches=launches["band"], **results["band"]),
+             launches=launches["band"], library_ms=None, **results["band"]),
         dict(name="allpairs", route="cuda",
              source="tpu_nbody_torch/csrc/allpairs.cu",
              replaces="tpu_nbody/ops/forces.py:47",
-             launches=launches["allpairs"], **results["allpairs"]),
+             launches=launches["allpairs"], library_ms=None,
+             **results["allpairs"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

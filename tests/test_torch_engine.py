@@ -49,7 +49,7 @@ def test_merge_bodies_matches_jax(heavy_cap):
                           jnp.asarray(alive), jnp.int32(0))
     jparams = jconfig.Params.default()
     want, need_j = jmerge.merge_bodies(jst, jparams, heavy_cap=heavy_cap)
-    tst = convert.state_from_numpy(*_np_state(jst))
+    tst = convert.state_from_numpy(*_np_state(jst), device="cpu")
     got, need_t = tmerge.merge_bodies(tst, tconfig.Params.default(),
                                       heavy_cap=heavy_cap)
     assert int(need_t) == int(need_j) == 4
@@ -62,7 +62,8 @@ def test_merge_bodies_matches_jax(heavy_cap):
 
 def test_merge_disabled_returns_state_and_zero_need():
     pos, mass, alive = _overlapping_heavies(64)
-    tst = convert.state_from_numpy(pos, np.zeros_like(pos), mass, alive, 0)
+    tst = convert.state_from_numpy(pos, np.zeros_like(pos), mass, alive, 0,
+                                   device="cpu")
     out, need = tmerge.merge_bodies(
         tst, tconfig.Params.default(merge_min_dist=0.0))
     assert int(need) == 0 and torch.equal(out.alive, tst.alive)
@@ -84,8 +85,9 @@ def test_engine_slice_20_steps_matches_jax():
     jeng.add_black_hole(1204.0, 400.0)         # absorbed by the disk centre
     teng = tengine.Engine(tconfig.SimConfig(**SLICE_CFG),
                           tconfig.Params.default(), solver="pm",
-                          integrator="kdk_reuse", seed=3)
-    teng.state = convert.state_from_numpy(*_np_state(jeng.state))
+                          integrator="kdk_reuse", seed=3, device="cpu")
+    teng.state = convert.state_from_numpy(*_np_state(jeng.state),
+                                          device="cpu")
     jeng.step(20)
     teng.step(20)
     js, ts = jeng.state, teng.state
@@ -105,7 +107,7 @@ def test_engine_slice_20_steps_matches_jax():
 def test_engine_scene_api_and_retune():
     cfg = tconfig.SimConfig(**SLICE_CFG)
     eng = tengine.Engine(cfg, tconfig.Params.default(), seed=1,
-                         merge_heavy_cap=1)
+                         merge_heavy_cap=1, device="cpu")
     eng.reset_default_scene(n1=600, n2=200)
     eng.add_black_hole(300.0, 300.0)
     eng.add_kepler_disk(1800.0, 500.0, r=80.0, n=100)
@@ -134,7 +136,7 @@ def test_checkpoint_reads_jax_file(tmp_path):
     path = tmp_path / "ck.npz"
     jparams = jconfig.Params.default(dt=0.01, theta=0.5)
     jcheckpoint.save(path, jeng.state, jparams, note=np.arange(3))
-    st, params, extra = tcheckpoint.load(path)
+    st, params, extra = tcheckpoint.load(path, device="cpu")
     for got, want in zip(st, jeng.state):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert params == tconfig.Params.default(dt=0.01, theta=0.5)

@@ -84,7 +84,7 @@ def test_engine_refuses_unported_knobs(kw):
     kw = dict(kw)
     cfg = tconfig.SimConfig(**CFG, **kw.pop("cfg", {}))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tengine.Engine(cfg, **kw)
+        tengine.Engine(cfg, device="cpu", **kw)
 
 
 def test_mesh_functions_refuse_unported_knobs():
@@ -116,7 +116,8 @@ def test_unknown_switch_raises(where):
                            switch="Poly4")
     else:
         with pytest.raises(ValueError, match="switch"):
-            tengine.Engine(tconfig.SimConfig(**CFG, mesh_switch="exp"))
+            tengine.Engine(tconfig.SimConfig(**CFG, mesh_switch="exp"),
+                           device="cpu")
 
 
 @pytest.fixture
@@ -126,16 +127,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("switch,band", [("poly4", 128), ("exp4", 128),
-                                         ("poly4", 256), ("exp4", 64)])
-def test_band_kernel_matches_plain_on_card(cuda_device, switch, band):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    cap = 50_000
-    pos = torch.rand((cap, 2), generator=g, device=cuda_device) * 300.0
+def _sorted_bodies(dev, cap):
+    """``cap`` random bodies in a 300 px square, in Hilbert order."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    pos = torch.rand((cap, 2), generator=g, device=dev) * 300.0
     codes = tmesh.morton.hilbert_codes(pos, (0.0, 0.0), 300.0)
     pos = pos[torch.argsort(codes, stable=True)].contiguous()
-    mass = torch.rand((cap,), generator=g, device=cuda_device) + 0.1
+    return pos, torch.rand((cap,), generator=g, device=dev) + 0.1
+
+
+def _assert_close_to(got, want):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("switch,band,cap", [
+    ("poly4", 128, 50_000), ("exp4", 128, 50_000), ("poly4", 256, 50_000),
+    ("exp4", 64, 50_000), ("poly4", 1, 5000), ("poly4", 3, 1000),
+    ("poly4", 1024, 50_000), ("exp4", 1024, 3000), ("poly4", 128, 100),
+    ("poly4", 100, 12_345), ("poly4", 128, 512 * 40 + 1)])
+def test_band_kernel_matches_plain_on_card(cuda_device, switch, band, cap):
+    """Band widths 1 to 1024, capacities below one S-block and not a
+    multiple of the B S bodies a CTA covers."""
+    pos, mass = _sorted_bodies(cuda_device, cap)
     n0 = tband.LAUNCHES
     got = tband.band_short_range(pos, mass, 1.0, 2.0, band=band,
                                  chunk=16384, switch=switch)
@@ -143,21 +158,57 @@ def test_band_kernel_matches_plain_on_card(cuda_device, switch, band):
                                       chunk=16384, switch=switch)
     torch.cuda.synchronize()
     assert tband.LAUNCHES == n0 + 1
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=1e-5 * want.abs().max().item())
+    _assert_close_to(got, want)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim", [2, 3])
-def test_allpairs_kernel_matches_plain_on_card(cuda_device, dim):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    pos = torch.rand((5000, dim), generator=g, device=cuda_device) * 1000
-    mass = torch.rand((5000,), generator=g, device=cuda_device)
-    got = tforces.accel_allpairs(pos, mass, 80.0, 1.0, targets=pos[:777])
-    want = tforces.accel_allpairs_ref(pos, mass, 80.0, 1.0, targets=pos[:777])
+@pytest.mark.parametrize("T,B", [(1, 2), (2, None), (8, None), (4, 1),
+                                 (4, 8)])
+def test_band_kernel_plans_on_card(cuda_device, T, B):
+    """Every launch shape the plan can give computes the same pass."""
+    cap = 20_000 + 77
+    pos, mass = _sorted_bodies(cuda_device, cap)
+    plan = tband._band_plan(cap, 128, T=T, B=B)
+    got = tband._launch(pos, mass, 1.0, 2.0, 128, "poly4", plan)
+    want = tband.band_short_range_ref(pos, mass, 1.0, 2.0, band=128,
+                                      chunk=16384, switch="poly4")
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=0,
-                               atol=1e-5 * want.abs().max().item())
+    _assert_close_to(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,nt,ns", [
+    (2, 777, 5000), (3, 777, 5000), (2, 513, 100), (3, 513, 100),
+    (2, 1, 70_001), (3, 3000, 70_001), (2, 4096, 1 << 18)])
+def test_allpairs_kernel_matches_plain_on_card(cuda_device, dim, nt, ns):
+    """Sources fewer than one tile, targets not a multiple of the T x 128
+    of a block, 2D and 3D; a second call gives the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    pos = torch.rand((ns, dim), generator=g, device=cuda_device) * 1000
+    mass = torch.rand((ns,), generator=g, device=cuda_device)
+    tgt = torch.rand((nt, dim), generator=g, device=cuda_device) * 1000
+    tgt[: min(nt, ns)] = pos[: min(nt, ns)]           # self pairs too
+    got = tforces.accel_allpairs(pos, mass, 80.0, 1.0, targets=tgt)
+    again = tforces.accel_allpairs(pos, mass, 80.0, 1.0, targets=tgt)
+    want = tforces.accel_allpairs_ref(pos, mass, 80.0, 1.0, targets=tgt)
+    torch.cuda.synchronize()
+    _assert_close_to(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_sm", [1, 16])
+def test_allpairs_kernel_plans_on_card(cuda_device, per_sm):
+    """66 source splits and one split a tile (118) give the same sums."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    pos = torch.rand((30_000, 2), generator=g, device=cuda_device) * 1000
+    mass = torch.rand((30_000,), generator=g, device=cuda_device)
+    tgt = pos[:1500]
+    plan = tforces._split_plan(1500, 30_000, 132, per_sm)
+    got = 80.0 * tforces._launch(pos, mass, 1.0, tgt, plan)
+    want = tforces.accel_allpairs_ref(pos, mass, 80.0, 1.0, targets=tgt)
+    torch.cuda.synchronize()
+    _assert_close_to(got, want)
 
 
 @pytest.mark.cuda
@@ -170,7 +221,7 @@ def test_engine_on_card_matches_cpu(cuda_device):
     cfg = tconfig.SimConfig(capacity=16384, mesh_level=10, mesh_band=64,
                             mesh_rescue=4, mesh_switch="poly4",
                             pm_resort_every=4, mesh_chunk=4096)
-    cpu = tengine.Engine(cfg, seed=4)
+    cpu = tengine.Engine(cfg, seed=4, device="cpu")
     cpu.reset_default_scene(n1=12_000, n2=3_000)
     cpu.add_black_hole(1203.0, 400.0)
     card = tengine.Engine(cfg, seed=4, device=cuda_device)

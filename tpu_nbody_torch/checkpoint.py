@@ -32,8 +32,9 @@ def save(path, state: SimState, params: Params, **extra):
     )
 
 
-def load(path, dtype=torch.float32, device="cpu"):
-    """Returns ``(state, params, extra)`` with the state on ``device``."""
+def load(path, dtype=torch.float32, device="cuda"):
+    """Returns ``(state, params, extra)`` with the state on ``device``;
+    raises when ``device`` is CUDA and there is no card."""
     with np.load(path) as z:
         state = convert.state_from_numpy(z["pos"], z["vel"], z["mass"],
                                          z["alive"], z["step"], device,

@@ -14,12 +14,15 @@ import numpy as np
 import torch
 
 from tpu_nbody_torch.config import Params
-from tpu_nbody_torch.state import SimState
+from tpu_nbody_torch.state import SimState, check_device
 
 
-def state_from_numpy(pos, vel, mass, alive, step, device="cpu",
+def state_from_numpy(pos, vel, mass, alive, step, device="cuda",
                      dtype=torch.float32) -> SimState:
-    """A :class:`SimState` on ``device`` from the five state arrays."""
+    """A :class:`SimState` on ``device`` from the five state arrays; raises
+    when ``device`` is CUDA and there is no card."""
+    device = check_device(device)
+
     def t(x, dt):
         return torch.as_tensor(np.array(x), device=device).to(dt)
 

@@ -142,8 +142,9 @@ def _make_pm_sorted_step(cfg: SimConfig, merge_heavy_cap: int) -> Callable:
 class Engine:
     """The reference's scene API over the port's P3M main path.
 
-    ``device`` is where the state lives and the step runs; asking for a CUDA
-    device on a machine without one raises (there is no CPU fallback).
+    ``device`` is where the state lives and the step runs: the card unless
+    the caller passes ``device="cpu"``. Without a card the default raises
+    (there is no CPU fallback).
     ``seed`` seeds a ``torch.Generator`` on that device for the scene
     generators. The defaults for ``solver`` and ``integrator`` are the
     ones the port runs (the JAX engine defaults to "bh" and "kdk").
@@ -152,15 +153,9 @@ class Engine:
     def __init__(self, cfg: SimConfig, params: Params | None = None, *,
                  solver: str = "pm", integrator: str = "kdk_reuse",
                  strict_parity: bool = False, merge_heavy_cap: int = 64,
-                 seed: int = 3, auto_retune: bool = True, device="cpu"):
+                 seed: int = 3, auto_retune: bool = True, device="cuda"):
         check_ported(cfg, solver, integrator, strict_parity)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                               "available; the port does not fall back to "
-                               "the CPU")
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {device!r}")
+        self.device = state_lib.check_device(device)
         self.cfg = cfg
         self.params = params or Params.default()
         self.merge_heavy_cap = merge_heavy_cap
@@ -168,7 +163,7 @@ class Engine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.state = state_lib.empty_state(cfg.capacity, cfg.dim, cfg.tdtype,
-                                           self.device)
+                                           device=self.device)
         self.last_heavy_need: int = 0
         # Max rescue partner blocks any band block wanted in the last
         # step(n); need > cfg.mesh_rescue means the farthest candidate

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, writes into ``build/tpu_nbody_torch/<hash>/`` at the root
-of the checkout (keyed by a hash of the sources and flags), and raises with
-the compiler's output if ``nvcc`` is missing or the build fails. Nothing
-here runs at import time.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The build runs at first
+use, writes into ``build/tpu_nbody_torch/<hash>/`` at the root of the
+checkout (keyed by a hash of the sources, the ``csrc/*.cuh`` headers they
+include and the flags), and raises with the
+compiler's output if ``nvcc`` is missing or the build fails. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +28,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "tpu_nbody_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libtpu_nbody_torch.so"
 
 _P = ctypes.c_void_p
@@ -33,10 +36,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes of every extern "C" launcher; each returns cudaError_t
 SIGNATURES = {
-    # pos, mass, out, cap, band, soft2, a, switch, stream
-    "tnt_band_short_range": [_P, _P, _P, _I, _I, _F, _F, _I, _P],
-    # targets, sources, masses, out, nt, ns, dim, soft2, stream
-    "tnt_allpairs": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # pos, mass, out, cap, band, soft2, inv_scale (1/(4a²) poly4, 1/a²
+    # exp4), switch, T, B, stream
+    "tnt_band_short_range": [_P, _P, _P, _I, _I, _F, _F, _I, _I, _I, _P],
+    # targets, sources, masses, scratch (float64), out, nt, ns, dim, soft2,
+    # splits, stream
+    "tnt_allpairs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # dim -> blocks of that kernel one SM holds at once (0 on error)
+    "tnt_allpairs_blocks_per_sm": [_I],
 }
 
 _lib = None
@@ -59,13 +66,28 @@ def _nvcc() -> str:
                        "kernels of tpu_nbody_torch cannot be built")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; return their joined output, or raise
+    with it if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return log
+
+
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
     the library's path. Records the build seconds and compiler output in
     :data:`last_build`."""
     srcs = sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in srcs:
+    for p in sorted(CSRC.glob("*.cu*")):          # sources and headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
@@ -77,25 +99,42 @@ def build() -> Path:
         return lib_path
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [str(Path(tmp) / (p.stem + ".o")) for p in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                        for p, o in zip(srcs, objs)])
+        lib_tmp = str(Path(tmp) / LIB_NAME)
+        log += _run_all([[nvcc, "-shared", "-o", lib_tmp, *objs]])
+        (out_dir / "build.log").write_text(log)
+        os.replace(lib_tmp, lib_path)  # atomic: concurrent builds are safe
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    (out_dir / "build.log").write_text(log)
-    os.replace(tmp, lib_path)          # atomic: concurrent builds are safe
     last_build.update(path=str(lib_path), seconds=secs, cached=False, log=log)
     return lib_path
 
 
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spill bytes of every kernel in an ``-Xptxas -v`` log:
+    one dict (``name``, ``registers``, ``spill_bytes``) per entry point."""
+    out: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append(dict(name=m.group(1), registers=None, spill_bytes=0))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and out:
+            out[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use. Every function in
+    :data:`SIGNATURES` returns a C int."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -118,9 +157,11 @@ def check_launch(name: str, rc: int):
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}): {msg}")
 
 
-def check_tensor(name: str, t: torch.Tensor, shape: tuple, device=None):
+def check_tensor(name: str, t: torch.Tensor, shape: tuple, device=None,
+                 align: int = 4):
     """Validate a kernel argument: a contiguous float32 CUDA tensor of the
-    given shape (on ``device`` when given)."""
+    given shape (on ``device`` when given) whose data starts on an
+    ``align``-byte boundary (the kernels read some as 8-byte pairs)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor (CPU tensors take "
                          f"the plain version), got device {t.device}")
@@ -133,3 +174,6 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, device=None):
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data must start on a {align}-byte "
+                         f"boundary")

@@ -114,7 +114,7 @@ def _kernel_hats(grid, h, soft2, a, dtype, device, grid_y=None,
 def kernel_hats_for(root_side, soft2, *, mesh_level: int, split_cells: float,
                     mesh_ny: int = 0, dtype=torch.float32, order: int = 2,
                     deconvolve: bool = True, switch: str = "exp4",
-                    device="cpu"):
+                    device):
     """Precompute the (Kx̂, Kŷ, φ̂) long-range kernel FFTs on ``device``.
 
     They depend only on the config and ``soft2``: compute them once per

@@ -33,8 +33,22 @@ class SimState(NamedTuple):
         return self.alive.sum(dtype=torch.int32)
 
 
-def empty_state(capacity: int, dim: int = 2, dtype=torch.float32,
-                device="cpu") -> SimState:
+def check_device(device) -> torch.device:
+    """``device`` as a :class:`torch.device`. Raises for a CUDA device on a
+    machine without one (the port never falls back to the CPU) and for any
+    device type other than ``cpu`` and ``cuda``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r} requested but CUDA is not "
+                           "available; the port does not fall back to the "
+                           "CPU (pass device='cpu' to run there)")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {str(device)!r}")
+    return dev
+
+
+def empty_state(capacity: int, dim: int = 2, dtype=torch.float32, *,
+                device) -> SimState:
     return SimState(
         pos=torch.zeros((capacity, dim), dtype=dtype, device=device),
         vel=torch.zeros((capacity, dim), dtype=dtype, device=device),
@@ -45,16 +59,17 @@ def empty_state(capacity: int, dim: int = 2, dtype=torch.float32,
 
 
 def from_arrays(pos, vel, mass, capacity: int | None = None,
-                device=None) -> SimState:
-    """Build a state from dense (n, dim) arrays, padding up to ``capacity``."""
-    pos = torch.as_tensor(pos, device=device)
+                device="cuda") -> SimState:
+    """Build a state on ``device`` from dense (n, dim) arrays, padding up to
+    ``capacity``; raises when ``device`` is CUDA and there is no card."""
+    pos = torch.as_tensor(pos, device=check_device(device))
     vel = torch.as_tensor(vel, dtype=pos.dtype, device=pos.device)
     mass = torch.as_tensor(mass, dtype=pos.dtype, device=pos.device)
     n, dim = pos.shape
     cap = capacity or n
     if n > cap:
         raise ValueError(f"{n} bodies exceed capacity {cap}")
-    st = empty_state(cap, dim, pos.dtype, pos.device)
+    st = empty_state(cap, dim, pos.dtype, device=pos.device)
     st.pos[:n] = pos
     st.vel[:n] = vel
     st.mass[:n] = mass
@@ -89,7 +104,7 @@ def concat_bodies(state: SimState, pos, vel, mass) -> SimState:
 def clear(state: SimState) -> SimState:
     """Remove all bodies (middle-mouse clear, ``NBodyPanel.kt:143-146``)."""
     return empty_state(state.capacity, state.dim, state.pos.dtype,
-                       state.pos.device)._replace(step=state.step)
+                       device=state.pos.device)._replace(step=state.step)
 
 
 def compact(state: SimState) -> SimState:
