@@ -1,6 +1,8 @@
 """The port's package boundary: no jax, kernels built lazily, no silent
 fallback from a CUDA request, refusals of unported knobs, and the launch
-counters. Tests that need a card skip here (marker ``cuda``)."""
+counters. Tests that need a card skip here (marker ``cuda``); they also
+hold the all-pairs engine and the P3M knobs on the card against the same
+calls on the CPU."""
 
 import re
 from pathlib import Path
@@ -81,23 +83,38 @@ def test_cpu_calls_do_not_count_launches():
     dict(cfg=dict(pm_mesh_every=4)), dict(cfg=dict(pm_heavy_cap=16)),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_engine_refuses_unported_knobs(kw):
+    """Of the knobs refused before the rest of the 2D engine was ported,
+    Barnes-Hut is still not ported (NotImplementedError), strict_parity
+    outside bh and subcycling without a heavy cap are refused as invalid
+    (ValueError), and every other one now builds and runs a step."""
     kw = dict(kw)
     cfg = tconfig.SimConfig(**CFG, **kw.pop("cfg", {}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tengine.Engine(cfg, device="cpu", **kw)
+    if kw.get("solver") == "bh":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tengine.Engine(cfg, device="cpu", **kw)
+    elif kw.get("strict_parity") or cfg.pm_mesh_every > 1:
+        with pytest.raises(ValueError):
+            tengine.Engine(cfg, device="cpu", **kw)
+    else:
+        eng = tengine.Engine(cfg, device="cpu", **kw)
+        eng.reset_default_scene(n1=300, n2=100)
+        eng.step(1)
+        assert torch.isfinite(eng.state.pos).all()
 
 
 def test_mesh_functions_refuse_unported_knobs():
+    """Mesh knobs the JAX package does not define either raise: an
+    assignment order other than 1-3, and a run-compression window that
+    does not divide the bodies."""
     pos = torch.rand((64, 2)) * 100
     mass = torch.ones(64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="divide"):
         tmesh._deposit_packed(mass, torch.zeros(64, dtype=torch.int32),
-                              torch.ones((64, 4)), 16, 32, run_compress=True)
+                              torch.ones((64, 4)), 16, 32, run_compress=24)
     alive = torch.ones(64, dtype=torch.bool)
     common = dict(mesh_level=5, split_cells=2.5, band=32, chunk=64)
-    for bad in (dict(order=3), dict(interlace=True), dict(heavy_cap=4),
-                dict(rescue_k=2, rescue_k_hot=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for bad in (dict(order=4), dict(order=0)):
+        with pytest.raises(ValueError, match="order"):
             tmesh.pm_accel(pos, mass, alive, 80.0, 1.0, (0.0, 0.0), 128.0,
                            **common, **bad)
 
@@ -238,3 +255,61 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert float(dpos) <= 1e-2
     assert (card.last_rescue_need, card.last_heavy_need) == \
         (cpu.last_rescue_need, cpu.last_heavy_need)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator,launches", [("kdk_reuse", 3),
+                                                 ("kdk", 4), ("euler", 2)])
+def test_allpairs_engine_on_card_matches_cpu(cuda_device, integrator,
+                                             launches):
+    """solver="allpairs" at N=8192 on the card (every force pass through
+    the all-pairs kernel, launches counted) against the plain version on
+    the CPU, one step(2): alive masks equal, positions within 1e-2 px."""
+    from tpu_nbody_torch import convert
+    cfg = tconfig.SimConfig(capacity=8192)
+    cpu = tengine.Engine(cfg, solver="allpairs", integrator=integrator,
+                         seed=5, device="cpu")
+    cpu.reset_default_scene(n1=6000, n2=2000)
+    card = tengine.Engine(cfg, solver="allpairs", integrator=integrator,
+                          seed=5, device=cuda_device)
+    card.state = convert.state_from_numpy(*[x.numpy() for x in cpu.state],
+                                          device=cuda_device)
+    n0 = tforces.LAUNCHES
+    card.step(2)
+    torch.cuda.synchronize()
+    assert tforces.LAUNCHES == n0 + launches
+    cpu.step(2)
+    assert torch.equal(card.state.alive.cpu(), cpu.state.alive)
+    alive = cpu.state.alive
+    dpos = (card.state.pos.cpu() - cpu.state.pos)[alive].abs().max()
+    assert float(dpos) <= 1e-2
+    assert card.last_heavy_need == cpu.last_heavy_need
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [dict(heavy_cap=16), dict(order=3),
+                                   dict(order=3, heavy_cap=16,
+                                        interlace=True, rescue_k_hot=16)])
+def test_pm_accel_knobs_on_card_match_cpu(cuda_device, knobs):
+    """pm_accel with heavy-direct, TSC and the other knobs on the card
+    (band kernel, cuFFT, atomic deposit) against the same call on CPU
+    tensors: stats equal, 1e-4 of the largest magnitude (FFT libraries
+    and the deposit's atomics sum in other orders)."""
+    from tpu_nbody_torch.models import scenes
+    g = torch.Generator().manual_seed(6)
+    p, _, m = scenes.default_two_disk_scene(g, n1=40_000, n2=10_000)
+    alive = torch.ones(50_000, dtype=torch.bool)
+    kw = dict(mesh_level=10, split_cells=2.5, band=128, chunk=16384,
+              rescue_k=4, mesh_ny=512, return_stats=True, switch="poly4",
+              **knobs)
+    args = (80.0, 1.0, (-2.0, -802.0), 2404.0)
+    want, st_cpu = tmesh.pm_accel(p, m, alive, *args, **kw)
+    n0 = tband.LAUNCHES
+    got, st = tmesh.pm_accel(p.to(cuda_device), m.to(cuda_device),
+                             alive.to(cuda_device), *args, **kw)
+    torch.cuda.synchronize()
+    assert tband.LAUNCHES == n0 + 1
+    assert {k: int(v) for k, v in st.items()} == \
+        {k: int(v) for k, v in st_cpu.items()}
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())

@@ -2,11 +2,12 @@
 
 Same module layout and function names as :mod:`tpu_nbody`, so each ported
 function sits at the same path as its JAX counterpart. The port runs the
-P3M main path (``solver="pm"``, ``integrator="kdk_reuse"``, persistent
-Hilbert-sorted state) on one NVIDIA Hopper card; the two Pallas kernels of
-the JAX package are hand-written CUDA C++ under ``csrc/``. Knobs the port
-does not carry yet raise ``NotImplementedError`` with a pointer to
-``ROADMAP.md``. This package never imports jax.
+2D engine's P3M and exact all-pairs solvers with the kdk, kdk_reuse and
+euler integrators and every P3M knob on one NVIDIA Hopper card; the two
+Pallas kernels of the JAX package are hand-written CUDA C++ under
+``csrc/``. Barnes–Hut and 3D are not carried yet and raise
+``NotImplementedError`` with a pointer to ``ROADMAP.md``. This package
+never imports jax.
 """
 
 from tpu_nbody_torch.config import Params, SimConfig

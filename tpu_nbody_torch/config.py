@@ -65,17 +65,23 @@ class SimConfig:
     mesh_split: float = 4.0        # short/long split radius in cell units
     mesh_band: int = 256           # sorted-order block size for F_short
     mesh_chunk: int = 16384        # bodies per band/rescue chunk (memory bound)
-    mesh_order: int = 2            # mass assignment: only 2 (CIC) is ported
+    mesh_order: int = 2            # mass assignment: 1 NGP, 2 CIC, 3 TSC
     mesh_switch: str = "exp4"      # short/long switch: "exp4" or "poly4"
     mesh_deconvolve: bool = True   # bake the 1/What^2 sharpening into the hats
-    mesh_interlace: bool = False   # half-cell-shifted second mesh: not ported
+    mesh_interlace: bool = False   # average a half-cell-shifted second mesh
     mesh_ny: int = 0               # rectangular mesh rows (0 = square)
     mesh_rescue: int = 4           # rescue partner blocks per band block
-    mesh_rescue_hot: int = 0       # two-tier rescue: not ported (must be 0)
-    pm_persistent_sort: bool = True  # must be True: the sorted-carry step
+    mesh_rescue_hot: int = 0       # two-tier rescue: partner blocks of a hot
+                                   # block (need > mesh_rescue); 0 = one tier
+    mesh_rescue_hot_cap: int = 128  # most hot blocks a pass serves
+    pm_persistent_sort: bool = True  # pm + kdk_reuse: sorted-carry step
     pm_resort_every: int = 8       # steps between re-sorts
-    pm_mesh_every: int = 1         # F_long subcycling: not ported (must be 1)
-    pm_heavy_cap: int = 0          # heavy-direct F_long: not ported (must be 0)
+    pm_mesh_every: int = 1         # F_long subcycling: steps between mesh
+                                   # refreshes (> 1 needs pm_heavy_cap > 0)
+    pm_heavy_cap: int = 0          # heaviest bodies kept off the mesh, their
+                                   # F_long summed directly every step
+    pm_self_correct: bool = True   # cancel the stale-grid self-term
+    pm_mesh_extrapolate: bool = False  # subcycling: extrapolate T + age/M·ΔT
     dtype: str = "float32"
 
     @property

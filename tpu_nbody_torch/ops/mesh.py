@@ -1,26 +1,29 @@
 """P3M (particle-mesh + short-range pair correction) force solver — port of
-tpu_nbody.ops.mesh, fresh-pass path.
+tpu_nbody.ops.mesh.
 
 The softened force law F(d) = G m d / (|d|² + ε²)^{3/2}
 (``BarnesHutAlg.kt:250-259``) is split as F = w·F + (1 − w)·F with a
 short-range switch w (:func:`_short_weight`):
 
 * F_long = (1 − w)·F is smooth at the split scale ``a`` and is computed on a
-  mesh: CIC deposit, one zero-padded FFT convolution with a precomputed
-  potential kernel, a 6th-order finite-difference gradient, and CIC
-  interpolation back to the bodies;
+  mesh: mass assignment (NGP, CIC or TSC), one zero-padded FFT convolution
+  with a precomputed potential kernel, a 6th-order finite-difference
+  gradient, and interpolation back to the bodies with the same assignment;
+  optionally averaged with a half-cell-shifted second mesh (interlace);
 * F_short = w·F is summed over a block-tridiagonal band in Hilbert order
   (:mod:`tpu_nbody_torch.ops.band`, the hand-written kernel on the card)
   plus an exact block rescue for neighbours the curve puts far apart
-  (:func:`_block_rescue`).
+  (:func:`_block_rescue`, one or two tiers).
+
+The long-range grids can also be carried across steps
+(:func:`pm_mesh_state`): F_long subcycling, with the heaviest bodies kept
+off the mesh and summed directly (:func:`_heavy_direct`) and the stale
+self-image cancelled (:func:`_self_term`).
 
 The FFTs go to the device's FFT library through ``torch.fft``; deposit,
-interpolation and rescue are plain torch in this port so far (hand kernels
-for them are listed in ROADMAP.md, queue 2).
-
-Not ported yet, and refused with ``NotImplementedError``: TSC/NGP
-assignment, interlacing, two-tier rescue, the run-compressed deposit modes
-and the carried-mesh (subcycling / heavy-direct) path.
+interpolation, rescue, the heavy-direct sum and the self-term are plain
+torch in this port so far (hand kernels for them are listed in ROADMAP.md,
+queue 2).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tpu_nbody_torch.config import ROADMAP_NOTE, f32
+from tpu_nbody_torch.config import f32
 from tpu_nbody_torch.ops import band as band_ops
 from tpu_nbody_torch.ops import morton
 # The switch and the block layout are shared with the band pass, which owns
@@ -38,9 +41,13 @@ from tpu_nbody_torch.ops import morton
 from tpu_nbody_torch.ops.band import (  # noqa: F401
     SWITCHES, _block_bounds, _check_switch, _short_weight)
 
+ORDERS = (1, 2, 3)          # NGP, CIC, TSC
 
-def _refuse(what: str):
-    raise NotImplementedError(f"{what}: {ROADMAP_NOTE}")
+
+def _check_order(order: int):
+    if order not in ORDERS:
+        raise ValueError(f"unknown mesh order {order!r}; expected one of "
+                         f"{ORDERS} (1 NGP, 2 CIC, 3 TSC)")
 
 
 def _hilbert_sort(pos, mass, alive, origin, side):
@@ -119,9 +126,9 @@ def kernel_hats_for(root_side, soft2, *, mesh_level: int, split_cells: float,
 
     They depend only on the config and ``soft2``: compute them once per
     ``step(n)`` call and pass them as ``pm_accel(..., kernel=...)``.
+    ``order`` and ``deconvolve`` must match the consuming assignment.
     """
-    if order != 2:
-        _refuse(f"mesh_order={order}")
+    _check_order(order)
     nw = 1 << mesh_level
     ny = mesh_ny or nw
     grid = 2 * nw
@@ -133,23 +140,49 @@ def kernel_hats_for(root_side, soft2, *, mesh_level: int, split_cells: float,
 
 
 def _topk_lowest_index(score, k):
-    """``torch.topk`` of non-negative scores along dim 1, ties broken
+    """``torch.topk`` of float32 scores along the last dim, ties broken
     towards the lower index as ``jax.lax.top_k`` breaks them.
 
-    The float bits of a non-negative float32 order like the value, so the
-    int64 key (bits << 32) | (n − 1 − index) has no ties.
+    The float bits, with the 31 low bits flipped for negative values,
+    order like the value as int32, so the int64 key
+    (bits << 32) | (n − 1 − index) has no ties.
     """
-    n = score.shape[1]
+    n = score.shape[-1]
     idx = torch.arange(n - 1, -1, -1, device=score.device)
-    key = (score.view(torch.int32).to(torch.int64) << 32) | idx
-    _, midx = torch.topk(key, k, dim=1)
-    return torch.gather(score, 1, midx), midx
+    bits = score.view(torch.int32)
+    bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    key = (bits.to(torch.int64) << 32) | idx
+    _, midx = torch.topk(key, k, dim=-1)
+    return torch.gather(score, -1, midx), midx
+
+
+def _box_gaps(bb, bminx, bmaxx, bminy, bmaxy):
+    """Squared gaps between the boxes ``bb`` (m, 4) and every block box."""
+    gx = torch.clamp(torch.maximum(bb[:, 0:1] - bmaxx[None, :],
+                                   bminx[None, :] - bb[:, 1:2]), min=0.0)
+    gy = torch.clamp(torch.maximum(bb[:, 2:3] - bmaxy[None, :],
+                                   bminy[None, :] - bb[:, 3:4]), min=0.0)
+    return gx * gx + gy * gy
+
+
+def _pair_sum(ctr, part, pm, soft2, a, switch):
+    """Switched short-range pair sum of targets ``ctr`` (m, S, 3) over the
+    partner rows ``part`` (m, P, 3) with masses ``pm`` (m, P): (m, S, 2)."""
+    dx = part[:, None, :, 0] - ctr[:, :, None, 0]           # (m, S, P)
+    dy = part[:, None, :, 1] - ctr[:, :, None, 1]
+    r2 = dx * dx + dy * dy
+    inv = torch.rsqrt(r2 + soft2)
+    w = pm[:, None, :] * (inv * inv * inv)
+    w = w * _short_weight(r2, a, switch)
+    return torch.stack([torch.sum(w * dx, dim=2),
+                        torch.sum(w * dy, dim=2)], dim=-1)
 
 
 def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
-                  chunk: int, k_hot: int = 0, switch: str = "exp4"):
+                  chunk: int, k_hot: int = 0, hot_cap: int = 128,
+                  switch: str = "exp4"):
     """Exact short-range rescue for pairs more than one block apart in
-    sorted order (single tier).
+    sorted order.
 
     Per band block: alive-only bounding boxes, a chunked (cb, B) box-gap
     test against the cutoff 2a, the ``k`` closest partner blocks that are
@@ -158,11 +191,14 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
     (cb, S, kS) pair sum. Returns ``(acc_sorted (cap, 2), need,
     hot_count)``: ``need`` is the largest partner count any block wanted
     (coverage is exact iff need <= k), ``hot_count`` the number of blocks
-    that wanted more than ``k``. See the JAX version for the measurements
-    behind the design.
+    that wanted more than ``k``.
+
+    Two tiers (``k_hot > k``): the at most ``hot_cap`` hot blocks (need >
+    ``k``), found in block order by a rank search, also sum their partner
+    ranks ``k..k_hot-1`` of the same closest-first ranking, added into
+    their rows with ``index_add_``; hot blocks past ``hot_cap`` stay at the
+    base tier. See the JAX version for the measurements behind the design.
     """
-    if k_hot > k:
-        _refuse("two-tier rescue (mesh_rescue_hot > 0)")
     _check_switch(switch)
     cap = spos.shape[0]
     S = band
@@ -181,65 +217,98 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
     bmaxx = torch.where(lv, X[..., 0], -big).amax(dim=1)
     bminy = torch.where(lv, X[..., 1], big).amin(dim=1)
     bmaxy = torch.where(lv, X[..., 1], -big).amax(dim=1)
+    boxes = (bminx, bmaxx, bminy, bmaxy)
     rcut2 = (2.0 * a) * (2.0 * a)
 
     k = min(k, B)
     n_pad = n_chunks * cb - B
     Xb = F.pad(X.reshape(B, S * 3), (0, 0, 0, n_pad))
-    bbox = torch.stack([bminx, bmaxx, bminy, bmaxy], dim=1)
+    bbox = torch.stack(boxes, dim=1)
     bbox = torch.cat([bbox, torch.tensor([big, -big, big, -big], dtype=dtype,
                                          device=dev).expand(n_pad, 4)])
     idx_all = torch.arange(B, device=dev)
     accs, cnts = [], []
     for c in range(n_chunks):
         b0 = c * cb
-        bb = bbox[b0:b0 + cb]                                # my boxes
-        gx = torch.clamp(torch.maximum(bb[:, 0:1] - bmaxx[None, :],
-                                       bminx[None, :] - bb[:, 1:2]), min=0.0)
-        gy = torch.clamp(torch.maximum(bb[:, 2:3] - bmaxy[None, :],
-                                       bminy[None, :] - bb[:, 3:4]), min=0.0)
-        g2 = gx * gx + gy * gy
-        near = g2 < rcut2                                    # (cb, B)
+        g2 = _box_gaps(bbox[b0:b0 + cb], *boxes)              # (cb, B)
         dblk = (b0 + torch.arange(cb, device=dev))[:, None] - idx_all[None, :]
-        mask = near & (dblk.abs() > 1)
+        mask = (g2 < rcut2) & (dblk.abs() > 1)
         cnts.append(mask.sum(dim=1, dtype=torch.int32))     # partners needed
         score = torch.where(mask, rcut2 - g2, 0.0)
         mval, midx = _topk_lowest_index(score, k)            # (cb, k)
-        mval = (mval > 0).to(dtype)
-        part = Xb[midx].reshape(cb, k, S, 3)                 # block row gather
-        pm = (part[..., 2] * mval[:, :, None]).reshape(cb, k * S)
-        px = part[..., 0].reshape(cb, k * S)
-        py = part[..., 1].reshape(cb, k * S)
-        ctr = Xb[b0:b0 + cb].reshape(cb, S, 3)
-        dx = px[:, None, :] - ctr[:, :, None, 0]             # (cb, S, kS)
-        dy = py[:, None, :] - ctr[:, :, None, 1]
-        r2 = dx * dx + dy * dy
-        inv = torch.rsqrt(r2 + soft2)
-        w = pm[:, None, :] * (inv * inv * inv)
-        w = w * _short_weight(r2, a, switch)
-        accs.append(torch.stack([torch.sum(w * dx, dim=2),
-                                 torch.sum(w * dy, dim=2)], dim=-1))
+        part = Xb[midx].reshape(cb, k * S, 3)                # block row gather
+        pm = (part[..., 2].reshape(cb, k, S)
+              * (mval > 0).to(dtype)[:, :, None]).reshape(cb, k * S)
+        accs.append(_pair_sum(Xb[b0:b0 + cb].reshape(cb, S, 3), part, pm,
+                              soft2, a, switch))
     acc = torch.cat(accs).reshape(n_chunks * cb * S, 2)
     cnt_all = torch.cat(cnts)[:B]                            # exact needs
     need = cnt_all.max()
     hot_count = (cnt_all > k).sum(dtype=torch.int32)
+
+    if k_hot > k:
+        H = min(hot_cap, B)
+        kh = min(k_hot, B)
+        hrank = torch.cumsum((cnt_all > k).to(torch.int64), 0)  # 1-indexed
+        hid = torch.clamp(torch.searchsorted(
+            hrank, torch.arange(1, H + 1, device=dev), side="left"),
+            0, B - 1)
+        hvalid = torch.arange(H, device=dev) < torch.clamp(hot_count, max=H)
+        g2 = _box_gaps(bbox[hid], *boxes)                     # (H, B)
+        mask = (g2 < rcut2) & ((hid[:, None] - idx_all[None, :]).abs() > 1)
+        score = torch.where(mask, rcut2 - g2, 0.0)
+        mval, midx = _topk_lowest_index(score, kh)            # (H, kh)
+        k2 = kh - k                                           # ranks k..kh-1
+        pmask = ((mval[:, k:] > 0) & hvalid[:, None]).to(dtype)
+        part = Xb[midx[:, k:]].reshape(H, k2 * S, 3)
+        pm = (part[..., 2].reshape(H, k2, S)
+              * pmask[:, :, None]).reshape(H, k2 * S)
+        acc2 = _pair_sum(Xb[hid].reshape(H, S, 3), part, pm, soft2, a,
+                         switch)                              # (H, S, 2)
+        rows = (hid[:, None] * S
+                + torch.arange(S, device=dev)[None, :]).reshape(-1)
+        acc.index_add_(0, rows, torch.where(hvalid[:, None, None], acc2,
+                                            0.0).reshape(-1, 2))
     return acc[:cap], need, hot_count
 
 
 def _cic_cells(spos, origin, h, nw, order, ny=None):
-    """Base world cell (row-major, clipped) and the four CIC weights for
-    offsets [(0,0), (+x,0), (0,+y), (+x,+y)] in cell-centre coordinates.
+    """Base world cell (row-major, clipped) and the per-offset weights.
+
+    Order 2 (CIC): weights (n, 4) for offsets [(0,0), (+x,0), (0,+y),
+    (+x,+y)] in cell-centre coordinates. Order 1 (NGP): weights (n, 1) for
+    the containing cell. Order 3 (TSC): weights (n, 9) for the 3x3 window
+    around the containing cell in the offset order k = 3·oy + ox, the base
+    at its low corner; per axis [(0.5−d)²/2, 0.75−d², (0.5+d)²/2] at the
+    offset d of the body from the containing cell's centre.
 
     The base is clipped to [0, n-1] per axis (nw columns, ``ny`` or nw
-    rows); positive offsets reach row/column n, the first padded row/column
-    of the FFT domain.
+    rows); positive offsets reach row/column n (n+1 for TSC), the first
+    padded rows/columns of the FFT domain.
     """
-    if order != 2:
-        _refuse(f"mesh_order={order}")
+    _check_order(order)
     dtype = spos.dtype
     ny = nw if ny is None else ny
     org = torch.as_tensor(origin, dtype=dtype, device=spos.device)
     scaled = (spos - org) / h
+    if order == 1:
+        c = torch.floor(scaled).to(torch.int32)
+        cx = torch.clamp(c[:, 0], 0, nw - 1)
+        cy = torch.clamp(c[:, 1], 0, ny - 1)
+        return cy * nw + cx, torch.ones((spos.shape[0], 1), dtype=dtype,
+                                        device=spos.device)
+    if order == 3:
+        c = torch.floor(scaled).to(torch.int32)       # containing cell
+        d = (scaled - c.to(dtype)) - 0.5              # in [-0.5, 0.5)
+        bx = torch.clamp(c[:, 0] - 1, 0, nw - 1)
+        by = torch.clamp(c[:, 1] - 1, 0, ny - 1)
+
+        def w3(di):
+            return torch.stack([0.5 * (0.5 - di) ** 2, 0.75 - di * di,
+                                0.5 * (0.5 + di) ** 2], dim=1)   # (n, 3)
+
+        wx, wy = w3(d[:, 0]), w3(d[:, 1])
+        return by * nw + bx, (wy[:, :, None] * wx[:, None, :]).reshape(-1, 9)
     u = scaled - 0.5                   # in cell-CENTER coordinates
     b = torch.floor(u).to(torch.int32)
     frac = u - b.to(dtype)             # in [0, 1)
@@ -251,53 +320,117 @@ def _cic_cells(spos, origin, h, nw, order, ny=None):
     return by * nw + bx, w4
 
 
-def _deposit_packed(smass, base, w, nw, grid, run_compress: bool = False,
+def _compressed_planes(base, first, contrib, cells):
+    """Scatter each run's sum ``contrib`` (K, n), kept where ``first`` is
+    set, into K planes of ``cells``; the other rows go to a dump cell."""
+    tgt = torch.where(first, base, cells)
+    vals_f = torch.where(first[None, :], contrib, 0.0)
+    return [torch.zeros((cells + 1,), dtype=contrib.dtype,
+                        device=contrib.device)
+            .index_add_(0, tgt, v)[:cells] for v in vals_f]
+
+
+def _deposit_packed(smass, base, w, nw, grid, run_compress=False,
                     ny=None, grid_y=None):
-    """Mass deposit: four independent plane scatter-adds (one per CIC
-    offset, all at the shared base cell), then a pad-shift combine into
-    the padded (grid_y, grid) FFT grid.
+    """Mass deposit: K independent plane scatter-adds (one per assignment
+    offset, all at the shared base cell; K = 1, 4 or 9), then a pad-shift
+    combine into the padded (grid_y, grid) FFT grid.
+
+    ``run_compress`` (bodies in Hilbert order, so same-cell bodies form
+    runs of equal ``base``) pre-sums runs before the scatter:
+
+    * ``True`` / ``1``: exact run sums. Torch has no associative scan, so
+      this is a segment sum by run id (``index_add_`` of each body into its
+      run's slot), gathered back to each run's first body;
+    * integer ``W > 1``: same-cell bodies are pre-summed within fixed
+      W-slot windows by dense compares (no scan); the body count must be a
+      multiple of W.
 
     ``index_add_`` uses atomics on the card, so the per-cell summation
-    order changes from run to run there.
+    order changes from run to run there. Every mode is exact up to that
+    order.
     """
-    if run_compress:
-        _refuse(f"run_compress={run_compress!r}")
-    if w.shape[1] != 4:
-        _refuse(f"deposit with {w.shape[1]} cells per body")
     dtype = smass.dtype
     ny = nw if ny is None else ny
     grid_y = grid if grid_y is None else grid_y
-    planes = [torch.zeros((ny * nw,), dtype=dtype, device=smass.device)
-              .index_add_(0, base, smass * w[:, k]).reshape(ny, nw)
-              for k in range(4)]
+    n, K = w.shape
+    cells = ny * nw
+    vals = (smass[:, None] * w).T                             # (K, n)
+    if run_compress and int(run_compress) > 1:
+        W = int(run_compress)
+        if n % W:
+            raise ValueError(f"run_compress window {W} does not divide the "
+                             f"{n} bodies")
+        bw = base.reshape(n // W, W)
+        eq = bw[:, :, None] == bw[:, None, :]                 # (nb, W, W)
+        jj = torch.arange(W, device=base.device)
+        upper = jj[:, None] <= jj[None, :]                    # k >= j
+        first = ~torch.any(eq & ~upper, dim=2)                # no earlier eq
+        take = eq & upper                                     # (nb, W, W)
+        vw = vals.reshape(K, n // W, 1, W)
+        contrib = torch.where(take[None], vw, 0.0).sum(dim=3).reshape(K, n)
+        planes = _compressed_planes(base, first.reshape(n), contrib, cells)
+    elif run_compress:
+        first = torch.ones((n,), dtype=torch.bool, device=base.device)
+        first[1:] = base[1:] != base[:-1]
+        run = torch.cumsum(first.to(torch.int64), 0) - 1      # run id
+        runsum = torch.zeros_like(vals).index_add_(1, run, vals)
+        planes = _compressed_planes(base, first, runsum[:, run], cells)
+    else:
+        planes = [torch.zeros((cells,), dtype=dtype, device=smass.device)
+                  .index_add_(0, base, vals[k]) for k in range(K)]
+    planes = [p.reshape(ny, nw) for p in planes]
     # F.pad pads the last dim first: (left, right, top, bottom)
-    world = (F.pad(planes[0], (0, 1, 0, 1)) + F.pad(planes[1], (1, 0, 0, 1))
-             + F.pad(planes[2], (0, 1, 1, 0)) + F.pad(planes[3], (1, 0, 1, 0)))
+    if K == 1:
+        world = F.pad(planes[0], (0, 1, 0, 1))
+    elif K == 9:
+        # TSC: 3x3 offsets from the base (low corner), canvas (ny+2, nw+2)
+        world = sum(F.pad(planes[3 * oy + ox], (ox, 2 - ox, oy, 2 - oy))
+                    for oy in range(3) for ox in range(3))
+    else:
+        world = (F.pad(planes[0], (0, 1, 0, 1))
+                 + F.pad(planes[1], (1, 0, 0, 1))
+                 + F.pad(planes[2], (0, 1, 1, 0))
+                 + F.pad(planes[3], (1, 0, 1, 0)))
     rho = torch.zeros((grid_y, grid), dtype=dtype, device=smass.device)
-    rho[:ny + 1, :nw + 1] = world
+    rho[:world.shape[0], :world.shape[1]] = world
     return rho
 
 
 def _interp_table(fx, fy, nw, order, ny=None):
-    """Pack the (fx, fy) values of the four CIC cells into one
-    (ny*nw, 8) row per base cell, so each body fetches one row."""
-    if order != 2:
-        _refuse(f"mesh_order={order}")
+    """Pack the (fx, fy) values of every cell a body of the given
+    assignment order touches into one (ny*nw, 2K) row per base cell
+    (K = 1 NGP, 4 CIC, 9 TSC), so each body fetches one row."""
     ny = nw if ny is None else ny
 
     def sl(g, dy, dx):
         return g[dy:dy + ny, dx:dx + nw]
 
-    T = torch.stack([sl(fx, 0, 0), sl(fy, 0, 0), sl(fx, 0, 1), sl(fy, 0, 1),
-                     sl(fx, 1, 0), sl(fy, 1, 0), sl(fx, 1, 1), sl(fy, 1, 1)],
-                    dim=-1)
-    return T.reshape(ny * nw, 8)
+    if order == 1:
+        offsets = [(0, 0)]
+    elif order == 3:
+        offsets = [(oy, ox) for oy in range(3) for ox in range(3)]
+    else:
+        offsets = [(0, 0), (0, 1), (1, 0), (1, 1)]
+    T = torch.stack([s for oy, ox in offsets
+                     for s in (sl(fx, oy, ox), sl(fy, oy, ox))], dim=-1)
+    return T.reshape(ny * nw, 2 * len(offsets))
 
 
-def _interp_rows(T, base, w):
-    """One row gather per body from :func:`_interp_table`, weighted."""
+def _interp_rows(T, base, w, frac=None):
+    """One row gather per body from :func:`_interp_table`, weighted.
+
+    A table with 4K lanes carries ``[T | ΔT]`` (:func:`pm_mesh_state`):
+    the gathered rows are extrapolated ``T + frac·ΔT`` (``frac`` None
+    reads T alone).
+    """
     K = w.shape[1]
     rows = T[base]                                  # (n, 2K) single gather
+    if T.shape[1] == 4 * K:
+        rows = (rows[:, :2 * K] if frac is None
+                else rows[:, :2 * K] + frac * rows[:, 2 * K:])
+    if K == 1:
+        return rows * w[:, 0:1]
     ax = sum(w[:, k] * rows[:, 2 * k] for k in range(K))
     ay = sum(w[:, k] * rows[:, 2 * k + 1] for k in range(K))
     return torch.stack([ax, ay], dim=-1)
@@ -307,17 +440,19 @@ def _interp_packed(fx, fy, base, w, nw, ny=None):
     """Force interpolation with one row gather per body; mirrors
     :func:`_deposit_packed`'s assignment so the odd kernel's self-force
     cancels."""
-    return _interp_rows(_interp_table(fx, fy, nw, 2, ny=ny), base, w)
+    order = {1: 1, 4: 2, 9: 3}[w.shape[1]]
+    return _interp_rows(_interp_table(fx, fy, nw, order, ny=ny), base, w)
 
 
 def _conv_potential(rho, phi_hat, ny, grid, grid_y, extra=0):
     """Trimmed FFT convolution: deposited grid -> potential FD window.
 
-    Only rows 0..ny+1 of the padded grid hold mass, so the forward row
-    transforms run on those; only potential rows -3..ny+3 feed the FD
-    stencil, so the inverse row transforms run on ny+7 rows (the three
-    negative rows wrap to the far padded edge, ``sp[-3:]``). The column
-    transforms stay full. Returns the (ny+7+extra, grid) rows -3..ny+3.
+    Only rows 0..ny+1+extra of the padded grid hold mass, so the forward
+    row transforms run on those; only potential rows -3..ny+3+extra feed
+    the FD stencil, so the inverse row transforms run on ny+7+extra rows
+    (the three negative rows wrap to the far padded edge, ``sp[-3:]``). The
+    column transforms stay full. ``extra`` is 1 for TSC's longer reach.
+    Returns the (ny+7+extra, grid) rows -3..ny+3+extra.
     """
     occ = ny + 2 + extra
     rh = torch.fft.rfft(rho[:occ], dim=1)
@@ -331,24 +466,26 @@ def _mesh_grids_one(spos, smass, origin, h, nw, grid, order, kernel,
                     ny=None):
     """Deposit -> FFT convolution -> 6th-order FD gradient.
 
-    Returns the force-grid windows ``(fx, fy)`` of shape (ny+1, nw+1): the
-    long-range field at world cell corners. The stencil's three negative
-    taps per axis wrap to the far padded edge (the ``sp[-3:]`` rows and the
-    column roll), as in the JAX version.
+    Returns the force-grid windows ``(fx, fy)`` of shape (ny+1+reach,
+    nw+1+reach), reach 1 for TSC and 0 otherwise: the long-range field at
+    world cell corners. The stencil's three negative taps per axis wrap to
+    the far padded edge (the ``sp[-3:]`` rows and the column roll), as in
+    the JAX version.
     """
     ny = nw if ny is None else ny
     grid_y = grid if ny == nw else 2 * ny
+    reach = 1 if order == 3 else 0  # TSC reads one more row/col of (fx, fy)
     base, w = _cic_cells(spos, origin, h, nw, order, ny=ny)
     rho = _deposit_packed(smass, base, w, nw, grid, ny=ny, grid_y=grid_y)
     _, _, phi_hat = kernel
-    pw = _conv_potential(rho, phi_hat, ny, grid, grid_y)
-    win = nw + 7
+    pw = _conv_potential(rho, phi_hat, ny, grid, grid_y, extra=reach)
+    win = nw + 7 + reach
     pw = torch.roll(pw, 3, dims=1)[:, :win]
     c1 = 45.0 / (60.0 * h)
     c2 = 9.0 / (60.0 * h)
     c3 = 1.0 / (60.0 * h)
-    mx = nw + 1
-    my = ny + 1
+    mx = nw + 1 + reach
+    my = ny + 1 + reach
     fx = (c1 * (pw[3:3 + my, 4:4 + mx] - pw[3:3 + my, 2:2 + mx])
           - c2 * (pw[3:3 + my, 5:5 + mx] - pw[3:3 + my, 1:1 + mx])
           + c3 * (pw[3:3 + my, 6:6 + mx] - pw[3:3 + my, 0:0 + mx]))
@@ -391,12 +528,109 @@ def _pm_geometry(origin, root_side, mesh_level, mesh_ny, split_cells):
     return nw, ny, grid, grid_y, h, a, (ox, oy)
 
 
+def _interlaced(morigin, h):
+    """The second mesh's origin, half a cell below and left of ``morigin``
+    (float32 values, as the JAX version computes ``morigin - 0.5 * h``)."""
+    return (f32(morigin[0] - 0.5 * h), f32(morigin[1] - 0.5 * h))
+
+
+def pm_mesh_state(spos, smass, salive, soft2, origin, root_side, *,
+                  mesh_level: int, split_cells: float, order: int = 2,
+                  interlace: bool = False, mesh_ny: int = 0,
+                  heavy_cap: int = 0, deconvolve: bool = True, kernel=None,
+                  prev=None, switch: str = "exp4"):
+    """Build the carried long-range mesh state for F_long subcycling.
+
+    Returns ``(grids, dep_pos, dep_wmass, heavy_mask)``:
+
+    * ``grids``: one (two with ``interlace``) packed interpolation tables
+      (:func:`_interp_table` of the :func:`_mesh_grids_one` windows). With
+      ``prev`` the previous refresh's ``grids``, each table carries
+      ``[T | ΔT]`` in 4K lanes, ΔT = T − T_prev, for per-step
+      extrapolation; ``prev="zero"`` gives ΔT = 0 in that layout (the seed
+      state); ``prev=None`` a plain 2K-lane table;
+    * ``dep_pos``: the positions the deposit saw (for :func:`_self_term`);
+    * ``dep_wmass``: the mass deposited per body (dead and heavy zeroed);
+    * ``heavy_mask``: the ``heavy_cap`` heaviest alive bodies (ties to the
+      lower index, as ``jax.lax.top_k``), kept off the mesh; their F_long
+      comes from :func:`_heavy_direct` every step instead.
+    """
+    dtype, dev = spos.dtype, spos.device
+    nw, ny, grid, _, h, a, morigin = _pm_geometry(
+        origin, root_side, mesh_level, mesh_ny, split_cells)
+    smass_w = torch.where(salive, smass, 0.0)
+    cap = spos.shape[0]
+    heavy_mask = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    if heavy_cap:
+        key = torch.where(salive, smass_w, -1.0)
+        kv, hidx = _topk_lowest_index(key, heavy_cap)
+        heavy_mask[hidx] = kv > -0.5
+    dep_wmass = torch.where(heavy_mask, 0.0, smass_w)
+    if kernel is None:
+        kernel = _kernel_hats(grid, h, soft2, a, dtype, dev, grid_y=2 * ny,
+                              deconv_order=order if deconvolve else 0,
+                              switch=switch)
+
+    def table(origin_, prev_tab):
+        fx, fy = _mesh_grids_one(spos, dep_wmass, origin_, h, nw, grid,
+                                 order, kernel, ny=ny)
+        t = _interp_table(fx, fy, nw, order, ny=ny)
+        if prev_tab is None:
+            return t
+        if isinstance(prev_tab, str):        # "zero": seed, ΔT = 0
+            return torch.cat([t, torch.zeros_like(t)], dim=1)
+        return torch.cat([t, t - prev_tab[:, :t.shape[1]]], dim=1)
+
+    def prev_of(i):
+        return prev if prev is None or isinstance(prev, str) else prev[i]
+
+    grids = (table(morigin, prev_of(0)),)
+    if interlace:
+        grids = grids + (table(_interlaced(morigin, h), prev_of(1)),)
+    return grids, spos, dep_wmass, heavy_mask
+
+
+def _self_term(spos, dep_pos, dep_wmass, soft2, a, switch="exp4"):
+    """Analytic stale-grid self-force cancellation (per body, O(n)):
+    +m_dep·δ·(1 − w(δ))·(|δ|²+ε²)^{-3/2} with δ = x_now − x_dep, the
+    opposite of a body's pull towards its own deposited image. Zero at a
+    refresh (δ = 0)."""
+    d = spos - dep_pos
+    r2 = torch.sum(d * d, dim=1)
+    inv = torch.rsqrt(r2 + soft2)
+    w = dep_wmass * (inv * inv * inv)
+    w = w * (1.0 - _short_weight(r2, a, switch))
+    return w[:, None] * d
+
+
+def _heavy_direct(spos, smass, salive, heavy_mask, soft2, a, heavy_cap,
+                  switch="exp4"):
+    """Exact F_long on every body from the ``heavy_cap`` masked heavy
+    bodies at their current positions: dense (n x heavy_cap) pair math.
+    Self pairs vanish (K_long(0) = 0)."""
+    key = torch.where(heavy_mask, smass, -1.0)
+    kv, hidx = _topk_lowest_index(key, heavy_cap)
+    valid = (kv > -0.5) & salive[hidx]
+    hp = spos[hidx]
+    hm = torch.where(valid, smass[hidx], 0.0)
+    dx = spos[:, 0:1] - hp[None, :, 0]          # (n, H)
+    dy = spos[:, 1:2] - hp[None, :, 1]
+    r2 = dx * dx + dy * dy
+    inv = torch.rsqrt(r2 + soft2)
+    w = hm[None, :] * (inv * inv * inv)
+    w = w * (1.0 - _short_weight(r2, a, switch))
+    return -torch.stack([torch.sum(w * dx, dim=1),
+                         torch.sum(w * dy, dim=1)], dim=-1)
+
+
 def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
                     mesh_level: int, split_cells: float, band: int,
                     chunk: int, order: int = 2, interlace: bool = False,
                     rescue_k: int = 0, rescue_k_hot: int = 0,
-                    mesh_ny: int = 0, deconvolve: bool = True, kernel=None,
-                    heavy_cap: int = 0, switch: str = "exp4"):
+                    rescue_hot_cap: int = 128, mesh_ny: int = 0,
+                    deconvolve: bool = True, kernel=None, mesh_state=None,
+                    heavy_cap: int = 0, self_correct: bool = True,
+                    stale_frac=None, switch: str = "exp4"):
     """P3M acceleration in the Hilbert-SORTED frame: (n, 2) -> (n, 2).
 
     The body arrays must already be in Hilbert order over the root quad
@@ -405,13 +639,14 @@ def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
     0-dim int32 tensors on the bodies' device. ``mesh_oob`` counts alive
     bodies outside a rectangular mesh's row window (they clamp to the edge
     rows). The band pass runs the hand-written kernel for a CUDA tensor.
+
+    ``mesh_state`` (a :func:`pm_mesh_state` result, possibly stale) skips
+    the deposit and FFT: the carried tables are interpolated at the current
+    positions (extrapolated by ``stale_frac`` when they carry ΔT), the
+    stale self-term is cancelled (``self_correct``) and the heavy bodies'
+    F_long is summed directly. ``heavy_cap > 0`` without a state builds a
+    fresh one. ``heavy_cap`` must match the state's.
     """
-    if order != 2:
-        _refuse(f"mesh_order={order}")
-    if interlace:
-        _refuse("mesh_interlace")
-    if heavy_cap:
-        _refuse(f"pm_heavy_cap={heavy_cap}")
     _check_switch(switch)
     dtype, dev = spos.dtype, spos.device
     nw, ny, grid, _, h, a, morigin = _pm_geometry(
@@ -422,12 +657,43 @@ def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
         sy = (spos[:, 1] - morigin[1]) / h
         mesh_oob = (salive & ((sy < 0.0) | (sy >= ny))).sum(dtype=torch.int32)
 
-    if kernel is None:
-        kernel = _kernel_hats(grid, h, soft2, a, dtype, dev, grid_y=2 * ny,
-                              deconv_order=order if deconvolve else 0,
-                              switch=switch)
-    acc_mesh = _mesh_force(spos, smass, morigin, h, nw, grid, soft2, a,
-                           order, kernel, ny=ny)
+    if mesh_state is None and heavy_cap == 0:
+        # Fresh full pass, everyone on the mesh.
+        if kernel is None:
+            kernel = _kernel_hats(grid, h, soft2, a, dtype, dev,
+                                  grid_y=2 * ny,
+                                  deconv_order=order if deconvolve else 0,
+                                  switch=switch)
+        acc_mesh = _mesh_force(spos, smass, morigin, h, nw, grid, soft2, a,
+                               order, kernel, ny=ny)
+        if interlace:
+            acc_mesh = 0.5 * (acc_mesh + _mesh_force(
+                spos, smass, _interlaced(morigin, h), h, nw, grid, soft2, a,
+                order, kernel, ny=ny))
+    else:
+        # Carried (or freshly built) grids + fresh heavy sum + stale
+        # self-term cancellation.
+        if mesh_state is None:
+            mesh_state = pm_mesh_state(
+                spos, smass, salive, soft2, origin, root_side,
+                mesh_level=mesh_level, split_cells=split_cells, order=order,
+                interlace=interlace, mesh_ny=mesh_ny, heavy_cap=heavy_cap,
+                deconvolve=deconvolve, kernel=kernel, switch=switch)
+        grids, dep_pos, dep_wmass, heavy_mask = mesh_state
+        base, w = _cic_cells(spos, morigin, h, nw, order, ny=ny)
+        acc_mesh = _interp_rows(grids[0], base, w, frac=stale_frac)
+        if interlace:
+            base2, w2 = _cic_cells(spos, _interlaced(morigin, h), h, nw,
+                                   order, ny=ny)
+            acc_mesh = 0.5 * (acc_mesh + _interp_rows(grids[1], base2, w2,
+                                                      frac=stale_frac))
+        if self_correct:
+            acc_mesh = acc_mesh + _self_term(spos, dep_pos, dep_wmass,
+                                             soft2, a, switch=switch)
+        if heavy_cap:
+            acc_mesh = acc_mesh + _heavy_direct(spos, smass, salive,
+                                                heavy_mask, soft2, a,
+                                                heavy_cap, switch=switch)
 
     acc_short = band_ops.band_short_range(spos, smass, soft2, a, band=band,
                                           chunk=chunk, switch=switch)
@@ -436,7 +702,8 @@ def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
     if rescue_k:
         acc_r, rescue_need, hot_count = _block_rescue(
             spos, smass, salive, soft2, a, band=band, k=rescue_k,
-            chunk=chunk, k_hot=rescue_k_hot, switch=switch)
+            chunk=chunk, k_hot=rescue_k_hot, hot_cap=rescue_hot_cap,
+            switch=switch)
         acc_short = acc_short + acc_r
 
     acc = (acc_mesh + acc_short) * salive[:, None].to(dtype)
@@ -446,7 +713,8 @@ def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
 def pm_accel(pos, mass, alive, G, soft2, origin, root_side, *,
              mesh_level: int, split_cells: float, band: int, chunk: int,
              order: int = 2, interlace: bool = False, rescue_k: int = 0,
-             rescue_k_hot: int = 0, mesh_ny: int = 0, deconvolve: bool = True,
+             rescue_k_hot: int = 0, rescue_hot_cap: int = 128,
+             mesh_ny: int = 0, deconvolve: bool = True,
              return_stats: bool = False, kernel=None, heavy_cap: int = 0,
              switch: str = "exp4"):
     """P3M acceleration in the original body order, (n, 2) -> (n, 2).
@@ -461,8 +729,8 @@ def pm_accel(pos, mass, alive, G, soft2, origin, root_side, *,
         spos, smass, salive, G, soft2, origin, root_side,
         mesh_level=mesh_level, split_cells=split_cells, band=band,
         chunk=chunk, order=order, interlace=interlace, rescue_k=rescue_k,
-        rescue_k_hot=rescue_k_hot, mesh_ny=mesh_ny, deconvolve=deconvolve,
-        kernel=kernel,
+        rescue_k_hot=rescue_k_hot, rescue_hot_cap=rescue_hot_cap,
+        mesh_ny=mesh_ny, deconvolve=deconvolve, kernel=kernel,
         heavy_cap=heavy_cap, switch=switch)
     out = acc[unsort]
     if return_stats:
