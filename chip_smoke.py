@@ -19,7 +19,14 @@ n2 = 200,000):
 * pm_knobs (path C): one fresh force pass of the initial scene for each
   remaining P3M knob (heavy-direct, TSC, NGP, interlace, two-tier rescue),
   each with its sampled force error and its time; a 2-step subcycled run
-  with extrapolation; the run-compressed deposits against the plain one.
+  with extrapolation; the run-compressed deposits against the plain one;
+* bh_engine (path D): solver="bh" with kdk_reuse and the hier traversal on
+  the configuration of ``bench.py --solver bh``: step(2) to warm up and
+  settle the cap retune, tighten_caps(), step(2) again if the caps
+  changed, step(3) timed; then no cap overflowing, the force error of a
+  fresh pass, one pass timed by phase, the traversal needs on three scenes
+  at N = 1,000,000, and at N = 65,536 a pass at theta = 1e-3 against the
+  all-pairs kernel and dense against hier.
 
 On the way it
 
@@ -46,7 +53,9 @@ On the way it
 
 The kernels line gives, per kernel, ``launches`` (the main path's run: the
 three step(20) calls for the band kernel, the force error after them for
-the all-pairs kernel) and ``launches_by_path``. Each kernel's bound_ms is
+the all-pairs kernel) and ``launches_by_path``. Barnes–Hut launches neither
+kernel in its steps (its pair math is plain torch); path D's counts are the
+all-pairs launches of its force-error measurements. Each kernel's bound_ms is
 the larger of its flops over the float32 peak and its bytes over the memory
 rate (pair_work in its module); rsqrt_floor_ms is its pairs over the rsqrt
 unit's rate (16 a clock per SM at the card's highest SM clock), a second
@@ -70,6 +79,13 @@ N_SMALL = 65_536    # bodies of the kdk and euler all-pairs runs
 STEPS = 20          # steps per Engine.step call of the P3M paths
 TOL = 1e-5          # kernel vs plain: max |diff| <= TOL * max |plain|
 ERR_LIMIT = 5e-4    # mean relative force error of P3M vs exact
+# The same of Barnes–Hut at theta = 0.5. The monopole error grows with N at
+# a fixed group size (both packages agree on it for the same bodies): about
+# 5e-4 at N = 65,536 and 6.3e-4 at N = 1M, where the JAX package's records
+# quote 3.6e-4 without a size.
+BH_ERR_LIMIT = 8e-4
+BH_OPEN_TOL = 1e-3  # theta = 1e-3 opens every cell: max relative error
+BH_HIER_TOL = 2e-5  # hier vs dense: max |diff| <= this * max |dense|
 SAMPLES = 4096      # bodies sampled for the exact force error
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
@@ -81,6 +97,11 @@ CFG = dict(mesh_level=12, mesh_ny=2048, mesh_split=2.5, mesh_band=128,
            mesh_rescue=8, mesh_chunk=16384, mesh_switch="poly4",
            pm_resort_every=8)
 SUBCYCLED = dict(pm_heavy_cap=16, pm_mesh_every=4)
+# path D: the Barnes–Hut caps of ``bench.py --solver bh`` (bench.py:244-265)
+BH_CFG = dict(max_depth=14, group_chunk=64, approx_cap=1024,
+              direct_body_cap=16384, frontier_cap=1024, leaf_list_cap=2048,
+              bh_hier_cand_caps=(131072, 32768, 4096), group_cap=2080,
+              node_capacity=1 << 20)
 # path C: SimConfig overrides of the main path's configuration, one fresh
 # force pass each
 KNOBS = {"heavy_direct": dict(pm_heavy_cap=16), "tsc": dict(mesh_order=3),
@@ -249,6 +270,181 @@ def _pass_ms(st, cfg, params, dev):
     kernel = accel.prepare(params)
     return _timed_ms(lambda: accel(st.pos, st.mass, st.alive, params,
                                    kernel=kernel), reps=3)
+
+
+class PhaseClock:
+    """Device time by phase: ``clock(name)`` marks the end of a phase
+    (``"start"`` the beginning of the timed work), and ``ms()`` gives the
+    milliseconds spent in each name, summed."""
+
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, name):
+        import torch
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def ms(self):
+        self.marks[-1][1].synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+            if name != "start":
+                out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def _rel_err(got, want):
+    return (got - want).norm(dim=1) / (want.norm(dim=1) + 1e-9)
+
+
+def _path_d(paths, cfg, params, dev, st0):
+    """Barnes–Hut end to end at N = 1M, then its checks (module
+    docstring). Returns the timed seconds a step. Its force errors draw
+    their samples from a generator of their own: how far the main path's
+    measurements advance theirs depends on that run's n_alive."""
+    import torch
+    from tpu_nbody_torch import accuracy, state as state_lib
+    from tpu_nbody_torch.config import SimConfig
+    from tpu_nbody_torch.models import scenes
+    from tpu_nbody_torch.ops import forces
+
+    print(f"path D: solver='bh', kdk_reuse, hier, N={N}, {BH_CFG}",
+          flush=True)
+    g = torch.Generator(device=dev).manual_seed(13)
+    bh = _engine(cfg, params, dev, N, solver="bh", integrator="kdk_reuse")
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        n0 = int(bh.state.n_alive())
+        for label, n in (("warm-up", 2), ("after tighten_caps", 2),
+                         ("timed", 3)):
+            if label == "after tighten_caps":
+                changed = bh.tighten_caps()
+                print(f"  tighten_caps: changed={changed} {bh.caps}",
+                      flush=True)
+                if not changed:
+                    continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bh.step(n)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            print(f"  step({n}) {label}: {dt:.3f} s; caps {bh.caps}",
+                  flush=True)
+        return dt / 3, n0, int(bh.state.n_alive())
+
+    sec, n0, n1 = paths.run("bh_engine", run)
+    if any(paths.counts["bh_engine"].values()):
+        raise AssertionError(f"Barnes–Hut steps launched a kernel: "
+                             f"{paths.counts['bh_engine']}")
+    st = bh.state
+    if not all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel,
+                                                        st.mass)):
+        raise AssertionError("bh: state is not finite after the run")
+    if n1 > n0:
+        raise AssertionError(f"bh: n_alive grew: {n0} -> {n1}")
+    if bh.last_stats.overflowed(bh.caps.as_dict()):
+        raise AssertionError(f"bh: a cap still overflows after the retune: "
+                             f"{bh.last_stats} against {bh.caps}")
+    print(f"bh_engine: {1e3 * sec:.2f} ms/step, {n1 / sec:.1f} "
+          f"body-updates/s, n_alive {n0} -> {n1}, last_heavy_need "
+          f"{bh.last_heavy_need}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"  caps {bh.caps}", flush=True)
+    print(f"  last_stats {bh.last_stats}", flush=True)
+
+    # force error of a fresh pass of the initial scene (the JAX package's
+    # measurement point), from the engine's caps, against the exact
+    # all-pairs kernel
+    def bh_error():
+        e = accuracy.sampled_force_error(st0, cfg, params, SAMPLES, g,
+                                         solver="bh", caps=bh.caps)
+        print(f"bh step 0: force error vs exact "
+              f"({e['samples']} sampled bodies): mean {e['mean']:.3e} p50 "
+              f"{e['p50']:.3e} p99 {e['p99']:.3e} max {e['max']:.3e}",
+              flush=True)
+        if not e["mean"] <= BH_ERR_LIMIT:
+            raise AssertionError(f"bh: mean force error {e['mean']:.3e} > "
+                                 f"{BH_ERR_LIMIT:.3e}")
+    paths.run("bh_force_error", bh_error, need=("allpairs",))
+
+    # one pass of the stepped state by phase (device events); the force
+    # error's pass has warmed the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = PhaseClock()
+    accuracy.fitted_bh_pass(st.pos, st.mass, st.alive, cfg, params, bh.caps,
+                            probe=clock)
+    ms = clock.ms()
+    print(f"bh pass by phase (ms): tree build {ms['build']:.2f}, groups "
+          f"{ms['groups']:.2f}, hier lists {ms['lists']:.2f}, partner "
+          f"flatten {ms['flatten']:.2f}, pair evaluation "
+          f"{ms['evaluate']:.2f}, assembly {ms['assemble']:.2f}, total "
+          f"{sum(ms.values()):.2f}; peak memory of the pass "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del bh
+
+    # the needs of one pass on three scenes at N = 1M, caps grown to fit
+    # (the lists are built and measured; no pair block is evaluated)
+    def needs(name, stt):
+        _, need, caps = accuracy.fitted_bh_pass(
+            stt.pos, stt.mass, stt.alive, cfg, params, evaluate=False)
+        print(f"bh needs at N={N}, {name}: cand_need {need.cand_need} "
+              f"leaf_need {need.leaf_need} direct_need {need.direct_need} "
+              f"node_need {need.node_need} group_need {need.group_need} "
+              f"group_size_need {need.group_size_need}; fitted {caps}",
+              flush=True)
+
+    sg = torch.Generator(device=dev).manual_seed(3)
+    needs("two-disk", st0)
+    for name, pvm in (
+            ("uniform cloud", scenes.make_uniform_cloud(sg, N)),
+            ("4-galaxy merger", scenes.multi_galaxy_merger(sg, n_total=N))):
+        needs(name, state_lib.from_arrays(*pvm, cfg.capacity, device=dev))
+
+    # N = 65,536: theta = 1e-3 opens every cell, so BH is the exact sum;
+    # and the dense traversal against hier
+    small = SimConfig(capacity=N_SMALL)
+    e = _engine(small, params, dev, N_SMALL, solver="bh")
+    s = e.state
+    live_mass = torch.where(s.alive, s.mass, 0.0)
+
+    def open_all():
+        acc, need, caps = accuracy.fitted_bh_pass(
+            s.pos, s.mass, s.alive, small, params.replace(theta=1e-3))
+        exact = forces.accel_allpairs(s.pos, live_mass, params.G,
+                                      params.soft2)
+        rel = float(_rel_err(acc, exact)[s.alive].max())
+        print(f"bh theta=1e-3 N={N_SMALL} vs the all-pairs kernel: max "
+              f"relative error {rel:.3e} (direct_need {need.direct_need}, "
+              f"leaf_need {need.leaf_need})", flush=True)
+        if not rel <= BH_OPEN_TOL:
+            raise AssertionError(f"bh at theta=1e-3 is not the exact sum: "
+                                 f"{rel:.3e} > {BH_OPEN_TOL}")
+    paths.run("bh_open_all", open_all, need=("allpairs",))
+
+    def small_error():
+        e = accuracy.sampled_force_error(s, small, params, SAMPLES, g,
+                                         solver="bh")
+        print(f"bh theta={params.theta} N={N_SMALL} (dense): force error "
+              f"mean {e['mean']:.3e} p99 {e['p99']:.3e}", flush=True)
+    paths.run("bh_small_force_error", small_error, need=("allpairs",))
+
+    accs = {}
+    for trav in ("dense", "hier"):
+        c = dataclasses.replace(small, bh_traversal=trav)
+        accs[trav], _, _ = accuracy.fitted_bh_pass(s.pos, s.mass, s.alive, c,
+                                                   params)
+    diff = float((accs["hier"] - accs["dense"]).abs().max())
+    scale = float(accs["dense"].abs().max())
+    print(f"bh dense vs hier N={N_SMALL}: max|diff| {diff:.3e} (max|a| "
+          f"{scale:.3e})", flush=True)
+    if not diff <= BH_HIER_TOL * scale:
+        raise AssertionError(f"bh: hier disagrees with dense: {diff:.3e} > "
+                             f"{BH_HIER_TOL} x {scale:.3e}")
+    return sec
 
 
 def main() -> int:
@@ -427,6 +623,7 @@ def main() -> int:
                                               "allpairs"),
         need=("allpairs",))
     _report_run(f"allpairs_engine kdk_reuse N={N}", ap, sec, n0, n1)
+    ap_sec = sec
     del ap
     small = SimConfig(capacity=N_SMALL, **CFG)
     for integrator, per_step in (("kdk", 2), ("euler", 1)):
@@ -516,6 +713,12 @@ def main() -> int:
     print(f"  deposit (Hilbert-sorted bodies): plain {dep['plain']:.3f} ms, "
           f"run_compress=True {dep['True']:.3f} ms, run_compress=8 "
           f"{dep['8']:.3f} ms; both within {TOL} of max rho", flush=True)
+
+    # -- path D: Barnes–Hut -------------------------------------------------
+    bh_sec = _path_d(paths, SimConfig(capacity=cap, **CFG, **BH_CFG), params,
+                     dev, st0)
+    print(f"ms/step in this run: bh {1e3 * bh_sec:.2f}, allpairs "
+          f"{1e3 * ap_sec:.2f}, pm_main {1e3 * main_sec:.2f}", flush=True)
 
     launches = {"band": paths.counts["pm_main"]["band"],
                 "allpairs": paths.counts["pm_main_force_error"]["allpairs"]}

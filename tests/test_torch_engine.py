@@ -106,8 +106,9 @@ def test_engine_slice_20_steps_matches_jax():
 
 def test_engine_scene_api_and_retune():
     cfg = tconfig.SimConfig(**SLICE_CFG)
-    eng = tengine.Engine(cfg, tconfig.Params.default(), seed=1,
-                         merge_heavy_cap=1, device="cpu")
+    eng = tengine.Engine(cfg, tconfig.Params.default(), solver="pm",
+                         integrator="kdk_reuse", seed=1, merge_heavy_cap=1,
+                         device="cpu")
     eng.reset_default_scene(n1=600, n2=200)
     eng.add_black_hole(300.0, 300.0)
     eng.add_kepler_disk(1800.0, 500.0, r=80.0, n=100)

@@ -83,16 +83,14 @@ def test_cpu_calls_do_not_count_launches():
     dict(cfg=dict(pm_mesh_every=4)), dict(cfg=dict(pm_heavy_cap=16)),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_engine_refuses_unported_knobs(kw):
-    """Of the knobs refused before the rest of the 2D engine was ported,
-    Barnes-Hut is still not ported (NotImplementedError), strict_parity
+    """Of the knobs refused before the 2D engine was ported (each named
+    beside the P3M main path's solver and integrator), strict_parity
     outside bh and subcycling without a heavy cap are refused as invalid
-    (ValueError), and every other one now builds and runs a step."""
-    kw = dict(kw)
+    (ValueError), and every other one, Barnes-Hut included, builds and
+    runs a step."""
+    kw = dict(dict(solver="pm", integrator="kdk_reuse"), **kw)
     cfg = tconfig.SimConfig(**CFG, **kw.pop("cfg", {}))
-    if kw.get("solver") == "bh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tengine.Engine(cfg, device="cpu", **kw)
-    elif kw.get("strict_parity") or cfg.pm_mesh_every > 1:
+    if kw.get("strict_parity") or cfg.pm_mesh_every > 1:
         with pytest.raises(ValueError):
             tengine.Engine(cfg, device="cpu", **kw)
     else:
@@ -134,7 +132,7 @@ def test_unknown_switch_raises(where):
     else:
         with pytest.raises(ValueError, match="switch"):
             tengine.Engine(tconfig.SimConfig(**CFG, mesh_switch="exp"),
-                           device="cpu")
+                           solver="pm", device="cpu")
 
 
 @pytest.fixture
@@ -238,10 +236,11 @@ def test_engine_on_card_matches_cpu(cuda_device):
     cfg = tconfig.SimConfig(capacity=16384, mesh_level=10, mesh_band=64,
                             mesh_rescue=4, mesh_switch="poly4",
                             pm_resort_every=4, mesh_chunk=4096)
-    cpu = tengine.Engine(cfg, seed=4, device="cpu")
+    main = dict(solver="pm", integrator="kdk_reuse")
+    cpu = tengine.Engine(cfg, seed=4, device="cpu", **main)
     cpu.reset_default_scene(n1=12_000, n2=3_000)
     cpu.add_black_hole(1203.0, 400.0)
-    card = tengine.Engine(cfg, seed=4, device=cuda_device)
+    card = tengine.Engine(cfg, seed=4, device=cuda_device, **main)
     card.state = convert.state_from_numpy(*[x.numpy() for x in cpu.state],
                                           device=cuda_device)
     n0 = tband.LAUNCHES
@@ -313,3 +312,33 @@ def test_pm_accel_knobs_on_card_match_cpu(cuda_device, knobs):
         {k: int(v) for k, v in st_cpu.items()}
     torch.testing.assert_close(got.cpu(), want, rtol=0,
                                atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traversal", ["dense", "bfs", "hier"])
+def test_bh_pass_on_card_matches_cpu(cuda_device, traversal):
+    """One Barnes-Hut pass on the card against the same pass on the CPU:
+    every need equal, forces within 2e-5 of the largest magnitude."""
+    from tpu_nbody_torch.models import scenes
+    cfg = tconfig.SimConfig(capacity=16384, group_size=256, group_cap=256,
+                            leaf_list_cap=2048, direct_body_cap=16384,
+                            bh_traversal=traversal, bh_hier_sizes=(64, 8))
+    caps = tengine.Caps.from_config(cfg)
+    params = tconfig.Params.default(theta=0.5)
+    g = torch.Generator().manual_seed(7)
+    p, _, m = scenes.default_two_disk_scene(g, n1=12_000, n2=3_000)
+    pos = torch.zeros((16384, 2))
+    mass = torch.zeros(16384)
+    pos[:15_000], mass[:15_000] = p, m
+    alive = torch.arange(16384) < 15_000
+    want, st_cpu = tengine.make_bh_accel(cfg, caps)(pos, mass, alive, params)
+    n0 = (tband.LAUNCHES, tforces.LAUNCHES)
+    got, st = tengine.make_bh_accel(cfg, caps)(
+        pos.to(cuda_device), mass.to(cuda_device), alive.to(cuda_device),
+        params)
+    torch.cuda.synchronize()
+    assert (tband.LAUNCHES, tforces.LAUNCHES) == n0
+    assert st.flat().tolist() == st_cpu.flat().tolist()
+    assert not st.on_host(st.flat().tolist()).overflowed(caps.as_dict())
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=2e-5 * want.abs().max().item())

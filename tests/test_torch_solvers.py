@@ -84,15 +84,24 @@ def test_engine_20_steps_matches_jax(solver, integrator, cfg):
     (dict(strict_parity=True, solver="allpairs"), (ValueError, "bh")),
     (dict(solver="allpairs", allpairs_impl="xla"), (ValueError, "xla")),
     (dict(allpairs_impl="triton"), (ValueError, "allpairs_impl")),
-    (dict(solver="bh"), (NotImplementedError, "ROADMAP.md")),
-    (dict(solver="bh", strict_parity=True), (NotImplementedError, "bh")),
+    (dict(solver="bh"), None),
+    (dict(solver="bh", strict_parity=True), None),
     (dict(cfg=dict(dim=3)), (NotImplementedError, "dim=3")),
     (dict(integrator="leapfrog"), (ValueError, "integrator")),
     (dict(cfg=dict(mesh_order=4)), (ValueError, "order")),
 ], ids=str)
 def test_engine_refusals(kw, err):
-    kw = dict(kw)
+    """Each case beside the P3M main path's solver and integrator. The
+    Barnes-Hut cases, refused until it was ported, construct and step."""
+    kw = dict(dict(solver="pm", integrator="kdk_reuse"), **kw)
     cfg = tconfig.SimConfig(**dict(BASE, capacity=256), **kw.pop("cfg", {}))
+    if err is None:
+        eng = tengine.Engine(cfg, device="cpu", **kw)
+        eng.reset_default_scene(n1=150, n2=50)
+        eng.step(1)
+        assert eng.last_stats.group_need > 0
+        assert torch.isfinite(eng.state.pos).all()
+        return
     with pytest.raises(err[0], match=err[1]):
         tengine.Engine(cfg, device="cpu", **kw).step(1)
 
@@ -137,7 +146,7 @@ def test_sampled_force_error_knobs():
     """The accuracy label on a small scene: finite, every sample drawn
     from alive bodies, NGP worse than CIC, and knobs passed through."""
     cfg = tconfig.SimConfig(**dict(BASE, capacity=4096, mesh_level=9))
-    eng = tengine.Engine(cfg, device="cpu", seed=4)
+    eng = tengine.Engine(cfg, solver="pm", device="cpu", seed=4)
     eng.reset_default_scene(n1=3000, n2=800)
     g = torch.Generator().manual_seed(0)
     cic = accuracy.sampled_force_error(eng.state, cfg, eng.params, 256, g)

@@ -1,8 +1,9 @@
 """Static configuration and dynamic parameters (port of tpu_nbody.config).
 
-* :class:`SimConfig` — frozen facts about a run: capacity, world extent and
-  the P3M knobs. Only the fields the port runs are carried; see
-  ``tpu_nbody/config.py`` for the Barnes–Hut knobs still to be ported.
+* :class:`SimConfig` — frozen facts about a run: capacity, world extent,
+  the Barnes–Hut knobs and the P3M knobs. Only the fields the port runs
+  are carried: the JAX package's ``bh_allow_twin_traversal`` and
+  ``bh_stream_split`` work around one TPU backend and have no counterpart.
 * :class:`Params` — the live-tunable physics scalars. The JAX package keeps
   them as a pytree of f32 arrays so a jitted step can take new values
   without recompiling; PyTorch runs eagerly, so here they are Python floats,
@@ -49,7 +50,8 @@ def f32(x) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """Static simulation configuration (the pm subset of tpu_nbody's).
+    """Static simulation configuration (tpu_nbody's, less its two
+    TPU-backend workarounds).
 
     ``capacity`` is the fixed body-slot count; the live count is the
     ``alive`` mask of :class:`tpu_nbody_torch.state.SimState`. Field
@@ -60,6 +62,33 @@ class SimConfig:
     world_w: float = WIDTH_PX
     world_h: float = HEIGHT_PX
     dim: int = 2
+    # Adaptive quadtree knobs (BH solver).
+    leaf_size: int = 16            # max bodies per leaf before splitting
+    max_depth: int = 14            # max tree levels below root (<= 15)
+    node_capacity: int = 0         # 0 -> auto (from capacity / leaf_size)
+    group_size: int = 512          # max bodies per traversal group (tree node)
+    group_cap: int = 0             # 0 -> auto: padded group-slot count
+    # Traversal list caps (padded shapes; the engine regrows them on overflow).
+    approx_cap: int = 4096         # max accepted multipole nodes per group
+    leaf_list_cap: int = 512       # max opened leaves per group
+    direct_body_cap: int = 4096    # max direct (body-body) partners per group
+    frontier_cap: int = 2048       # max BFS frontier nodes per wave per group
+    group_chunk: int = 64          # groups per force-evaluation chunk (upper
+                                   # bound; a byte budget may lower it)
+    bh_traversal: str = "auto"     # "dense" = local monotone-MAC classify,
+                                   # "bfs" = wave traversal (cross-check),
+                                   # "hier" = chunk-hierarchical candidates +
+                                   # masked-dense evaluation (large N),
+                                   # "auto" = dense up to BH_DENSE_MAX_CAP
+                                   # capacity, hier above
+    bh_hier_sizes: tuple = (1024, 64, 8)   # hier: groups per chunk at each
+                                   # refinement level (descending, each
+                                   # divides the previous; levels >= the
+                                   # group count are skipped)
+    bh_hier_cand_caps: tuple = (131072, 32768, 4096)  # hier: per-chunk
+                                   # candidate-list cap per level (regrown on
+                                   # overflow; clipped to the node table)
+    bh_hier_batch: int = 32        # hier: chunks per partner-flatten batch
     # P3M ("pm") solver knobs.
     mesh_level: int = 11           # world grid = 2^level per side over the root
     mesh_split: float = 4.0        # short/long split radius in cell units
@@ -97,6 +126,20 @@ class SimConfig:
     @property
     def root_center(self) -> tuple[float, float]:
         return (self.world_w / 2.0, self.world_h / 2.0)
+
+    @property
+    def num_nodes(self) -> int:
+        """Node-table slots: ``node_capacity``, or 8 per leaf_size bodies
+        (a split spawns up to 4 children; generous headroom) plus 64."""
+        if self.node_capacity:
+            return self.node_capacity
+        return 8 * max(self.capacity // self.leaf_size, 1) + 64
+
+    @property
+    def num_groups(self) -> int:
+        if self.group_cap:
+            return self.group_cap
+        return 8 * max(self.capacity // self.group_size, 1) + 64
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from tpu_nbody_torch import config as cfg
@@ -187,3 +188,33 @@ def default_two_disk_scene(generator, *, n1=10_000, n2=2_500,
         central_mass=5_000.0, total_satellite_mass=500.0, world_w=world_w,
         world_h=world_h, G=G, dtype=dtype)
     return torch.cat([p1, p2]), torch.cat([v1, v2]), torch.cat([m1, m2])
+
+
+def multi_galaxy_merger(generator, *, n_total=10_000_000, n_galaxies=4,
+                        world_w=cfg.WIDTH_PX, world_h=cfg.HEIGHT_PX,
+                        ring_frac=0.30, infall_speed=40.0,
+                        G=cfg.G_DEFAULT, dtype=torch.float32):
+    """Several galaxies falling into a common merger: ``n_galaxies`` disks
+    (the r=300, M_c=50k profile) on a ring of radius ``ring_frac * min(W,
+    H)`` around the world centre, each with an inward and a 25% tangential
+    velocity so they meet near the centre within a few hundred steps. No
+    reference counterpart: the N-scaling workload. Galaxy 0 takes the
+    remainder of ``n_total``."""
+    per = n_total // n_galaxies
+    cx, cy = world_w * 0.5, world_h * 0.5
+    ring_r = ring_frac * min(world_w, world_h)
+    ps, vs, ms = [], [], []
+    for g in range(n_galaxies):
+        ang = 2.0 * math.pi * g / n_galaxies
+        # float32 cos and sin, as the JAX package takes them
+        cos = float(np.cos(np.float32(ang)))
+        sin = float(np.sin(np.float32(ang)))
+        n_g = per + (n_total - per * n_galaxies if g == 0 else 0)
+        p, v, m = make_galaxy_disk(
+            generator, n_g, x=cx + ring_r * cos, y=cy + ring_r * sin,
+            r=300.0, central_mass=50_000.0, total_satellite_mass=5_000.0,
+            vx=-infall_speed * cos - 0.25 * infall_speed * sin,
+            vy=-infall_speed * sin + 0.25 * infall_speed * cos, phi0=ang,
+            world_w=world_w, world_h=world_h, G=G, dtype=dtype)
+        ps.append(p), vs.append(v), ms.append(m)
+    return torch.cat(ps), torch.cat(vs), torch.cat(ms)

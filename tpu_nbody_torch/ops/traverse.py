@@ -1,0 +1,753 @@
+"""Vectorised Barnes–Hut MAC traversal + blocked force evaluation (port of
+tpu_nbody.ops.traverse).
+
+Replaces the reference's per-body recursive traversal
+(``BHTree.accumulateForce``, ``src/main/kotlin/BarnesHutAlg.kt:215-239``):
+
+* Bodies are grouped by tree node: a group is a maximal node holding at
+  most ``group_size`` bodies (its parent holds more). Groups partition the
+  Hilbert-sorted body array into contiguous ranges and are spatially compact
+  squares by construction. The group MAC box is the tight AABB of the
+  group's members.
+
+* Every node is tested against a group box with the conservative group MAC
+
+      accept node  <=>  s^2 < theta^2 * (d_box^2 + eps^2)  and  d_box > 0
+
+  where s is the node cell side and d_box the least distance from the
+  node's cell box to the group box. Every body of the group is inside the
+  group box and the node's centre of mass inside its cell, so d_box <=
+  d_com: every accepted interaction also satisfies the reference's per-body
+  criterion (``BarnesHutAlg.kt:225-228``, softening inside the criterion
+  distance). ``d_box > 0`` keeps a group's own and touching cells opened,
+  so self-interaction is excluded exactly.
+
+* Three traversals give the same interaction sets: ``"dense"`` (one
+  (groups x nodes) classification, :func:`_classify_dense`), ``"bfs"`` (a
+  lockstep wave traversal, the independently derived cross-check,
+  :func:`_traverse_all`) and ``"hier"`` (chunk-hierarchical candidate
+  refinement with masked-dense evaluation, :func:`_hier_accel`, the large-N
+  path). All lists have fixed capacity; the sizes a scene needs are
+  returned (:class:`TraversalStats`) so the engine can regrow the caps
+  instead of silently dropping interactions.
+
+* Force evaluation is dense and blocked: (group_size x list) pair blocks
+  with the reference point-mass kernel a += m_src * d * r^-3, r^2 = |d|^2 +
+  eps^2 (``BarnesHutAlg.kt:250-259``). Self-pairs and padding contribute
+  exactly zero (d = 0 or mass = 0).
+
+What differs from the JAX package, whose results it reproduces:
+
+* XLA fuses a pair block's arithmetic; eager PyTorch materialises every
+  temporary. So each ``lax.map`` over chunks is a Python loop (no host sync
+  inside) whose batch comes from a budget of :data:`PAIR_BUDGET` elements a
+  temporary, and ``group_chunk`` and ``hier_batch`` are upper bounds.
+* List compaction (:func:`_compact_rows`) is a cumsum and one scatter into
+  a buffer one slot wider than the list, every refused write aimed at the
+  extra slot, in place of ``top_k``: the same ascending ids.
+* The partner flatten inverts the leaf-count cumsum with an integer
+  ``searchsorted`` in place of the dense membership mask and its matmul, so
+  the slot offsets are exact whatever the matmul precision flags are.
+* The JAX package's ``debug_stage`` timing probes are gone; ``probe``
+  (a callable taking a phase name, called where that phase's work has been
+  enqueued) serves a caller that times phases with device events.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpu_nbody_torch.ops.tree import Tree
+
+# Elements of one pair-block temporary (512 MiB of float32); about six are
+# live at once in :func:`_point_accel`.
+PAIR_BUDGET = 1 << 27
+TRAVERSALS = ("dense", "bfs", "hier")
+
+
+class TraversalStats(NamedTuple):
+    """Max per-group list sizes actually needed (for cap auto-tuning):
+    0-dim device tensors out of a force pass, Python ints once the engine
+    has read them to the host."""
+    approx_need: torch.Tensor | int
+    leaf_need: torch.Tensor | int
+    direct_need: torch.Tensor | int
+    frontier_need: torch.Tensor | int
+    group_need: torch.Tensor | int       # number of groups actually formed
+    node_need: torch.Tensor | int        # tree nodes the scene requires
+                                         # (> num_nodes: deep levels truncated)
+    group_size_need: torch.Tensor | int  # max bodies in any leaf: a childless
+                                         # node bigger than group_size joins
+                                         # no group and its bodies would get
+                                         # zero force
+    # hier traversal only: (n_levels,) max per-chunk candidate-set size at
+    # each refinement level (a tensor, or a tuple of ints on the host);
+    # None for the dense and bfs traversals.
+    cand_need: torch.Tensor | tuple | None = None
+
+    def overflowed(self, caps):
+        """Whether any need exceeds its cap in the mapping ``caps``."""
+        out = ((self.approx_need > caps["approx_cap"])
+               | (self.leaf_need > caps["leaf_list_cap"])
+               | (self.direct_need > caps["direct_body_cap"])
+               | (self.frontier_need > caps["frontier_cap"])
+               | (self.group_need > caps["group_cap"])
+               | (self.node_need > caps["num_nodes"])
+               | (self.group_size_need > caps["group_size"]))
+        cc = caps.get("cand_caps")
+        if cc is not None and self.cand_need is not None:
+            for need, c in zip(self.cand_need, cc):
+                out = out | (need > c)
+        return out
+
+    def flat(self):
+        """Every need in one 1-D int64 tensor (field order, ``cand_need``
+        last), so a caller reads them all with one transfer."""
+        return torch.cat([x.reshape(-1).to(torch.int64) for x in self
+                          if x is not None])
+
+    def on_host(self, vals):
+        """These stats as Python ints, from ``flat().tolist()``."""
+        return TraversalStats(
+            *vals[:7], None if self.cand_need is None else tuple(vals[7:]))
+
+
+def max_stats(a, b):
+    """None-tolerant elementwise max of two :class:`TraversalStats` of
+    device tensors."""
+    if a is None or b is None:
+        return a if b is None else b
+    return TraversalStats(*[x if y is None else torch.maximum(x, y)
+                            for x, y in zip(a, b)])
+
+
+def _arange(n, dev):
+    return torch.arange(n, dtype=torch.int32, device=dev)
+
+
+def _batch_rows(per_row: int, most: int) -> int:
+    """Rows a batch may hold so one temporary of ``per_row`` elements a row
+    stays inside :data:`PAIR_BUDGET`; at least 1, at most ``most``."""
+    return max(1, min(most, PAIR_BUDGET // max(per_row, 1)))
+
+
+def make_groups(tree: Tree, group_size: int, group_cap: int):
+    """Traversal groups = maximal small tree nodes (<= group_size bodies,
+    parent bigger; the root qualifies when small). Returns group body ranges
+    sorted by start, so groups tile the sorted body array in order."""
+    NC = tree.code.shape[0]
+    cap = tree.spos.shape[0]
+    ids = _arange(NC, tree.code.device)
+    valid = ids < tree.n_nodes
+    pcnt = torch.where(tree.parent >= 0,
+                       tree.count[torch.clamp(tree.parent, min=0).long()],
+                       torch.iinfo(torch.int32).max)
+    is_group = valid & (tree.count > 0) & (tree.count <= group_size) \
+        & (pcnt > group_size)
+    n_groups = is_group.sum(dtype=torch.int32)
+
+    start_key = torch.where(is_group, tree.start, cap + 1)
+    order = torch.argsort(start_key, stable=True)[:group_cap]
+    gvalid = is_group[order]
+    gstart = torch.where(gvalid, tree.start[order], cap)
+    gcount = torch.where(gvalid, tree.count[order], 0)
+    return gvalid, gstart, gcount, n_groups
+
+
+def _group_bodies(spos, gstart, GS: int):
+    """(G, GS, 2) positions of each group's GS-slot window and the window's
+    first slot (G,): the slice the JAX package takes per group."""
+    cap = spos.shape[0]
+    sl0 = torch.clamp(gstart, 0, cap - GS)
+    rows = sl0[:, None] + _arange(GS, spos.device)[None, :]
+    return spos[rows.long()], sl0
+
+
+def _group_aabb(spos, gstart, gcount, gvalid, GS: int):
+    """Tight AABB of every group's members (gather; no segment scatter)."""
+    bpos, sl0 = _group_bodies(spos, gstart, GS)
+    row_slot = sl0[:, None] + _arange(GS, spos.device)[None, :]
+    rv = gvalid[:, None] & (row_slot >= gstart[:, None]) \
+        & (row_slot < (gstart + gcount)[:, None])
+    big = torch.finfo(spos.dtype).max
+    mn = torch.where(rv[..., None], bpos, big).amin(dim=1)
+    mx = torch.where(rv[..., None], bpos, -big).amax(dim=1)
+    return mn, mx
+
+
+def _scatter_compact(buf, pos, take, values, cap_):
+    """Write ``values`` where ``take`` at columns ``pos`` of ``buf``
+    (G, cap_ + 1). Every refused write (not taken, or past the cap) goes to
+    column ``cap_``, which the caller slices off; the kept targets are
+    distinct, so the kept part is deterministic."""
+    tgt = torch.where(take & (pos < cap_), pos, cap_)
+    return buf.scatter_(1, tgt.long(), values)
+
+
+def _traverse_all(tree: Tree, gmin, gmax, gvalid, theta2, soft2, *,
+                  max_depth, frontier_cap, approx_cap, leaf_list_cap):
+    """Lockstep BFS over all groups. gmin/gmax: (G, 2). Returns per-group
+    approx/leaf index lists + needed sizes. One wave per tree level."""
+    G = gvalid.shape[0]
+    dev = gvalid.device
+    F, A, L = frontier_cap, approx_cap, leaf_list_cap
+    i32 = torch.int32
+    slot = _arange(F, dev)[None, :]                          # (1, F)
+
+    frontier = torch.zeros((G, F), dtype=i32, device=dev)
+    f_len = gvalid.to(i32)                                   # (G,)
+    approx = torch.zeros((G, A + 1), dtype=i32, device=dev)
+    a_len = torch.zeros((G,), dtype=i32, device=dev)
+    leaves = torch.zeros((G, L + 1), dtype=i32, device=dev)
+    l_len = torch.zeros((G,), dtype=i32, device=dev)
+    f_need = f_len
+
+    def append(buf, length, take, values, cap_):
+        # (G, F) take/values -> compacted append at per-group offsets
+        pos = length[:, None] + torch.cumsum(take, dim=1, dtype=i32) - 1
+        buf = _scatter_compact(buf, pos, take, values, cap_)
+        return buf, length + take.sum(dim=1, dtype=i32)
+
+    for _ in range(max_depth + 1):
+        active = slot < f_len[:, None]                       # (G, F)
+        nid = torch.where(active, frontier, 0)
+        rows = tree.node_rows[nid.long()]                    # (G, F, 14)
+        nonempty = active & (rows[..., 0] > 0)
+        cx, cy, side = rows[..., 3], rows[..., 4], rows[..., 5]
+        half = 0.5 * side
+        gapx = torch.clamp(torch.maximum((cx - half) - gmax[:, None, 0],
+                                         gmin[:, None, 0] - (cx + half)),
+                           min=0.0)
+        gapy = torch.clamp(torch.maximum((cy - half) - gmax[:, None, 1],
+                                         gmin[:, None, 1] - (cy + half)),
+                           min=0.0)
+        d2 = gapx * gapx + gapy * gapy
+        accept = (side * side < theta2 * (d2 + soft2)) & (d2 > 0)
+        is_leaf = rows[..., 6] < 0
+
+        take_a = nonempty & accept
+        take_l = nonempty & ~accept & is_leaf
+        take_o = nonempty & ~accept & ~is_leaf
+
+        approx, a_len = append(approx, a_len, take_a, nid, A)
+        leaves, l_len = append(leaves, l_len, take_l, nid, L)
+
+        # Frontier expansion: opened nodes contribute their 1-4 occupied
+        # children, compacted at exclusive-cumsum positions with 4 bounded
+        # scatters. Child ids come from the already-gathered rows.
+        nc = torch.where(take_o, rows[..., 7].to(i32), 0)
+        cum = torch.cumsum(nc, dim=1, dtype=i32)
+        total = cum[:, -1]
+        o_pos = cum - nc                                     # exclusive cumsum
+        child0 = rows[..., 6].to(i32)
+        nxt = torch.zeros((G, F + 1), dtype=i32, device=dev)
+        for c in range(4):
+            nxt = _scatter_compact(nxt, o_pos + c, take_o & (c < nc),
+                                   child0 + c, F)
+        f_need = torch.maximum(f_need, total)
+        f_len = torch.clamp(total, max=F)
+        frontier = torch.where(slot < f_len[:, None], nxt[:, :F], 0)
+
+    return approx[:, :A], a_len, leaves[:, :L], l_len, f_need
+
+
+def _box_pass(gmin, gmax, cx, cy, half, side2, theta2, soft2):
+    """Group-MAC pass mask for (G,) group boxes x (NC,) node cells.
+
+    pass <=> s^2 < theta^2 * (gap^2 + eps^2)  and  gap > 0, with gap the
+    least distance between the group AABB and the node's cell box: the same
+    conservative form the wave traversal uses.
+    """
+    gapx = torch.clamp(torch.maximum((cx - half)[None, :] - gmax[:, 0:1],
+                                     gmin[:, 0:1] - (cx + half)[None, :]),
+                       min=0.0)
+    gapy = torch.clamp(torch.maximum((cy - half)[None, :] - gmax[:, 1:2],
+                                     gmin[:, 1:2] - (cy + half)[None, :]),
+                       min=0.0)
+    d2 = gapx * gapx + gapy * gapy
+    return (side2[None, :] < theta2 * (d2 + soft2)) & (d2 > 0)
+
+
+def _compact_rows(mask, cap_):
+    """Per-row indices of set bits, compacted left and padded with 0.
+
+    mask (G, NC) -> (idx (G, cap_) int32 ascending, len (G,) clipped,
+    total (G,) exact).
+    """
+    G, NC = mask.shape
+    dev = mask.device
+    rank = torch.cumsum(mask, dim=1, dtype=torch.int32)
+    total = rank[:, -1].clone()
+    buf = torch.zeros((G, cap_ + 1), dtype=torch.int32, device=dev)
+    ids = _arange(NC, dev)[None, :].expand(G, NC)
+    idx = _scatter_compact(buf, rank - 1, mask, ids, cap_)[:, :cap_]
+    return idx, torch.clamp(total, max=cap_), total
+
+
+def _classify_dense(tree: Tree, gmin, gmax, gvalid, theta2, soft2, *,
+                    approx_cap, leaf_list_cap):
+    """Dense local MAC classification: the BFS-free traversal.
+
+    The conservative group MAC is monotone down the tree: a node's children
+    have half its cell side and at least its box gap, so ``pass(parent)``
+    implies ``pass(child)``. A wave traversal therefore carries no
+    information a local test cannot reconstruct:
+
+        accepted multipole  <=>  pass(n) and not pass(parent(n))
+        direct leaf         <=>  leaf(n) and not pass(n)
+
+    which turns the traversal into one dense (groups x nodes) mask
+    computation followed by one compaction per list. Returns the same
+    (approx, a_len, leaves, l_len, needs) as the wave traversal, with exact
+    needs (the wave version can only lower-bound them past a truncated
+    frontier).
+    """
+    rows = tree.node_rows
+    NC = rows.shape[0]
+    node_valid = _arange(NC, rows.device) < tree.n_nodes
+    occupied = node_valid & (rows[:, 0] > 0)
+    cx, cy, side = rows[:, 3], rows[:, 4], rows[:, 5]
+    is_leaf = rows[:, 6] < 0
+    par = tree.parent
+    has_parent = par >= 0
+    psafe = torch.clamp(par, min=0).long()
+    pcx, pcy, pside = cx[psafe], cy[psafe], side[psafe]
+
+    pass_n = _box_pass(gmin, gmax, cx, cy, 0.5 * side, side * side,
+                       theta2, soft2)
+    pass_p = _box_pass(gmin, gmax, pcx, pcy, 0.5 * pside, pside * pside,
+                       theta2, soft2) & has_parent[None, :]
+    live = occupied[None, :] & gvalid[:, None]
+    accept = live & pass_n & ~pass_p
+    direct = live & is_leaf[None, :] & ~pass_n
+
+    approx, a_len, a_tot = _compact_rows(accept, approx_cap)
+    leaves, l_len, l_tot = _compact_rows(direct, leaf_list_cap)
+    return approx, a_len, leaves, l_len, a_tot, l_tot
+
+
+def _flatten_ranges(lstart, counts, DB: int):
+    """Partner slots of padded leaf lists. ``lstart``/``counts`` (G, L) are
+    the leaves' first bodies and sizes (0 for padding). Slot j of row g
+    belongs to the leaf whose cumulative-count interval [offs_excl, offs)
+    contains j and maps to body ``lstart + (j - offs_excl)``: the interval
+    is found by an integer ``searchsorted`` over the cumsum, so the slots
+    are exact. Returns (slots (G, DB) int32, 0 where unused; the leaf index
+    of every slot (G, DB); valid (G, DB); total (G,) unclipped)."""
+    G, L = lstart.shape
+    dev = lstart.device
+    offs = torch.cumsum(counts, dim=1, dtype=torch.int32)
+    total = offs[:, -1]
+    jj = _arange(DB, dev)[None, :].expand(G, DB).contiguous()
+    leaf = torch.clamp(torch.searchsorted(offs, jj, right=True), max=L - 1)
+    delta = lstart - (offs - counts)                          # (G, L)
+    slots = torch.gather(delta, 1, leaf) + jj
+    valid = jj < torch.clamp(total, max=DB)[:, None]
+    return torch.where(valid, slots, 0), leaf, valid, total
+
+
+def _direct_partners_all(tree: Tree, leaves, l_len, *, direct_body_cap):
+    """Flatten per-group leaf body ranges into padded partner-slot arrays
+    (G, direct_body_cap): slots, their validity, and the unclipped need."""
+    G, L = leaves.shape
+    lvalid = _arange(L, leaves.device)[None, :] < l_len[:, None]
+    lidx = torch.where(lvalid, leaves, 0)
+    lrows = tree.node_rows[lidx.long()]                       # (G, L, 14)
+    lstart = lrows[..., 8].to(torch.int32)
+    counts = torch.where(lvalid, lrows[..., 9].to(torch.int32), 0)
+    slots, _, valid, total = _flatten_ranges(lstart, counts, direct_body_cap)
+    return slots, valid, total
+
+
+def _box_pass_cols(bmn, bmx, cx, cy, side, theta2, soft2):
+    """Conservative group-MAC pass, broadcast form.
+
+    ``bmn``/``bmx`` are (..., 2) box corners; ``cx``/``cy``/``side`` are
+    (..., K) cell geometry with broadcast-compatible leading dims. Same
+    criterion as :func:`_box_pass`.
+    """
+    half = 0.5 * side
+    gapx = torch.clamp(torch.maximum((cx - half) - bmx[..., 0:1],
+                                     bmn[..., 0:1] - (cx + half)), min=0.0)
+    gapy = torch.clamp(torch.maximum((cy - half) - bmx[..., 1:2],
+                                     bmn[..., 1:2] - (cy + half)), min=0.0)
+    d2 = gapx * gapx + gapy * gapy
+    return (side * side < theta2 * (d2 + soft2)) & (d2 > 0)
+
+
+def _hier_lists(tree: Tree, gmin, gmax, theta2, soft2, *, g_pad: int,
+                sizes, kcaps):
+    """Multi-level chunk candidate refinement (the hier traversal's core).
+
+    The conservative group MAC is monotone in the box as well as down the
+    tree: shrinking the query box can only grow the box-to-cell gap, so
+    ``pass(chunk) => pass(any sub-box)``. Contrapositively, a node can be
+    accepted by some group g (``pass_g(n) & ~pass_g(parent)``) or taken
+    direct (``~pass_g(n)``) only if ``~pass_c(parent(n))`` for every
+    enclosing chunk box c, i.e. only candidates
+
+        cand_c = { n occupied : n is root  or  ~pass_c(parent(n)) }
+
+    can matter to any group inside c. The refinement runs this rule at a
+    cascade of chunk granularities (``sizes`` groups per chunk, descending,
+    each dividing the previous), compacting the per-chunk candidate set at
+    each level, so no compaction ever runs over the full node table times
+    the full group count. A level's list is never wider than the list it
+    refines (its candidates are a subset), whatever its cap says. Returns
+    the final level's candidate ids (C, K) and validity, the chunk count,
+    and the exact need of every level.
+    """
+    rows_all = tree.node_rows
+    NC = rows_all.shape[0]
+    dev = rows_all.device
+    node_occ = (_arange(NC, dev) < tree.n_nodes) & (rows_all[:, 0] > 0)
+    is_root = rows_all[:, 13] == 0.0
+
+    ids = valid = None
+    C_prev = 1
+    needs = []
+    for sz, kcap in zip(sizes, kcaps):
+        C = g_pad // sz
+        bmn = gmin.reshape(C, sz, 2).amin(dim=1)
+        bmx = gmax.reshape(C, sz, 2).amax(dim=1)
+        parts = []
+        if ids is None:
+            # against the full node table; row-chunked to bound the mask
+            batch = max(1, min(C, (1 << 25) // NC))
+            for c0 in range(0, C, batch):
+                pp = _box_pass_cols(bmn[c0:c0 + batch], bmx[c0:c0 + batch],
+                                    rows_all[None, :, 10],
+                                    rows_all[None, :, 11],
+                                    rows_all[None, :, 12], theta2, soft2)
+                m = node_occ[None, :] & (is_root[None, :] | ~pp)
+                parts.append(_compact_rows(m, kcap))
+        else:
+            r = C // C_prev
+            Kp = ids.shape[1]
+            kcap = min(kcap, Kp)
+            batch = _batch_rows(r * Kp, C_prev)
+            for c0 in range(0, C_prev, batch):
+                c = slice(c0, c0 + batch)
+                pid = torch.where(valid[c], ids[c], 0)
+                crows = rows_all[pid.long()]                  # (b, Kp, 14)
+                n = crows.shape[0]
+                occ = valid[c] & (crows[..., 0] > 0)
+                pp = _box_pass_cols(
+                    bmn[c0 * r:(c0 + n) * r].reshape(n, r, 2),
+                    bmx[c0 * r:(c0 + n) * r].reshape(n, r, 2),
+                    crows[..., 10][:, None, :], crows[..., 11][:, None, :],
+                    crows[..., 12][:, None, :], theta2, soft2)
+                m = occ[:, None, :] & ((crows[..., 13] == 0.0)[:, None, :]
+                                       | ~pp)                 # (b, r, Kp)
+                idx, length, total = _compact_rows(m.reshape(n * r, Kp),
+                                                   kcap)
+                parts.append((torch.gather(
+                    pid.repeat_interleave(r, dim=0), 1, idx.long()),
+                    length, total))
+        ids, length, total = (torch.cat(x) for x in zip(*parts))
+        valid = _arange(kcap, dev)[None, :] < length[:, None]
+        needs.append(total.max())
+        C_prev = C
+    return ids, valid, C_prev, needs
+
+
+def _hier_levels(G: int, NC: int, hier_sizes, cand_caps):
+    """Effective refinement levels: strictly descending sizes below G, each
+    dividing the one before, with per-level candidate caps clipped to the
+    node table. ``lvl_map`` keeps the configured index of each effective
+    level so the reported needs line up with the configured cand_caps."""
+    sizes, kcaps, lvl_map = [], [], []
+    for i, (s, c) in enumerate(zip(hier_sizes, cand_caps)):
+        if s < G and (not sizes or (s < sizes[-1] and sizes[-1] % s == 0)):
+            sizes.append(int(s))
+            kcaps.append(min(int(c), NC))
+            lvl_map.append(i)
+    if not sizes:
+        sizes = [G]
+        kcaps = [min(int(cand_caps[-1]), NC)]
+        lvl_map = [len(hier_sizes) - 1]
+    return sizes, kcaps, lvl_map
+
+
+def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
+                group_size: int, hier_sizes, cand_caps, leaf_list_cap: int,
+                direct_body_cap: int, hier_batch: int, evaluate: bool = True,
+                probe=None):
+    """Masked-dense BH force evaluation over hierarchical chunk candidates.
+
+    Per final-level chunk (``hier_sizes[-1]`` adjacent groups) the member
+    groups share one candidate list; per-group accept and direct decisions
+    are dense masks over it (``accept = pass_g(n) & ~pass_g(parent)``,
+    ``direct = leaf & ~pass_g(n)``: the same local monotone-MAC tests as
+    :func:`_classify_dense`, so the interaction sets are identical), and
+    the force evaluation consumes the masks as per-group weights on dense
+    (group_size x K) pair blocks. Direct leaves are compacted once per
+    chunk; their body ranges flatten through :func:`_flatten_ranges`, and
+    the per-(group, partner-slot) weights are the leaf masks gathered at
+    each slot's leaf.
+
+    Everything after the candidate refinement runs at most ``hier_batch``
+    chunks at a time (fewer where the pair budget says so), and each such
+    batch is evaluated in sub-batches inside the budget, so the candidate
+    rows, weights and partner rows of all chunks never exist at once.
+    With ``evaluate`` false the pair blocks are skipped and the
+    accelerations are zeros: a pass that only measures the needs.
+
+    Returns (acc_rows (G, group_size, 2), needs dict).
+    """
+    cap, _ = tree.spos.shape
+    G = gvalid.shape[0]
+    rows_all = tree.node_rows
+    NC = rows_all.shape[0]
+    dev = gvalid.device
+    GS = group_size
+    LC, DB = leaf_list_cap, direct_body_cap
+    probe = probe or (lambda name: None)
+
+    sizes, kcaps, lvl_map = _hier_levels(G, NC, hier_sizes, cand_caps)
+    CH = sizes[-1]
+    g_pad = -(-G // sizes[0]) * sizes[0]
+
+    def padg(x, fill):
+        if g_pad == G:
+            return x
+        return torch.cat([x, torch.full((g_pad - G,) + x.shape[1:], fill,
+                                        dtype=x.dtype, device=dev)])
+
+    big = torch.finfo(gmin.dtype).max
+    gminp = padg(gmin, big)
+    gmaxp = padg(gmax, -big)
+
+    ids, cvalid, C, lvl_needs = _hier_lists(
+        tree, gminp, gmaxp, theta2, soft2, g_pad=g_pad, sizes=sizes,
+        kcaps=kcaps)
+    K = ids.shape[1]
+    LC = min(LC, K)                     # a chunk's leaves are candidates
+    bmn_all = gminp.reshape(C, CH, 2)
+    bmx_all = gmaxp.reshape(C, CH, 2)
+    gv_all = padg(gvalid, False).reshape(C, CH)
+    bpos_all, _ = _group_bodies(tree.spos, padg(gstart, cap), GS)
+    bpos_all = bpos_all.reshape(C, CH, GS, 2)
+    probe("lists")
+
+    body_rows = tree.body_rows
+    Cb = _batch_rows(CH * max(K, DB), min(hier_batch, C))
+    eb = _batch_rows(CH * GS * max(K, DB), Cb)
+    acc = torch.zeros((C, CH, GS, 2), dtype=tree.spos.dtype, device=dev)
+    l_tots, d_tots = [], []
+    for c0 in range(0, C, Cb):
+        c = slice(c0, min(c0 + Cb, C))
+        bmn, bmx, gv = bmn_all[c], bmx_all[c], gv_all[c]
+        crows = rows_all[torch.where(cvalid[c], ids[c], 0).long()]
+        n = crows.shape[0]                                    # (n, K, 14)
+        occ = cvalid[c] & (crows[..., 0] > 0)
+
+        # ---- per-group accept weights over the shared candidates ----
+        pn = _box_pass_cols(bmn, bmx, crows[..., 3][:, None, :],
+                            crows[..., 4][:, None, :],
+                            crows[..., 5][:, None, :], theta2, soft2)
+        pp = _box_pass_cols(bmn, bmx, crows[..., 10][:, None, :],
+                            crows[..., 11][:, None, :],
+                            crows[..., 12][:, None, :], theta2, soft2) \
+            & (crows[..., 13] != 0.0)[:, None, :]
+        accept = occ[:, None, :] & gv[..., None] & pn & ~pp   # (n, CH, K)
+        wapx = torch.where(accept, crows[..., 0][:, None, :], 0.0)
+        del pn, pp, accept
+
+        # ---- chunk-level direct leaf list ----
+        pcn = _box_pass_cols(bmn.amin(dim=1), bmx.amax(dim=1), crows[..., 3],
+                             crows[..., 4], crows[..., 5], theta2, soft2)
+        dleaf = occ & (crows[..., 6] < 0) & ~pcn              # (n, K)
+        lidx, llen, ltot = _compact_rows(dleaf, LC)
+        lrows = torch.gather(crows, 1,
+                             lidx.long()[..., None].expand(n, LC, 14))
+        lvalid = _arange(LC, dev)[None, :] < llen[:, None]
+        lstart = lrows[..., 8].to(torch.int32)
+        lcount = torch.where(lvalid, lrows[..., 9].to(torch.int32), 0)
+        # per-(group, leaf) direct mask, recomputed on the compacted rows
+        pnl = _box_pass_cols(bmn, bmx, lrows[..., 3][:, None, :],
+                             lrows[..., 4][:, None, :],
+                             lrows[..., 5][:, None, :], theta2, soft2)
+        dmask = (lvalid & (lrows[..., 0] > 0))[:, None, :] & gv[..., None] \
+            & ~pnl                                            # (n, CH, LC)
+        l_tots.append(ltot)
+        probe("lists")
+
+        # ---- partner flatten ----
+        slots, leaf, svalid, d_tot = _flatten_ranges(lstart, lcount, DB)
+        d_tots.append(d_tot)
+        if not evaluate:
+            continue
+        wdir = torch.gather(dmask, 2, leaf[:, None, :].expand(n, CH, DB))
+        wdir = wdir & svalid[:, None, :]                      # (n, CH, DB)
+        prow = body_rows[slots.long()]                        # (n, DB, 4)
+        com = crows[..., 1:3]                                 # (n, K, 2)
+        probe("flatten")
+
+        # ---- masked-dense pair blocks ----
+        bpos, acc_c = bpos_all[c], acc[c]                     # views
+        for e0 in range(0, n, eb):
+            e = slice(e0, e0 + eb)
+            out = _point_accel(bpos[e], com[e][:, None], wapx[e], soft2)
+            out += _point_accel(bpos[e], prow[e][:, None, :, 0:2],
+                                prow[e][:, None, :, 2] * wdir[e], soft2)
+            acc_c[e] = out * gv[e][..., None, None]
+        probe("evaluate")
+    acc_rows = acc.reshape(C * CH, GS, 2)[:G]
+
+    cand_need = torch.zeros((len(hier_sizes),), dtype=torch.int32, device=dev)
+    for li, n in zip(lvl_map, lvl_needs):
+        cand_need[li] = n
+    needs = {"leaf_need": torch.cat(l_tots).max(),
+             "direct_need": torch.cat(d_tots).max(), "cand_need": cand_need}
+    return acc_rows, needs
+
+
+def _point_accel(bpos, src_pos, src_mass, soft2):
+    """Blocked point-mass kernel: sum_j m_j * d_ij * r_ij^-3 (no G).
+
+    ``bpos`` (..., B, 2) targets, ``src_pos`` (..., S, 2) sources and
+    ``src_mass`` (..., S) with broadcast-compatible leading dims; returns
+    (..., B, 2). Every pair temporary is (..., B, S).
+    """
+    dx = src_pos[..., None, :, 0] - bpos[..., :, None, 0]
+    dy = src_pos[..., None, :, 1] - bpos[..., :, None, 1]
+    r2 = dx * dx + dy * dy + soft2
+    w = src_mass[..., None, :] * torch.rsqrt(r2) / r2
+    return torch.stack([(w * dx).sum(dim=-1), (w * dy).sum(dim=-1)], dim=-1)
+
+
+def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
+                       group_cap: int, max_depth: int, frontier_cap: int,
+                       approx_cap: int, leaf_list_cap: int,
+                       direct_body_cap: int, group_chunk: int,
+                       traversal: str = "dense",
+                       hier_sizes: tuple = (1024, 64, 8),
+                       cand_caps: tuple = (65536, 16384, 4096),
+                       hier_batch: int = 32, evaluate: bool = True,
+                       probe=None):
+    """BH accelerations for all bodies; returns (acc, stats).
+
+    ``acc`` is in original body order; ``stats`` is a
+    :class:`TraversalStats` of 0-dim device tensors (nothing here reads the
+    device). ``traversal`` selects how the lists are built: ``"dense"``,
+    ``"hier"`` or ``"bfs"`` (module docstring). dense and bfs produce bit-identical
+    lists and forces; hier agrees with dense to float32 summation order.
+    ``theta``, ``soft2`` and ``G`` are Python floats, rounded to float32 as
+    the JAX package's scalars are. With ``evaluate`` false the lists are
+    built and measured but no pair block is evaluated: ``acc`` is zeros and
+    ``stats`` is what the full pass would report.
+    """
+    if traversal not in TRAVERSALS:
+        raise ValueError(f"unknown traversal {traversal!r}: expected one of "
+                         f"{TRAVERSALS}")
+    cap, _ = tree.spos.shape
+    dev = tree.spos.device
+    i32 = torch.int32
+    GS = min(group_size, cap)
+    # theta^2 as the JAX package forms it: a float32 product
+    theta2 = float(np.float32(theta) * np.float32(theta))
+    NC = tree.code.shape[0]
+    group_cap = min(group_cap, NC)  # at most one group per node
+    spos = tree.spos
+    probe = probe or (lambda name: None)
+
+    gvalid, gstart, gcount, n_groups = make_groups(tree, GS, group_cap)
+    gmin, gmax = _group_aabb(spos, gstart, gcount, gvalid, GS)
+
+    # Coverage guard (see TraversalStats): the largest leaf population.
+    # Only a max-depth leaf can exceed leaf_size, so this stays small unless
+    # the scene collapses > group_size bodies into one max-depth cell.
+    node_valid = _arange(NC, dev) < tree.n_nodes
+    leaf_max = torch.where(node_valid & (tree.child < 0), tree.count,
+                           0).max()
+    zero = torch.zeros((), dtype=i32, device=dev)
+    probe("groups")
+
+    if traversal == "hier":
+        acc_rows, needs = _hier_accel(
+            tree, gstart, gvalid, gmin, gmax, theta2, soft2, group_size=GS,
+            hier_sizes=hier_sizes, cand_caps=cand_caps,
+            leaf_list_cap=leaf_list_cap, direct_body_cap=direct_body_cap,
+            hier_batch=hier_batch, evaluate=evaluate, probe=probe)
+        stats = TraversalStats(
+            approx_need=zero, leaf_need=needs["leaf_need"],
+            direct_need=needs["direct_need"], frontier_need=zero,
+            group_need=n_groups, node_need=tree.node_need,
+            group_size_need=leaf_max, cand_need=needs["cand_need"])
+        out = G * _assemble(tree, acc_rows, gstart, GS, group_cap)
+        probe("assemble")
+        return out, stats
+
+    # Chunk the traversal over groups: the BFS path's per-wave temporaries
+    # are (groups x frontier_cap x 14-lane rows) and the dense path's masks
+    # are (groups x num_nodes).
+    if traversal == "dense":
+        tchunk = max(64, (1 << 25) // max(NC, 1))
+    else:
+        tchunk = 4096
+    tchunk = min(group_cap, tchunk)
+    parts = []
+    for g0 in range(0, group_cap, tchunk):
+        gmn, gmx, gv = (x[g0:g0 + tchunk] for x in (gmin, gmax, gvalid))
+        if traversal == "dense":
+            apx, al, lv, ll, a_tot, l_tot = _classify_dense(
+                tree, gmn, gmx, gv, theta2, soft2, approx_cap=approx_cap,
+                leaf_list_cap=leaf_list_cap)
+            fn = torch.zeros_like(a_tot)
+        else:
+            apx, al, lv, ll, fn = _traverse_all(
+                tree, gmn, gmx, gv, theta2, soft2, max_depth=max_depth,
+                frontier_cap=frontier_cap, approx_cap=approx_cap,
+                leaf_list_cap=leaf_list_cap)
+            a_tot, l_tot = al, ll  # wave lengths count every append (uncapped)
+        psl, pv, dn = _direct_partners_all(
+            tree, lv, ll, direct_body_cap=direct_body_cap)
+        parts.append((apx, al, psl, pv, dn, fn, a_tot, l_tot))
+    approx, a_len, pslots, pvalid, d_need, f_need, a_need, l_need = (
+        torch.cat(x) for x in zip(*parts))
+    del parts
+    probe("lists")
+
+    # ---- force evaluation, chunked over groups (pure gather + math) ----
+    bpos, _ = _group_bodies(spos, gstart, GS)                 # (G, GS, 2)
+    gchunk = _batch_rows(GS * max(approx_cap, direct_body_cap), group_chunk)
+    acc_rows = torch.zeros((group_cap, GS, 2), dtype=spos.dtype, device=dev)
+    slot_a = _arange(approx_cap, dev)[None, :]
+    for g0 in range(0, group_cap if evaluate else 0, gchunk):
+        g = slice(g0, g0 + gchunk)
+        avalid = slot_a < a_len[g][:, None]
+        arows = tree.node_rows[torch.where(avalid, approx[g], 0).long()]
+        acc = _point_accel(bpos[g], arows[..., 1:3],
+                           torch.where(avalid, arows[..., 0], 0.0), soft2)
+        prow = tree.body_rows[pslots[g].long()]               # (g, DB, 4)
+        acc += _point_accel(bpos[g], prow[..., 0:2],
+                            torch.where(pvalid[g], prow[..., 2], 0.0), soft2)
+        acc_rows[g] = acc * gvalid[g][:, None, None]
+    probe("evaluate")
+
+    stats = TraversalStats(
+        approx_need=a_need.max(), leaf_need=l_need.max(),
+        direct_need=d_need.max(), frontier_need=f_need.max(),
+        group_need=n_groups, node_need=tree.node_need,
+        group_size_need=leaf_max)
+    out = G * _assemble(tree, acc_rows, gstart, GS, group_cap)
+    probe("assemble")
+    return out, stats
+
+
+def _assemble(tree: Tree, acc_rows, gstart, GS: int, group_cap: int):
+    """Scatter-free assembly: sorted slot -> (group, row) -> orig order."""
+    cap = tree.spos.shape[0]
+    s = _arange(cap, gstart.device)
+    g_of_s = torch.clamp(torch.searchsorted(gstart, s, right=True) - 1,
+                         0, group_cap - 1)
+    sl0 = torch.clamp(gstart[g_of_s], 0, cap - GS)
+    row = s - sl0
+    in_range = (row >= 0) & (row < GS) & (s < tree.n_alive)
+    acc_sorted = acc_rows[g_of_s, torch.clamp(row, 0, GS - 1).long()]
+    acc_sorted = torch.where(in_range[:, None], acc_sorted, 0.0)
+    return acc_sorted[tree.unsort.long()]
