@@ -26,7 +26,27 @@ n2 = 200,000):
   changed, step(3) timed; then no cap overflowing, the force error of a
   fresh pass, one pass timed by phase, the traversal needs on three scenes
   at N = 1,000,000, and at N = 65,536 a pass at theta = 1e-3 against the
-  all-pairs kernel and dense against hier.
+  all-pairs kernel and dense against hier;
+* sphere3d (path E): the reference GPU demo, the 3D sphere scene under
+  exact all-pairs forces (the kernel's 3D instantiation) and semi-implicit
+  Euler. Once as ``python -m tpu_nbody_torch.examples.sphere3d_demo`` runs
+  it (50,000 satellites and the central body, 90 frames of one step,
+  430 x 180, the orbiting camera, GIF written to a temporary directory),
+  and once at a size that loads the card: 2^20 bodies through
+  ``Engine(SimConfig(capacity=2**20, dim=3), ..., solver="allpairs",
+  integrator="euler")``, step(1) to warm up and step(3) timed, n_alive
+  unchanged, momentum and centre of mass conserved, then one frame at
+  3440 x 1440. A PhaseTimer times its phases;
+* render: that frame and a frame of the main path's stepped N = 1M state
+  (the 2400 x 800 world at 1200 x 400, speed and classic colors) are not
+  all black, agree between two renders and with the same splat on the CPU
+  (the additive sums before the clip, within RENDER_TOL of the brightest
+  pixel; the 3D projection within 1e-3 px), timed with CUDA events; a
+  render_movie of the main path's configuration (8 frames of 4 steps)
+  leaves uint8 frames on the card that differ from first to last;
+* drift: ``tpu_nbody_torch.examples.drift_benchmark`` for solver="allpairs"
+  at n = 2000, 10,000 steps of dt = 1e-4 with kdk_reuse and merging off,
+  failing where the relative energy or L_z drift is above DRIFT_LIMIT.
 
 On the way it
 
@@ -39,10 +59,15 @@ On the way it
    capacity that is not a multiple of the bodies a CTA covers) and
 4. the all-pairs kernel against its plain version (8192 bodies in 2D and
    3D, 4096 targets x 2^20 sources, and the all-pairs engine's 2^20 x 2^20
-   on 4096 sampled rows), each within 1e-5 of the largest magnitude,
-   timing both with CUDA events (median of 10 timings of one call on an
+   on 4096 sampled rows, in 2D on the two-disk scene and in 3D on path E's
+   sphere, and in 3D all 50,001 x 50,001 rows of the state the demo ended
+   in, a shape that fills no thread, block or source tile and takes the
+   split-source plan), each within 1e-5 of the largest magnitude; the 3D
+   sphere shapes also row by row, within 1e-5 of the larger of the row's own
+   magnitude and the median row's, and with the central body's mass set to
+   0, where the largest magnitude is the satellites' own, timing both with CUDA events (median of 10 timings of one call on an
    idle card, after 2 warm-ups; 5 at the engine's shape), and checks that
-   the all-pairs kernel gives the same bits on a second call;
+   the all-pairs kernel gives the same bits on a second call (2D and 3D);
 5. sets every launch count to 0 just before each path and reads it just
    after, checking the launches each path must make (one band launch per
    P3M force pass, one all-pairs launch per all-pairs force pass), finite
@@ -51,9 +76,10 @@ On the way it
    sampled alive bodies (tpu_nbody_torch.accuracy), failing where a mean
    is over its limit.
 
-The kernels line gives, per kernel, ``launches`` (the main path's run: the
-three step(20) calls for the band kernel, the force error after them for
-the all-pairs kernel) and ``launches_by_path``. Barnes–Hut launches neither
+The kernels line gives, per kernel, ``launches`` (for the band kernel the
+main path's three step(20) calls; for the all-pairs kernel path E's run at
+2^20 bodies, the path it carries: the P3M main path launches it only in
+the force error after its steps) and ``launches_by_path``. Barnes–Hut launches neither
 kernel in its steps (its pair math is plain torch); path D's counts are the
 all-pairs launches of its force-error measurements. Each kernel's bound_ms is
 the larger of its flops over the float32 peak and its bytes over the memory
@@ -70,8 +96,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 N = 1_000_000       # bodies of the two-disk scene
@@ -87,6 +115,18 @@ BH_ERR_LIMIT = 8e-4
 BH_OPEN_TOL = 1e-3  # theta = 1e-3 opens every cell: max relative error
 BH_HIER_TOL = 2e-5  # hier vs dense: max |diff| <= this * max |dense|
 SAMPLES = 4096      # bodies sampled for the exact force error
+N_SPHERE = 50_000   # satellites of the 3D demo at its own size
+SPHERE_FRAMES = 90  # its frames, one step each
+SPHERE_VIEW = (430, 180)    # its frame, width x height
+BIG_VIEW = (3440, 1440)     # the frame of the 2^20-body sphere
+MAIN_VIEW = (1200, 400)     # the frame of the 2400 x 800 two-disk world
+RENDER_TOL = 1e-4   # splat sums: max |diff| <= this * the brightest pixel
+MOMENTUM_TOL = 1e-4  # path E: |p - p0| <= this * sum m |v|
+COM_TOL = 1e-2      # path E: |com - (com0 + t p0 / M)| in px
+DRIFT_LIMIT = 1e-3  # relative energy and L_z drift of the all-pairs run
+DRIFT_ARGS = ["--solver", "allpairs", "--n", "2000", "--steps", "10000",
+              "--report-every", "2500", "--dt", "1e-4", "--integrator",
+              "kdk_reuse"]
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 RSQRT_PER_CLK_SM = 16
@@ -447,6 +487,330 @@ def _path_d(paths, cfg, params, dev, st0):
     return sec
 
 
+def _check_rows(name, got, want):
+    """Row by row: |got_i - want_i| <= TOL x max(|want_i|, the median
+    |want|). A scene whose largest row is far above the typical one (the
+    bodies next to a heavy centre) leaves the max-norm check of
+    ``_check_close`` loose on the typical row; this one is not."""
+    import torch
+    size = want.norm(dim=1)
+    rel = (got - want).norm(dim=1) / torch.maximum(size, size.median())
+    worst = float(rel.max())
+    if not worst <= TOL:
+        raise AssertionError(f"{name}: row {int(rel.argmax())} disagrees "
+                             f"with the plain version: {worst:.3e} of its "
+                             f"own size > {TOL}")
+    return worst
+
+
+def _allpairs_3d_shape(name, pos, mass, params, rows, n_sm, max_clock_hz):
+    """The all-pairs kernel's 3D instantiation at one of path E's shapes,
+    every body of a sphere scene a target: against the plain version on the
+    target rows ``rows`` (None: all of them) in the max norm and row by row,
+    once more with the central body's mass set to 0 (the max norm is then
+    the satellites' own), the same bits on a second call, timed, with its
+    bounds and its launch plan."""
+    import torch
+    from tpu_nbody_torch.ops import forces
+    n = pos.shape[0]
+    tgt = pos if rows is None else pos[rows].contiguous()
+    n_rows = tgt.shape[0]
+
+    def pick(a):
+        return a if rows is None else a[rows]
+
+    def kernel(m):
+        return forces.accel_allpairs(pos, m, params.G, params.soft2)
+
+    def plain(m):
+        return forces.accel_allpairs_ref(pos, m, params.G, params.soft2,
+                                         targets=tgt)
+
+    full, want = kernel(mass), plain(mass)
+    torch.cuda.synchronize()
+    err, scale = _check_close(name, pick(full), want)
+    row_err = _check_rows(name, pick(full), want)
+    if not torch.equal(full, kernel(mass)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    satellites = torch.where(mass == mass.max(), 0.0, mass)
+    sat_err, sat_scale = _check_close(f"{name}, satellites alone",
+                                      pick(kernel(satellites)),
+                                      plain(satellites))
+    del full, want
+    ms = _timed_ms(lambda: kernel(mass), reps=5)
+    plan = forces._card_plan(n, n, 3, pos.device)
+    bound = _bounds(forces.pair_work(n, n, 3), ms, n_sm, max_clock_hz)
+    print(f"{name}: max|diff| {err:.3e} on {n_rows} rows (max|a| "
+          f"{scale:.3e}), worst row {row_err:.3e} of its own size, "
+          f"satellites alone {sat_err:.3e} (max|a| {sat_scale:.3e}), two "
+          f"calls give the same bits, kernel {ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.3f} ms ({bound['pct_of_bound']:.1f}%), rsqrt "
+          f"floor {bound['rsqrt_floor_ms']:.3f} ms, plan {plan.blocks} "
+          f"blocks x {plan.splits} splits", flush=True)
+    return dict(targets=n, sources=n, ms=ms, rows_checked=n_rows,
+                max_abs_err_sampled=err, max_row_rel_err=row_err,
+                max_abs_err_satellites=sat_err, blocks=plan.blocks,
+                splits=plan.splits, **bound)
+
+
+def _gif_frame_count(raw: bytes) -> int:
+    """The image count of a GIF89a file with a 256-entry global color
+    table, walking its blocks."""
+    if raw[:6] != b"GIF89a" or raw[10] != 0xF7:
+        raise AssertionError("not a GIF89a file with a 256-entry table")
+    i, frames = 13 + 768, 0
+
+    def skip_sub_blocks(i):
+        while raw[i]:
+            i += 1 + raw[i]
+        return i + 1
+
+    while raw[i] != 0x3B:
+        if raw[i] == 0x21:          # extension: label, then sub-blocks
+            i = skip_sub_blocks(i + 2)
+        elif raw[i] == 0x2C:        # image: descriptor, code size, data
+            frames += 1
+            i = skip_sub_blocks(i + 11)
+        else:
+            raise AssertionError(f"GIF: unknown block {raw[i]:#x} at {i}")
+    if i != len(raw) - 1:
+        raise AssertionError("GIF: bytes after the trailer")
+    return frames
+
+
+def _check_splat(name, bodies, view, mode="speed", gain=1.0):
+    """One frame of ``bodies`` = (pos2, vel, mass, alive) on the card: the
+    additive splat rendered twice and once more on the CPU from the same
+    arrays (the pixel indices are then equal and only the order of the
+    adds differs), each within RENDER_TOL of the brightest pixel; the
+    clipped frame not all black; render_frame timed with CUDA events."""
+    import torch
+    from tpu_nbody_torch.ops import render
+    kw = dict(width=view["width"], height=view["height"],
+              view_x=view.get("view_x", 0.0), view_y=view.get("view_y", 0.0),
+              zoom=view.get("zoom", 1.0), mode=mode,
+              speed_scale=view["speed_scale"], gain=gain)
+    sums = [render._splat_sum(*bodies, size_base=1.0, size_mass_scale=0.0,
+                              **kw) for _ in range(2)]
+    cpu = render._splat_sum(*[x.cpu() for x in bodies], size_base=1.0,
+                            size_mass_scale=0.0, **kw)
+    peak = float(cpu.max())
+    again = float((sums[0] - sums[1]).abs().max())
+    host = float((sums[0].cpu() - cpu).abs().max())
+    frame = render.to_uint8(render.render_frame(*bodies, **kw))
+    lit = int((frame.sum(dim=2) > 0).sum())
+    if not (frame.device == bodies[0].device and lit > 0
+            and torch.isfinite(sums[0]).all()):
+        raise AssertionError(f"{name}: the frame is black, not finite or "
+                             f"not on the bodies' device")
+    if not (again <= RENDER_TOL * peak and host <= RENDER_TOL * peak):
+        raise AssertionError(
+            f"{name}: splat sums differ: two renders {again:.3e}, card "
+            f"against CPU {host:.3e} > {RENDER_TOL} x {peak:.3e}")
+    levels = int((frame.cpu().int() - render.to_uint8(
+        torch.clamp(cpu, 0.0, 1.0)).int()).abs().max())
+    if levels > 1:
+        raise AssertionError(f"{name}: uint8 frame {levels} levels from "
+                             f"the CPU's")
+    ms = _timed_ms(lambda: render.render_frame(*bodies, **kw))
+    print(f"render {name} {kw['width']}x{kw['height']} {mode}: {ms:.3f} ms, "
+          f"{lit} lit pixels, brightest sum {peak:.1f}, two renders differ "
+          f"by {again:.3e}, card against CPU {host:.3e}, uint8 within "
+          f"{levels}", flush=True)
+    return ms
+
+
+def _moments(st):
+    """Float64 momentum, centre of mass, total mass and sum m |v| of a
+    state, as CPU tensors."""
+    m = st.mass.double()
+    p = (m[:, None] * st.vel.double()).sum(0)
+    mv = (m * st.vel.double().norm(dim=1)).sum()
+    com = (m[:, None] * st.pos.double()).sum(0) / m.sum()
+    return p.cpu(), com.cpu(), float(m.sum()), float(mv)
+
+
+def _path_e(paths, params3, dev, bodies, n_sm, max_clock_hz):
+    """The 3D demo at its own size and at 2^20 bodies (module docstring).
+    ``bodies`` is the 2^20-body sphere. Returns the numbers it measured."""
+    import torch
+    from tpu_nbody_torch import profiling, viewer
+    from tpu_nbody_torch.config import SimConfig
+    from tpu_nbody_torch.engine import Engine
+    from tpu_nbody_torch.examples import sphere3d_demo
+    from tpu_nbody_torch.ops import render
+
+    pt = profiling.PhaseTimer()
+    out = {}
+    w, h = SPHERE_VIEW
+    print(f"path E: the 3D demo, {N_SPHERE} satellites + the centre, "
+          f"{SPHERE_FRAMES} frames at {w}x{h}", flush=True)
+
+    def demo():
+        with tempfile.TemporaryDirectory() as tmp:
+            eng, frames = sphere3d_demo.simulate(
+                N_SPHERE, SPHERE_FRAMES, 1, w, h, device=dev, timer=pt)
+            with pt("gif"):
+                path = os.path.join(tmp, "sphere.gif")
+                viewer.write_gif(path, list(frames.cpu().numpy()), fps=25)
+            with open(path, "rb") as f:
+                raw = f.read()
+        return eng, frames, raw
+
+    eng, frames, raw = paths.run("sphere3d_demo", demo, need=("allpairs",))
+    count = _gif_frame_count(raw)
+    st = eng.state
+    if paths.counts["sphere3d_demo"] != {"band": 0,
+                                         "allpairs": SPHERE_FRAMES}:
+        raise AssertionError(f"sphere3d_demo: launches "
+                             f"{paths.counts['sphere3d_demo']}, expected "
+                             f"{SPHERE_FRAMES} all-pairs and no band")
+    if not (frames.device.type == dev.type and frames.dtype == torch.uint8
+            and tuple(frames.shape) == (SPHERE_FRAMES, h, w, 3)
+            and count == SPHERE_FRAMES and int(frames[0].sum()) > 0
+            and not torch.equal(frames[0], frames[-1])
+            and int(st.n_alive()) == N_SPHERE + 1 and st.dim == 3
+            and all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel))):
+        raise AssertionError(f"sphere3d_demo: bad frames or state "
+                             f"({count} GIF frames, {tuple(frames.shape)})")
+    out["demo_ms_per_frame"] = 1e3 * (pt.totals["step"]
+                                      + pt.totals["render"]) / SPHERE_FRAMES
+    print(f"sphere3d_demo: {out['demo_ms_per_frame']:.3f} ms/frame (step "
+          f"{1e3 * pt.totals['step'] / SPHERE_FRAMES:.3f} + render "
+          f"{1e3 * pt.totals['render'] / SPHERE_FRAMES:.3f}, each ended by "
+          f"a synchronize), GIF {len(raw)} bytes, {count} frames, written "
+          f"in {pt.totals['gif']:.2f} s", flush=True)
+    # the kernel at the demo's own shape, on the state the demo ended in:
+    # N_SPHERE + 1 bodies is no multiple of a thread's T targets, of a
+    # block or of a source tile, and the heavy centre is the last row
+    n_demo = N_SPHERE + 1
+    out["demo_shape_3d"] = _allpairs_3d_shape(
+        f"allpairs 3D {n_demo} targets x {n_demo} sources",
+        st.pos, torch.where(st.alive, st.mass, 0.0), params3, None, n_sm,
+        max_clock_hz)
+    if out["demo_shape_3d"]["splits"] < 2:
+        raise AssertionError("allpairs 3D at the demo's shape: expected the "
+                             "split-source plan")
+    del eng, frames, st
+
+    # -- the size that loads the card ---------------------------------------
+    cap = bodies[0].shape[0]
+    print(f"path E: Engine(SimConfig(capacity={cap}, dim=3), solver="
+          f"'allpairs', integrator='euler'), merging off", flush=True)
+    big = Engine(SimConfig(capacity=cap, dim=3), params3, solver="allpairs",
+                 integrator="euler", device=dev)
+    big.set_bodies(*bodies)
+    p0, com0, total, mv = _moments(big.state)
+    torch.cuda.reset_peak_memory_stats()
+    with pt("engine3d step(1) + step(3)") as hold:
+        sec, n0, n1 = paths.run(
+            "sphere3d_engine", lambda: _run_steps(big, 2, [1, 3],
+                                                  lambda s: s, "allpairs"),
+            need=("allpairs",))
+        hold["result"] = big.state
+    if paths.counts["sphere3d_engine"] != {"band": 0, "allpairs": 4}:
+        raise AssertionError(f"sphere3d_engine: launches "
+                             f"{paths.counts['sphere3d_engine']}, expected "
+                             f"4 all-pairs and no band")
+    if n1 != n0 or n0 != cap:
+        raise AssertionError(f"sphere3d_engine: n_alive {n0} -> {n1}, "
+                             f"expected {cap} (merging is off)")
+    _report_run(f"sphere3d_engine euler N={cap}", big, sec, n0, n1)
+    p1, com1, _, _ = _moments(big.state)
+    t = 4 * params3.dt
+    dp = float((p1 - p0).norm())
+    dcom = float((com1 - (com0 + t * p0 / total)).norm())
+    hud = big.stats(potential=False)
+    print(f"sphere3d_engine: |p - p0| {dp:.3e} against sum m|v| {mv:.3e} "
+          f"({dp / mv:.3e}), |com - (com0 + t p0 / M)| {dcom:.3e} px; "
+          f"stats com {hud['com'].tolist()} momentum "
+          f"{hud['momentum'].tolist()} Lz "
+          f"{float(hud['angular_momentum_z']):.6e}", flush=True)
+    if hud["com"].shape != (3,) or hud["momentum"].shape != (3,):
+        raise AssertionError("sphere3d_engine: stats are not 3-vectors")
+    if not (dp <= MOMENTUM_TOL * mv and dcom <= COM_TOL):
+        raise AssertionError(f"sphere3d_engine: momentum or centre of mass "
+                             f"not conserved: {dp / mv:.3e}, {dcom:.3e} px")
+    out.update(ms_per_step=1e3 * sec, body_updates_per_s=n1 / sec)
+
+    # -- one frame of it at full size: the projection against the CPU's,
+    #    then the splat from the card's screen coordinates
+    bw, bh_ = BIG_VIEW
+    st = big.state
+    with pt("render 3D frame + checks") as hold:
+        cam = dict(width=bw, height=bh_, cam_angle=0.25 * 0.016 * 4)
+        pos2 = render._project_3d(st.pos, st.mass, st.alive, **cam)
+        pos2_cpu = render._project_3d(st.pos.cpu(), st.mass.cpu(),
+                                      st.alive.cpu(), **cam)
+        dproj = float((pos2.cpu() - pos2_cpu).abs().max())
+        if not dproj <= 1e-3:
+            raise AssertionError(f"3D projection: card against CPU "
+                                 f"{dproj:.3e} px > 1e-3")
+        print(f"3D projection {bw}x{bh_}: card against CPU {dproj:.3e} px",
+              flush=True)
+        view = dict(width=bw, height=bh_, speed_scale=1.0 / 10_000.0)
+        out["splat_ms"] = _check_splat(
+            f"sphere N={cap}", (pos2, st.vel, st.mass, st.alive), view,
+            gain=0.6)
+        fb = render.render_frame_3d(st.pos, st.vel, st.mass, st.alive,
+                                    gain=0.6, **cam)
+        if int((fb.sum(dim=2) > 0).sum()) == 0:
+            raise AssertionError("render_frame_3d: the frame is black")
+        out["frame3d_ms"] = _timed_ms(lambda: render.render_frame_3d(
+            st.pos, st.vel, st.mass, st.alive, gain=0.6, **cam))
+        hold["result"] = fb
+    print(f"render_frame_3d N={cap} {bw}x{bh_}: {out['frame3d_ms']:.3f} ms "
+          f"(centre of mass, projection and splat)", flush=True)
+    print("path E phases (host clock, a synchronize at each exit):\n  "
+          + pt.report().replace("\n", "\n  "), flush=True)
+    return out
+
+
+def _render_main(paths, cfg, params, dev, st0, stepped):
+    """Frames of the main path: the stepped N = 1M state in both color
+    modes, and a render_movie of 8 frames x 4 single steps from the
+    initial scene (each single step a seed pass and a step of the
+    sorted-carry P3M loop)."""
+    import torch
+    from tpu_nbody_torch import engine
+    from tpu_nbody_torch.ops import render
+    w, h = MAIN_VIEW
+    zoom = w / cfg.world_w
+    view = dict(width=w, height=h, zoom=zoom,
+                view_y=-(h / zoom - cfg.world_h) / 2, speed_scale=1.0 / 300.0)
+    bodies = (stepped.pos, stepped.vel, stepped.mass, stepped.alive)
+    out = {mode: _check_splat(f"pm_main N={int(stepped.n_alive())}", bodies,
+                              view, mode=mode)
+           for mode in ("speed", "classic")}
+
+    step_once = engine.make_step_fn(cfg, engine.Caps.from_config(cfg), "pm",
+                                    "kdk_reuse", False, 64, device=dev)
+
+    def movie():
+        t0 = time.perf_counter()
+        final, frames = render.render_movie(
+            st0, params, lambda s, p: step_once(s, p, n_steps=1)[0],
+            n_frames=8, steps_per_frame=4, mode="speed", **view)
+        torch.cuda.synchronize()
+        return final, frames, time.perf_counter() - t0
+
+    final, frames, sec = paths.run("render_movie_pm", movie, need=("band",))
+    if paths.counts["render_movie_pm"] != {"band": 64, "allpairs": 0}:
+        raise AssertionError(f"render_movie_pm: launches "
+                             f"{paths.counts['render_movie_pm']}, expected "
+                             f"64 band (two passes a single step)")
+    if not (frames.device.type == dev.type and frames.dtype == torch.uint8
+            and tuple(frames.shape) == (8, h, w, 3)
+            and int(final.step) == 32 and int(frames[0].sum()) > 0
+            and not torch.equal(frames[0], frames[-1])):
+        raise AssertionError("render_movie_pm: bad frames")
+    changed = int((frames[0] != frames[-1]).any(dim=2).sum())
+    print(f"render_movie pm N={N}: 8 frames x 4 steps in {sec:.2f} s, "
+          f"uint8 {tuple(frames.shape)} on {frames.device}, {changed} pixels "
+          f"differ between the first and the last frame", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -588,6 +952,16 @@ def main() -> int:
           f"blocks x {eng_plan.splits} splits", flush=True)
     del tgt, first, second, full, want
 
+    # the same in 3D, at path E's shape and on its scene
+    from tpu_nbody_torch.models import scenes3d
+    params3 = Params.default(merge_min_dist=0.0)    # the GPU demo's physics
+    sphere = scenes3d.generate_sphere(
+        torch.Generator(device=dev).manual_seed(1), cap - 1)
+    results["allpairs"]["engine_shape_3d"] = _allpairs_3d_shape(
+        f"allpairs 3D {cap} targets x {cap} sources", sphere[0], sphere[2],
+        params3, torch.randperm(cap, generator=g, device=dev)[:SAMPLES],
+        n_sm, max_clock_hz)
+
     # -- force error of the initial scene (the JAX package's measurement
     #    point: mean 1.70e-4 for this config at N=1M) -----------------------
     paths = Paths()
@@ -611,6 +985,7 @@ def main() -> int:
               lambda: _force_error(f"pm_main step {int(hud['step'])}",
                                    eng.state, cfg, params, g, ERR_LIMIT),
               need=("allpairs",))
+    main_state = eng.state
     del eng
 
     # -- path A: the exact all-pairs engine ---------------------------------
@@ -717,11 +1092,35 @@ def main() -> int:
     # -- path D: Barnes–Hut -------------------------------------------------
     bh_sec = _path_d(paths, SimConfig(capacity=cap, **CFG, **BH_CFG), params,
                      dev, st0)
+    # -- path E: the 3D demo, then the renders of the main path -------------
+    e = _path_e(paths, params3, dev, sphere, n_sm, max_clock_hz)
+    del sphere
+    render_ms = _render_main(paths, cfg, params, dev, st0, main_state)
     print(f"ms/step in this run: bh {1e3 * bh_sec:.2f}, allpairs "
-          f"{1e3 * ap_sec:.2f}, pm_main {1e3 * main_sec:.2f}", flush=True)
+          f"{1e3 * ap_sec:.2f}, pm_main {1e3 * main_sec:.2f}, sphere3d "
+          f"{e['ms_per_step']:.2f}", flush=True)
 
+    # -- drift of the exact solver ------------------------------------------
+    from tpu_nbody_torch.examples import drift_benchmark
+    print(f"drift: drift_benchmark {' '.join(DRIFT_ARGS)}", flush=True)
+    drift = paths.run("drift_allpairs",
+                      lambda: drift_benchmark.main(DRIFT_ARGS),
+                      need=("allpairs",))
+    print(f"drift_allpairs: |dE|/|E0| "
+          f"{drift['value']:.3e}, |dLz|/|Lz0| {drift['Lz_drift']:.3e}, "
+          f"{drift['elapsed_s']:.1f} s", flush=True)
+    if not (drift["value"] <= DRIFT_LIMIT
+            and drift["Lz_drift"] <= DRIFT_LIMIT):
+        raise AssertionError(f"drift above {DRIFT_LIMIT}: energy "
+                             f"{drift['value']:.3e}, Lz "
+                             f"{drift['Lz_drift']:.3e}")
+
+    results["allpairs"]["demo_shape_3d"] = e["demo_shape_3d"]
+    results["allpairs"]["engine_shape_3d"].update(
+        path_e_ms_per_step=e["ms_per_step"],
+        path_e_body_updates_per_s=e["body_updates_per_s"])
     launches = {"band": paths.counts["pm_main"]["band"],
-                "allpairs": paths.counts["pm_main_force_error"]["allpairs"]}
+                "allpairs": paths.counts["sphere3d_engine"]["allpairs"]}
     kernels = [
         dict(name="band_short_range", route="cuda",
              source="tpu_nbody_torch/csrc/band.cu",
@@ -735,6 +1134,10 @@ def main() -> int:
              launches_by_path=paths.of("allpairs"), library_ms=None,
              **results["allpairs"]),
     ]
+    print(f"render ms: 3D frame {e['frame3d_ms']:.3f} (splat alone "
+          f"{e['splat_ms']:.3f}), pm_main speed {render_ms['speed']:.3f}, "
+          f"classic {render_ms['classic']:.3f}; sphere3d_demo "
+          f"{e['demo_ms_per_frame']:.3f} ms/frame", flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -267,7 +267,7 @@ def test_bh_refusals():
     with pytest.raises(ValueError, match="2\\^24"):
         tengine.Engine(tconfig.SimConfig(capacity=(1 << 24) + 1),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="dim=3"):
+    with pytest.raises(ValueError, match="dim=3"):
         tengine.Engine(tconfig.SimConfig(capacity=64, dim=3), device="cpu")
 
 

@@ -86,7 +86,10 @@ def test_engine_20_steps_matches_jax(solver, integrator, cfg):
     (dict(allpairs_impl="triton"), (ValueError, "allpairs_impl")),
     (dict(solver="bh"), None),
     (dict(solver="bh", strict_parity=True), None),
-    (dict(cfg=dict(dim=3)), (NotImplementedError, "dim=3")),
+    (dict(cfg=dict(dim=3)), (ValueError, "dim=3")),
+    (dict(cfg=dict(dim=3), solver="bh", integrator="kdk"),
+     (ValueError, "dim=3")),
+    (dict(cfg=dict(dim=4), solver="allpairs"), (ValueError, "dim=4")),
     (dict(integrator="leapfrog"), (ValueError, "integrator")),
     (dict(cfg=dict(mesh_order=4)), (ValueError, "order")),
 ], ids=str)

@@ -40,8 +40,6 @@ GPU_CENTRAL_MASS = 5_000.0
 GPU_MIN_R = 2.0
 GPU_TOTAL_SATELLITE_MASS = 25_000.0
 
-ROADMAP_NOTE = "not ported yet; see ROADMAP.md, queue 1"
-
 
 def f32(x) -> float:
     """``x`` rounded to the nearest float32, as a Python float."""

@@ -4,7 +4,11 @@ Host-side orchestration of device work. Solvers: ``"bh"`` (flat-quadtree
 Barnes–Hut, the default), ``"pm"`` (P3M, every knob of the JAX engine) and
 ``"allpairs"`` (exact O(N²), the hand-written all-pairs kernel on the
 card). Integrators: ``"kdk"`` (two force passes a step, the default),
-``"kdk_reuse"`` (one) and ``"euler"``. 3D raises ``NotImplementedError``.
+``"kdk_reuse"`` (one) and ``"euler"``. ``SimConfig(dim=3)`` runs with
+``solver="allpairs"`` and any integrator (the reference GPU demo's
+workload); the tree and the mesh are 2D, so ``dim=3`` with ``"bh"`` or
+``"pm"`` raises ``ValueError``, as do the 2D scene methods on a 3D engine
+(``set_bodies`` and ``add_bodies`` carry ``(n, 3)`` arrays).
 
 The BH traversal uses fixed list caps (:class:`Caps`); when a ``step(n)``
 reports that a list overflowed, the engine grows the caps, rebuilds its
@@ -29,8 +33,7 @@ from typing import Callable
 import torch
 
 from tpu_nbody_torch import state as state_lib
-from tpu_nbody_torch.config import (CENTRAL_MASS, ROADMAP_NOTE, Params,
-                                    SimConfig, f32)
+from tpu_nbody_torch.config import CENTRAL_MASS, Params, SimConfig, f32
 from tpu_nbody_torch.models import scenes
 from tpu_nbody_torch.ops import forces, integrate
 from tpu_nbody_torch.ops import mesh as mesh_lib
@@ -154,18 +157,23 @@ def _resolve_traversal(cfg: SimConfig) -> str:
 
 def check_ported(cfg: SimConfig, solver: str, integrator: str,
                  strict_parity: bool = False, allpairs_impl: str = "auto"):
-    """Raise ``NotImplementedError`` for what the port does not run yet
-    (``dim != 2``) and ``ValueError`` for an unknown name or a switch the
-    port does not honour: ``strict_parity`` outside bh, which the JAX
-    engine ignores there, and ``allpairs_impl="xla"``."""
+    """Raise ``ValueError`` for an unknown name, for a ``dim`` other than 2
+    or 3, for ``dim=3`` with a solver other than all-pairs (the JAX engine
+    dies there in a broadcast error inside its first step), and for a
+    switch the port does not honour: ``strict_parity`` outside bh, which
+    the JAX engine ignores there, and ``allpairs_impl="xla"``."""
     mesh_lib._check_switch(cfg.mesh_switch)
     mesh_lib._check_order(cfg.mesh_order)
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}")
     if integrator not in (*_INTEGRATORS, "kdk_reuse"):
         raise ValueError(f"unknown integrator {integrator!r}")
-    if cfg.dim != 2:
-        raise NotImplementedError(f"dim={cfg.dim}: {ROADMAP_NOTE}")
+    if cfg.dim not in (2, 3):
+        raise ValueError(f"dim={cfg.dim}: expected 2 or 3")
+    if cfg.dim == 3 and solver != "allpairs":
+        raise ValueError(f"dim=3 runs with solver='allpairs' only: the "
+                         f"quadtree and the mesh of solver={solver!r} are "
+                         f"2D")
     if solver == "bh":
         _resolve_traversal(cfg)
     elif strict_parity:
@@ -494,7 +502,9 @@ class Engine:
     near-coincident bodies are nudged apart during the tree build.
     ``allpairs_impl`` "auto" and "pallas" both run the hand-written
     all-pairs kernel; "xla" raises ``ValueError``. The step function is
-    built here, so every refusal comes at construction.
+    built here, so every refusal comes at construction. With
+    ``SimConfig(dim=3)`` (all-pairs only) the state is 3D and the scene
+    methods below, all 2D generators, raise ``ValueError``.
     """
 
     def __init__(self, cfg: SimConfig, params: Params | None = None, *,
@@ -641,7 +651,14 @@ class Engine:
     def clear(self):
         self.state = state_lib.clear(self.state)
 
+    def _require_2d(self, what: str):
+        if self.cfg.dim != 2:
+            raise ValueError(f"{what} makes 2D bodies and this engine has "
+                             f"dim={self.cfg.dim}; pass (n, {self.cfg.dim}) "
+                             f"arrays to set_bodies or add_bodies")
+
     def reset_default_scene(self, n1: int = 10_000, n2: int = 2_500):
+        self._require_2d("reset_default_scene")
         p, v, m = scenes.default_two_disk_scene(
             self.generator, n1=n1, n2=n2, world_w=self.cfg.world_w,
             world_h=self.cfg.world_h, G=self.params.G, dtype=self.cfg.tdtype)
@@ -649,6 +666,7 @@ class Engine:
 
     def add_galaxy_disk(self, x, y, r=None, n=None, vx=0.0, vy=0.0, **kw):
         """LMB drag equivalent (``NBodyPanel.kt:170,228-234``)."""
+        self._require_2d("add_galaxy_disk")
         r = 100.0 if r is None else float(r)
         n = 5_000 if n is None else n
         p, v, m = scenes.make_galaxy_disk(
@@ -658,6 +676,7 @@ class Engine:
         self.add_bodies(p, v, m)
 
     def add_kepler_disk(self, x, y, r=None, n=5_000, vx=0.0, vy=0.0, **kw):
+        self._require_2d("add_kepler_disk")
         p, v, m = scenes.make_kepler_disk(
             self.generator, n, x=x, y=y, r=r, vx=vx, vy=vy, G=self.params.G,
             world_w=self.cfg.world_w, world_h=self.cfg.world_h,
@@ -667,6 +686,7 @@ class Engine:
     def add_black_hole(self, x, y, vx=0.0, vy=0.0, mass=None):
         """RMB drag: one body of CENTRAL_MASS (``NBodyPanel.kt:171``),
         which feeds the merge rule."""
+        self._require_2d("add_black_hole")
         m = CENTRAL_MASS if mass is None else mass
         dt = self.cfg.tdtype
         self.add_bodies(torch.tensor([[float(x), float(y)]], dtype=dt),
@@ -675,6 +695,7 @@ class Engine:
 
     def add_cloud(self, n: int = 5_000, m: float = 0.5):
         """C key (``NBodyPanel.kt:282-286``)."""
+        self._require_2d("add_cloud")
         p, v, mm = scenes.make_uniform_cloud(
             self.generator, n, m, world_w=self.cfg.world_w,
             world_h=self.cfg.world_h, dtype=self.cfg.tdtype)
@@ -688,6 +709,7 @@ class Engine:
     def tree_boxes(self):
         """Quad outlines for the D-key debug overlay: (centre, side) of
         every tree node, as numpy arrays."""
+        self._require_2d("tree_boxes")
         origin, side = _root(self.cfg)
         st = self.state
         t = tree_lib.build_tree(

@@ -80,14 +80,18 @@ def from_arrays(pos, vel, mass, capacity: int | None = None,
 def concat_bodies(state: SimState, pos, vel, mass) -> SimState:
     """Append new bodies into the lowest free slots.
 
-    Like the JAX version, bodies beyond the free capacity are dropped
-    silently (callers check ``n_alive``).
+    Bodies beyond the free slots are dropped silently and no live body is
+    overwritten (callers check ``n_alive``), as in the JAX version. More
+    bodies than the state has slots, which the JAX version refuses with a
+    shape error, are first cut to the capacity, so the 5,000-body cloud or
+    disk of the interactive window lands on a small engine too.
     """
     dev, dt = state.pos.device, state.pos.dtype
     pos = torch.as_tensor(pos, dtype=dt, device=dev)
     vel = torch.as_tensor(vel, dtype=dt, device=dev)
     mass = torch.as_tensor(mass, dtype=dt, device=dev)
-    k = pos.shape[0]
+    k = min(pos.shape[0], state.capacity)
+    pos, vel, mass = pos[:k], vel[:k], mass[:k]
     free_rank = torch.where(state.alive, torch.iinfo(torch.int32).max, 0)
     order = torch.argsort(free_rank, stable=True)   # free slots first
     slots = order[:k]
