@@ -46,7 +46,22 @@ n2 = 200,000):
   leaves uint8 frames on the card that differ from first to last;
 * drift: ``tpu_nbody_torch.examples.drift_benchmark`` for solver="allpairs"
   at n = 2000, 10,000 steps of dt = 1e-4 with kdk_reuse and merging off,
-  failing where the relative energy or L_z drift is above DRIFT_LIMIT.
+  failing where the relative energy or L_z drift is above DRIFT_LIMIT;
+* sharded (path F): P_RANKS ranks as threads of this process on the one
+  card (``parallel.mesh.make_mesh(P_RANKS)``), every rank on its default
+  stream. F1: ``ShardedEngine(solver="pm", integrator="kdk_reuse")`` on
+  the main path's configuration at N = 1M, step(8) to warm up and step(8)
+  timed (P band launches a force pass), its needs, the force error of one
+  sharded pass of the gathered state and its difference from the
+  one-device pass, one pass by phase on rank 0, the pass on one rank
+  against P, the band kernel at a rank's rows plus halos; F2:
+  ``merger10m --n 10000000 --devices 4 --steps 2``; F3: sharded all-pairs
+  at N = 2^18, one force pass against the one-device kernel (within 1e-5
+  of max |a|) and step(2) slot by slot against the one-device all-pairs
+  engine (P² launches a force pass), the all-pairs kernel at a ring tile;
+  F4: sharded Barnes–Hut at N = 65,536, its force error and LET needs,
+  the all-pairs kernel at a LET import's shape; F5:
+  ``dryrun_multichip(8)`` and one ``entry()`` step against the CPU's.
 
 On the way it
 
@@ -127,6 +142,13 @@ DRIFT_LIMIT = 1e-3  # relative energy and L_z drift of the all-pairs run
 DRIFT_ARGS = ["--solver", "allpairs", "--n", "2000", "--steps", "10000",
               "--report-every", "2500", "--dt", "1e-4", "--integrator",
               "kdk_reuse"]
+# path F: the sharded paths, P thread ranks on the one card
+P_RANKS = 4
+N_F3 = 1 << 18      # bodies of the sharded all-pairs check
+N_F4 = 65_536       # bodies of the sharded Barnes–Hut check
+F_STEPS = 8         # steps per ShardedEngine.step call of path F1
+MERGER_ARGS = ["--n", "10000000", "--devices", str(P_RANKS), "--steps", "2"]
+DRYRUN_RANKS = 8
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 RSQRT_PER_CLK_SM = 16
@@ -811,6 +833,434 @@ def _render_main(paths, cfg, params, dev, st0, stepped):
     return out
 
 
+def _gathered_pass(step, grp, cfg, params, st):
+    """One force pass of the sharded step ``step`` on the global state
+    ``st``: resharded along the Hilbert curve, each rank's pass, and the
+    accelerations with the resharded global state they belong to."""
+    import torch
+    from tpu_nbody_torch.parallel import mesh as pmesh
+    from tpu_nbody_torch.parallel.sharded_pm import reshard_by_hilbert
+    local = reshard_by_hilbert(st, grp, cfg)
+    res = step.accel(local, params)
+    return (torch.cat([r[0] for r in res]), res[0][1],
+            pmesh.gather_state(local, grp), local)
+
+
+def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
+    """The sharded P3M main path at N = 1M on P_RANKS thread ranks."""
+    import torch
+    from tpu_nbody_torch import accuracy, engine
+    from tpu_nbody_torch.ops import band
+    from tpu_nbody_torch.parallel import mesh as pmesh
+    from tpu_nbody_torch.parallel import sharded, sharded_pm
+    from tpu_nbody_torch.parallel.collectives import run_spmd
+    from tpu_nbody_torch.parallel.engine import ShardedEngine
+
+    P = grp.size
+    print(f"path F1: ShardedEngine(solver='pm', integrator='kdk_reuse') on "
+          f"{P} thread ranks of one card (one process, one stream), the "
+          f"main path's configuration, N={N}, reshard_every={F_STEPS}",
+          flush=True)
+    se = ShardedEngine(cfg, params, mesh=grp, solver="pm",
+                       integrator="kdk_reuse", reshard_every=F_STEPS, seed=3,
+                       device=dev)
+    se.reset_default_scene(n1=N - N // 5, n2=N // 5)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        n0 = int(se.state.n_alive())
+        out = {}
+        for label in ("warm-up", "timed"):
+            b0 = band.LAUNCHES
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            se.step(F_STEPS)
+            end.record()
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+            launches = band.LAUNCHES - b0
+            print(f"  step({F_STEPS}) {label}: {host:.3f} s host, "
+                  f"{start.elapsed_time(end):.1f} ms device events, "
+                  f"{launches} band launches", flush=True)
+            if label == "timed" and launches != P * (F_STEPS + 1):
+                raise AssertionError(
+                    f"sharded pm: {launches} band launches in step("
+                    f"{F_STEPS}), expected {P} a force pass x "
+                    f"{F_STEPS + 1} passes")
+            out[label] = (host / F_STEPS, start.elapsed_time(end) / F_STEPS)
+        return out, n0
+
+    times, n0 = paths.run("sharded_pm", run, need=("band",))
+    sec, dev_ms = times["timed"]
+    st = se.state
+    n1 = int(st.n_alive())
+    if not all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel,
+                                                        st.mass)):
+        raise AssertionError("sharded pm: state is not finite")
+    if n1 > n0:
+        raise AssertionError(f"sharded pm: n_alive grew: {n0} -> {n1}")
+    print(f"sharded_pm P={P}: {1e3 * sec:.2f} ms/step host clock "
+          f"({dev_ms:.2f} ms/step between CUDA events), {n1 / sec:.1f} "
+          f"body-updates/s, n_alive {n0} -> {n1}; needs: heavy "
+          f"{se.last_heavy_need} (cap {se.heavy_cap_local}), rescue "
+          f"{se.last_rescue_need} (k {cfg.mesh_rescue}), xport "
+          f"{se.last_xport_need} (cap {se.xrescue_export}), ximport "
+          f"{se.last_ximport_need} (k {cfg.mesh_xrescue}), mesh_oob "
+          f"{se.last_mesh_oob}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    if se.last_xport_need > se.xrescue_export:
+        raise AssertionError("sharded pm: the cross-shard export still "
+                             "overflows after the retune")
+
+    # one sharded pass of the gathered state: its force error, and its
+    # difference from the one-device pass on the same bodies
+    step = sharded_pm.make_sharded_pm_step(
+        grp, cfg, integrator="kdk_reuse",
+        heavy_cap_local=se.heavy_cap_local,
+        xrescue_export=se.xrescue_export)
+
+    def error():
+        acc, needs, gst, local = _gathered_pass(step, grp, cfg, params, st)
+        e = accuracy.sampled_error(acc, gst.pos, gst.mass, gst.alive, params,
+                                   SAMPLES, g)
+        one = engine.make_pm_accel(cfg, dev)
+        acc1, _ = one(gst.pos, gst.mass, gst.alive, params,
+                      kernel=one.prepare(params))
+        rel = _rel_err(acc, acc1)[gst.alive]
+        print(f"sharded_pm step {int(st.step)}: force error vs exact "
+              f"({e['samples']} sampled bodies): mean {e['mean']:.3e} p50 "
+              f"{e['p50']:.3e} p99 {e['p99']:.3e} max {e['max']:.3e}; "
+              f"against the one-device pm_accel on the same bodies: mean "
+              f"relative difference {float(rel.mean()):.3e}, max "
+              f"{float(rel.max()):.3e}; pass needs (rescue, xport, "
+              f"ximport, oob) {needs.tolist()}", flush=True)
+        if not e["mean"] <= ERR_LIMIT:
+            raise AssertionError(f"sharded pm: mean force error "
+                                 f"{e['mean']:.3e} > {ERR_LIMIT:.3e}")
+        return gst, local, float(rel.mean())
+
+    gst, local, rel_mean = paths.run("sharded_pm_force_error", error,
+                                     need=("band", "allpairs"))
+    if paths.counts["sharded_pm_force_error"]["band"] != P + 1:
+        raise AssertionError(
+            f"sharded pm: {paths.counts['sharded_pm_force_error']} launches "
+            f"for a sharded and a one-device pass, expected {P} + 1 band")
+
+    # one pass by phase on rank 0, CUDA events; every rank enqueues on the
+    # one stream, so a phase's time holds the other ranks' work enqueued
+    # between rank 0's marks, which the collectives keep in step
+    clock = PhaseClock()
+
+    def probe(name):
+        if grp.rank == 0:
+            clock(name)
+
+    timed = sharded_pm.make_sharded_pm_step(
+        grp, cfg, integrator="kdk_reuse",
+        heavy_cap_local=se.heavy_cap_local,
+        xrescue_export=se.xrescue_export, probe=probe)
+    torch.cuda.synchronize()
+    clock("start")
+    t0 = time.perf_counter()
+    timed.accel(local, params)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+
+    def merge(s):
+        probe("start")
+        out = sharded._merge_sharded(s, params, group=grp,
+                                     heavy_cap_local=se.heavy_cap_local)
+        probe("merge")
+        return out
+
+    run_spmd(grp, merge, local)
+    ms = clock.ms()
+    print("sharded_pm pass by phase on rank 0 (ms, all ranks' work between "
+          "its marks): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; total {sum(ms.values()):.2f}; the host took "
+          f"{enqueue_ms:.2f} ms to enqueue the pass", flush=True)
+    # the same pass on one rank (no threads) and on P thread ranks, CUDA
+    # events
+    one = pmesh.make_mesh(1, device=dev)
+    local1 = sharded_pm.reshard_by_hilbert(gst, one, cfg)
+    step1 = sharded_pm.make_sharded_pm_step(one, cfg, integrator="kdk_reuse")
+    p1_ms = _timed_ms(lambda: step1.accel(local1, params), reps=3)
+    pp_ms = _timed_ms(lambda: step.accel(local, params), reps=3)
+    print(f"sharded_pm pass, median of 3: {p1_ms:.2f} ms on 1 rank, "
+          f"{pp_ms:.2f} ms on {P} thread ranks", flush=True)
+    del local1, step1
+
+    # the band kernel at the sharded shape: rank 0's rows and the halos
+    S = cfg.mesh_band
+    _, _, _, _, _, a, _ = _geometry(cfg)
+    r0, r1 = local[0], local[1]
+    fields = torch.cat([r0.pos, torch.where(r0.alive, r0.mass, 0.0)[:, None]],
+                       dim=1)
+    halo = torch.cat([r1.pos[:S], torch.where(r1.alive[:S], r1.mass[:S],
+                                              0.0)[:, None]], dim=1)
+    ext = torch.cat([torch.zeros_like(halo), fields, halo])
+    ep, em = ext[:, :2].contiguous(), ext[:, 2].contiguous()
+    rows = ep.shape[0]
+    r = _compare(
+        f"band {cfg.mesh_switch} S={S} sharded rows {rows}",
+        lambda: band.band_short_range(ep, em, params.soft2, a, band=S,
+                                      chunk=cfg.mesh_chunk,
+                                      switch=cfg.mesh_switch),
+        lambda: band.band_short_range_ref(ep, em, params.soft2, a, band=S,
+                                          chunk=cfg.mesh_chunk,
+                                          switch=cfg.mesh_switch))
+    results["band"]["sharded_shape"] = dict(
+        r, rows=rows, **_bounds(band.pair_work(rows, S, cfg.mesh_switch),
+                                r["ms"], n_sm, max_clock_hz))
+    del se, step, timed, gst, local
+    return dict(ms_per_step=1e3 * sec, device_ms_per_step=dev_ms,
+                body_updates_per_s=n1 / sec, rel_to_one_device=rel_mean,
+                pass_ms_1_rank=p1_ms, pass_ms_p_ranks=pp_ms)
+
+
+def _geometry(cfg):
+    from tpu_nbody_torch import engine
+    from tpu_nbody_torch.ops import mesh
+    origin, side = engine._root(cfg)
+    return mesh._pm_geometry(origin, side, cfg.mesh_level, cfg.mesh_ny,
+                             cfg.mesh_split)
+
+
+def _path_f2(paths):
+    """merger10m at its own size on P_RANKS thread ranks."""
+    import torch
+    from tpu_nbody_torch.examples import merger10m
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = MERGER_ARGS + ["--device", DEVICE]
+    print(f"path F2: python -m tpu_nbody_torch.examples.merger10m "
+          f"{' '.join(args)}", flush=True)
+    r = paths.run("merger10m", lambda: merger10m.main(args), need=("band",))
+    n_total = int(args[args.index("--n") + 1])
+    alive = [n for _, n, _ in r["lines"]]
+    st = r["engine"].state
+    if not (alive == sorted(alive, reverse=True) and alive[0] <= n_total
+            and all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel,
+                                                            st.mass))
+            and all(torch.isfinite(torch.tensor(ke)) for _, _, ke in
+                    r["lines"])):
+        raise AssertionError(f"merger10m: n_alive grew or the state is not "
+                             f"finite: {r['lines']}")
+    print(f"merger10m: {r['updates_per_s']:.1f} body-updates/s "
+          f"({r['seconds']:.2f} s for the steps, stats and gathers), "
+          f"n_alive {alive}, {paths.counts['merger10m']['band']} band "
+          f"launches, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    out = dict(updates_per_s=r["updates_per_s"], seconds=r["seconds"])
+    del r, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _path_f3(paths, params, dev, grp, n_sm, max_clock_hz, results):
+    """Sharded all-pairs against the one-device all-pairs engine."""
+    import torch
+    from tpu_nbody_torch.config import SimConfig
+    from tpu_nbody_torch.engine import Engine
+    from tpu_nbody_torch.ops import forces
+    from tpu_nbody_torch.parallel import sharded
+    from tpu_nbody_torch.parallel.collectives import run_spmd
+    from tpu_nbody_torch.parallel.engine import ShardedEngine
+
+    P = grp.size
+    cfg3 = SimConfig(capacity=N_F3, **CFG)
+    print(f"path F3: ShardedEngine(solver='allpairs', kdk) on {P} ranks "
+          f"against Engine(solver='allpairs', kdk), N={N_F3}, step(2)",
+          flush=True)
+    se = ShardedEngine(cfg3, params, mesh=grp, solver="allpairs",
+                       integrator="kdk", seed=3, device=dev)
+    se.reset_default_scene(n1=N_F3 - N_F3 // 5, n2=N_F3 // 5)
+    one = Engine(cfg3, params, solver="allpairs", integrator="kdk",
+                 device=dev)
+    one.state = se.state          # the same bodies in the same slots
+    local = [s for s in se._local]
+
+    # one force pass: the ring's accelerations against the one-device
+    # kernel's on the same bodies, within 1e-5 of max |a| (a ring round
+    # that skipped or repeated a tile would show here, where two steps'
+    # positions hide it)
+    def ring_pass():
+        return torch.cat(run_spmd(
+            grp, lambda s: sharded.ring_allpairs_accel(
+                s.pos, torch.where(s.alive, s.mass, 0.0), params.G,
+                params.soft2, group=grp), local))
+
+    a_ring = paths.run("sharded_allpairs_pass", ring_pass,
+                       need=("allpairs",))
+    st0 = one.state
+    a_one = forces.accel_allpairs(st0.pos, torch.where(st0.alive, st0.mass,
+                                                       0.0),
+                                  params.G, params.soft2)
+    da = float((a_ring - a_one).abs().max())
+    amax = float(a_one.abs().max())
+    launches = paths.counts["sharded_allpairs_pass"]["allpairs"]
+    print(f"sharded_allpairs one force pass: {launches} launches, max "
+          f"|a_ring - a_one| {da:.3e} = {da / amax:.3e} of max |a| "
+          f"{amax:.3e}", flush=True)
+    if launches != P * P or not da <= 1e-5 * amax:
+        raise AssertionError(f"sharded allpairs force pass: {launches} "
+                             f"launches (expected {P}^2), max difference "
+                             f"{da:.3e} > 1e-5 x {amax:.3e}")
+    del a_ring, a_one
+    paths.run("sharded_allpairs", lambda: se.step(2), need=("allpairs",))
+    paths.run("allpairs_one_device", lambda: one.step(2),
+              need=("allpairs",))
+    got = paths.counts["sharded_allpairs"]["allpairs"]
+    if got != 4 * P * P:
+        raise AssertionError(f"sharded allpairs: {got} launches in step(2) "
+                             f"(kdk), expected {P}^2 a pass x 4")
+    a, b = se.state, one.state
+    dpos = float((a.pos - b.pos).abs().max())
+    ok = (torch.equal(a.alive, b.alive)
+          and torch.allclose(a.pos, b.pos, rtol=2e-4, atol=2e-4)
+          and torch.allclose(a.mass, b.mass, rtol=1e-6))
+    print(f"sharded_allpairs P={P} N={N_F3}: {got} launches, against the "
+          f"one-device engine max |dpos| {dpos:.3e} px, alive equal "
+          f"{torch.equal(a.alive, b.alive)}, n_alive {int(a.n_alive())}",
+          flush=True)
+    if not ok:
+        raise AssertionError("sharded allpairs disagrees with the one-device "
+                             "engine (rtol 2e-4, atol 2e-4)")
+    # the all-pairs kernel at a ring round's shape: rank 0's bodies against
+    # rank 1's tile
+    tgt, src = local[0], local[1]
+    tm = torch.where(src.alive, src.mass, 0.0)
+    n_t = tgt.pos.shape[0]
+    r = _compare(
+        f"allpairs ring tile {n_t} targets x {src.pos.shape[0]} sources",
+        lambda: forces.accel_allpairs(src.pos, tm, 1.0, params.soft2,
+                                      targets=tgt.pos),
+        lambda: sharded._accel_vs_tile(tgt.pos, src.pos, tm, params.soft2))
+    results["allpairs"]["ring_tile_shape"] = dict(
+        r, targets=n_t, sources=src.pos.shape[0],
+        **_bounds(forces.pair_work(n_t, src.pos.shape[0], 2), r["ms"], n_sm,
+                  max_clock_hz))
+    del se, one, local
+
+
+def _path_f4(paths, params, dev, grp, g, n_sm, max_clock_hz, results):
+    """Sharded Barnes–Hut at N = 65,536: its force error and LET needs."""
+    import torch
+    from tpu_nbody_torch import accuracy
+    from tpu_nbody_torch.config import SimConfig
+    from tpu_nbody_torch.ops import forces
+    from tpu_nbody_torch.parallel import sharded_bh
+    from tpu_nbody_torch.parallel.engine import ShardedEngine
+
+    P = grp.size
+    cfg4 = SimConfig(capacity=N_F4)
+    print(f"path F4: ShardedEngine(solver='bh', kdk_reuse) on {P} ranks, "
+          f"N={N_F4}, theta={params.theta}, step(2)", flush=True)
+    se = ShardedEngine(cfg4, params, mesh=grp, solver="bh",
+                       integrator="kdk_reuse", seed=3, device=dev)
+    se.reset_default_scene(n1=N_F4 - N_F4 // 5, n2=N_F4 // 5)
+    t0 = time.perf_counter()
+    paths.run("sharded_bh", lambda: se.step(2), need=("allpairs",))
+    sec = time.perf_counter() - t0
+    print(f"sharded_bh step(2): {sec:.2f} s (retune rounds included), "
+          f"{paths.counts['sharded_bh']['allpairs']} all-pairs launches "
+          f"(the import sums); LET needs: export {se.last_export_need} "
+          f"(caps {se.let_approx_cap} + {se.let_body_cap}), leaf/frontier "
+          f"caps {se.let_leaf_cap}/{se.let_frontier_cap}; traversal needs "
+          f"{se.last_stats}", flush=True)
+    step = sharded_bh.make_sharded_bh_step(
+        grp, cfg4, se.caps, heavy_cap_local=se.heavy_cap_local,
+        let_approx_cap=se.let_approx_cap, let_body_cap=se.let_body_cap,
+        let_leaf_cap=se.let_leaf_cap, let_frontier_cap=se.let_frontier_cap)
+
+    def error():
+        acc, st, gst, local = _gathered_pass(step, grp, cfg4, params,
+                                             se.state)
+        e = accuracy.sampled_error(acc, gst.pos, gst.mass, gst.alive, params,
+                                   SAMPLES, g)
+        print(f"sharded_bh step {int(gst.step)}: force error vs exact "
+              f"({e['samples']} sampled bodies): mean {e['mean']:.3e} p50 "
+              f"{e['p50']:.3e} p99 {e['p99']:.3e} max {e['max']:.3e}; pass "
+              f"needs: export {int(st.export_need)}, approx "
+              f"{int(st.let_approx_need)}, leaf {int(st.let_leaf_need)}, "
+              f"frontier {int(st.let_frontier_need)}", flush=True)
+        if not e["mean"] <= BH_ERR_LIMIT:
+            raise AssertionError(f"sharded bh: mean force error "
+                                 f"{e['mean']:.3e} > {BH_ERR_LIMIT:.3e}")
+        return local
+
+    local = paths.run("sharded_bh_force_error", error, need=("allpairs",))
+    # the all-pairs kernel at the LET import shape: rank 0's bodies against
+    # (P, E, 3) rows, here the other ranks' first E bodies
+    E = se.let_approx_cap + se.let_body_cap
+    imports = torch.zeros((P, E, 3), device=dev)
+    for r in range(1, P):
+        s = local[r]
+        k = min(E, s.pos.shape[0])
+        imports[r, :k, :2] = s.pos[:k]
+        imports[r, :k, 2] = torch.where(s.alive[:k], s.mass[:k], 0.0)
+    tgt = local[0].pos
+    res = _compare(
+        f"allpairs LET import {tgt.shape[0]} targets x {P * E} rows",
+        lambda: sharded_bh._import_sum(tgt, imports, params.G, params.soft2),
+        lambda: params.G * sharded_bh._import_accel(tgt, imports,
+                                                    params.soft2))
+    results["allpairs"]["let_import_shape"] = dict(
+        res, targets=tgt.shape[0], sources=P * E,
+        **_bounds(forces.pair_work(tgt.shape[0], P * E, 2), res["ms"], n_sm,
+                  max_clock_hz))
+    del se, step, local
+
+
+def _path_f5(paths, dev):
+    """dryrun_multichip on DRYRUN_RANKS ranks, and one step of entry() on
+    the card against the same step on the CPU."""
+    import torch
+    from tpu_nbody_torch import graft_entry
+    print(f"path F5: dryrun_multichip({DRYRUN_RANKS}) and one entry() step",
+          flush=True)
+    paths.run("dryrun_multichip",
+              lambda: graft_entry.dryrun_multichip(DRYRUN_RANKS,
+                                                   device=DEVICE),
+              need=("band", "allpairs"))
+    fn, (st, prm) = graft_entry.entry(device=DEVICE)
+    t0 = time.perf_counter()
+    out = paths.run("entry", lambda: fn(st, prm))
+    card_s = time.perf_counter() - t0
+    cpu_fn, _ = graft_entry.entry(device="cpu")
+    t0 = time.perf_counter()
+    want = cpu_fn(type(st)(*(x.cpu() for x in st)), prm)
+    cpu_s = time.perf_counter() - t0
+    dpos = float((out.pos.cpu() - want.pos).abs().max())
+    print(f"entry: one BH kdk step + merge of {int(st.n_alive())} bodies: "
+          f"card {card_s:.2f} s, CPU {cpu_s:.2f} s; max |dpos| {dpos:.3e} "
+          f"px, n_alive {int(out.n_alive())} / {int(want.n_alive())}; "
+          f"launches {paths.counts['dryrun_multichip']} in the dry run",
+          flush=True)
+    if not (torch.equal(out.alive.cpu(), want.alive) and dpos <= 1e-3):
+        raise AssertionError("entry: the card's step disagrees with the "
+                             "CPU's")
+
+
+def _path_f(paths, cfg, params, dev, n_sm, max_clock_hz, results):
+    """Path F: the sharded paths on P_RANKS thread ranks of the one card."""
+    import torch
+    from tpu_nbody_torch.parallel import mesh as pmesh
+    t0 = time.perf_counter()
+    grp = pmesh.make_mesh(P_RANKS, device=dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    f1 = _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz,
+                  results)
+    f2 = _path_f2(paths)
+    _path_f3(paths, params, dev, grp, n_sm, max_clock_hz, results)
+    _path_f4(paths, params, dev, grp, g, n_sm, max_clock_hz, results)
+    _path_f5(paths, dev)
+    print(f"path F: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(f1=f1, f2=f2)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1114,6 +1564,13 @@ def main() -> int:
         raise AssertionError(f"drift above {DRIFT_LIMIT}: energy "
                              f"{drift['value']:.3e}, Lz "
                              f"{drift['Lz_drift']:.3e}")
+
+    # -- path F: the sharded paths on thread ranks of the one card --------
+    f = _path_f(paths, cfg, params, dev, n_sm, max_clock_hz, results)
+    print(f"ms/step in this run: sharded_pm P={P_RANKS} "
+          f"{f['f1']['ms_per_step']:.2f} against pm_main {1e3 * main_sec:.2f}"
+          f"; merger10m {f['f2']['updates_per_s']:.1f} body-updates/s",
+          flush=True)
 
     results["allpairs"]["demo_shape_3d"] = e["demo_shape_3d"]
     results["allpairs"]["engine_shape_3d"].update(

@@ -139,9 +139,26 @@ def test_cap_auto_retune():
     off = tengine.Engine(tconfig.SimConfig(**cfg), solver="bh",
                          auto_retune=False, device="cpu")
     off.state = before
-    off.step(1)
+    with pytest.warns(RuntimeWarning, match="after 0 retune rounds"):
+        off.step(1)
     assert off.caps == tengine.Caps.from_config(off.cfg)
     assert off.last_stats.overflowed(off.caps.as_dict())
+
+
+@pytest.mark.parametrize("field", ttraverse.TraversalStats._fields)
+def test_overflows_names_the_cap_that_grows(field):
+    """A need over its cap alone is reported against the one cap that
+    Caps.grown grows for it, and fits the grown caps."""
+    caps = tengine.Caps(*[8] * 7, cand_caps=(8, 8))
+    vals = dict.fromkeys(ttraverse.TraversalStats._fields, 4)
+    vals["cand_need"] = (4, 4)
+    vals[field] = (4, 100) if field == "cand_need" else 100
+    st = ttraverse.TraversalStats(**vals)
+    (name, cap, need), = st.overflows(caps.as_dict())
+    before, after = caps.as_dict(), caps.grown(st).as_dict()
+    assert [k for k in after if after[k] != before[k]] == [name]
+    assert cap == before[name] and need == vals[field]
+    assert st.overflowed(before) and not st.overflowed(after)
 
 
 def test_tighten_caps_shrinks_and_stays_correct():

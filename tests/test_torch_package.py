@@ -427,3 +427,84 @@ def test_trace_on_card_records_the_kernel(cuda_device, tmp_path):
     kernels = {k: v for k, v in timed.items() if "allpairs_partial" in k}
     print({k: v for k, v in timed.items() if v > 0})
     assert kernels and all(v > 0 for v in kernels.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+def test_ring_tile_sums_on_card_match_plain(cuda_device, P):
+    """The sharded ring on P thread ranks of the card: P² all-pairs
+    launches a pass, and the accelerations within 1e-5 of max |a| of the
+    plain tile sums (_accel_vs_tile) over every tile."""
+    from tpu_nbody_torch.parallel import sharded
+    from tpu_nbody_torch.parallel.collectives import ThreadGroup, run_spmd
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    n = 3000 * P
+    pos = torch.rand((n, 2), generator=g, device=cuda_device) * 1000
+    mass = torch.rand((n,), generator=g, device=cuda_device)
+    grp = ThreadGroup(P, cuda_device)
+    n0 = tforces.LAUNCHES
+    got = torch.cat(run_spmd(
+        grp, lambda p, m: sharded.ring_allpairs_accel(p, m, 80.0, 1.0,
+                                                      group=grp),
+        list(pos.chunk(P)), list(mass.chunk(P))))
+    torch.cuda.synchronize()
+    assert tforces.LAUNCHES - n0 == P * P
+    want = torch.cat([
+        80.0 * sum(sharded._accel_vs_tile(p, t, tm, 1.0)
+                   for t, tm in zip(pos.chunk(P), mass.chunk(P)))
+        for p in pos.chunk(P)])
+    _assert_close_to(got, want)
+
+
+@pytest.mark.cuda
+def test_let_import_sum_on_card_matches_plain(cuda_device):
+    """The sharded BH import sum through the all-pairs kernel, on (P·E, 3)
+    imported rows whose pos and mass columns are strided slices, against
+    _import_accel."""
+    from tpu_nbody_torch.parallel import sharded_bh
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    imports = torch.rand((4, 4096, 3), generator=g, device=cuda_device)
+    imports[..., :2] *= 1000.0
+    imports[1, 3000:, 2] = 0.0                          # unused rows
+    pos = torch.rand((5000, 2), generator=g, device=cuda_device) * 1000
+    n0 = tforces.LAUNCHES
+    got = sharded_bh._import_sum(pos, imports, 80.0, 1.0)
+    want = 80.0 * sharded_bh._import_accel(pos, imports, 1.0)
+    torch.cuda.synchronize()
+    assert tforces.LAUNCHES - n0 == 1
+    _assert_close_to(got, want)
+
+
+@pytest.mark.cuda
+def test_sharded_pm_pass_on_card_matches_cpu(cuda_device):
+    """One sharded P3M force pass of 4 thread ranks on the card (band
+    kernel on each rank's rows plus halos, cuFFT slabs) against the same
+    pass on the CPU: 4 band launches, accelerations within 1e-4 of max |a|
+    (deposit atomics reorder the sums), needs equal."""
+    from tpu_nbody_torch.parallel import mesh as pmesh
+    from tpu_nbody_torch.parallel import sharded_pm
+    from tpu_nbody_torch.parallel.collectives import run_spmd
+    cfg = tconfig.SimConfig(capacity=1 << 15, mesh_level=10, mesh_band=128,
+                            mesh_rescue=4, mesh_switch="poly4")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        eng = tengine.Engine(cfg, seed=4, device="cpu", solver="pm")
+        eng.reset_default_scene(n1=24_000, n2=6_000)
+        grp = pmesh.make_mesh(4, device=dev)
+        local = sharded_pm.reshard_by_hilbert(eng.state, grp, cfg)
+        origin, side = tengine._root(cfg)
+        n0 = tband.LAUNCHES
+        res = run_spmd(grp, lambda s: sharded_pm._pm_accel_local_sorted(
+            s.pos, s.mass, s.alive, 80.0, 1.0, origin, side,
+            mesh_level=10, split_cells=cfg.mesh_split, band=128,
+            chunk=8192, rescue_k=4, group=grp, xrescue_k=4,
+            xrescue_export=64, switch="poly4"), local)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tband.LAUNCHES - n0 == 4
+        out[str(dev)] = (torch.cat([r[0] for r in res]).cpu(),
+                         [[int(x) for x in r[1]] for r in res])
+    (a_cpu, n_cpu), (a_card, n_card) = out["cpu"], out[str(cuda_device)]
+    assert n_card == n_cpu
+    torch.testing.assert_close(a_card, a_cpu, rtol=0,
+                               atol=1e-4 * a_cpu.abs().max().item())

@@ -110,6 +110,16 @@ def sampled_force_error(state_or_arrays, cfg: SimConfig, params: Params,
         stats = {}
     else:
         raise ValueError(f"unknown solver {solver!r}")
+    out = sampled_error(acc, pos, mass, alive, params, samples, generator)
+    out.update(stats)
+    return out
+
+
+def sampled_error(acc, pos, mass, alive, params: Params, samples: int,
+                  generator: torch.Generator) -> dict:
+    """Mean, p50, p99 and max of |acc - exact| / |exact| over ``samples``
+    alive bodies drawn without replacement by ``generator``, and the
+    sample count; ``acc`` is any solver's acceleration of every body."""
     alive_idx = torch.nonzero(alive).flatten()
     pick = torch.randperm(alive_idx.shape[0], generator=generator,
                           device=alive_idx.device)
@@ -119,10 +129,8 @@ def sampled_force_error(state_or_arrays, cfg: SimConfig, params: Params,
                           params.soft2)
     rel = (acc[idx] - exact).norm(dim=1) / (exact.norm(dim=1) + 1e-9)
     q = torch.quantile(rel, torch.tensor([0.5, 0.99], device=rel.device))
-    out = dict(mean=float(rel.mean()), p50=float(q[0]), p99=float(q[1]),
-               max=float(rel.max()), samples=int(idx.shape[0]))
-    out.update(stats)
-    return out
+    return dict(mean=float(rel.mean()), p50=float(q[0]), p99=float(q[1]),
+                max=float(rel.max()), samples=int(idx.shape[0]))
 
 
 def main(argv=None):

@@ -101,6 +101,10 @@ class SimConfig:
     mesh_rescue_hot: int = 0       # two-tier rescue: partner blocks of a hot
                                    # block (need > mesh_rescue); 0 = one tier
     mesh_rescue_hot_cap: int = 128  # most hot blocks a pass serves
+    mesh_xrescue: int = 4          # sharded pm only: cross-shard rescue
+                                   # partner blocks per block (0 = off)
+    mesh_xrescue_export: int = 64  # sharded pm only: boundary blocks a
+                                   # shard exports for that rescue
     pm_persistent_sort: bool = True  # pm + kdk_reuse: sorted-carry step
     pm_resort_every: int = 8       # steps between re-sorts
     pm_mesh_every: int = 1         # F_long subcycling: steps between mesh

@@ -40,3 +40,12 @@ def params_from_numpy(values) -> Params:
     if v.shape[0] != len(names):
         raise ValueError(f"expected {len(names)} values, got {v.shape[0]}")
     return Params(**{n: float(x) for n, x in zip(names, v)})
+
+
+def sharded_state_from_numpy(arrays, group, dtype=torch.float32) -> list:
+    """A sharded state on ``group`` (a ``parallel.collectives.Group``) from
+    the five arrays of a global state, as :func:`state_from_numpy` reads
+    them: the local ranks' blocks of ``capacity / P`` slots each."""
+    from tpu_nbody_torch.parallel.mesh import shard_state
+    return shard_state(state_from_numpy(*arrays, device=group.device,
+                                        dtype=dtype), group)

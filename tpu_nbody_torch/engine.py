@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import warnings
 from typing import Callable
 
 import torch
@@ -570,10 +571,7 @@ class Engine:
         return rec
 
     def _overflowed(self, stats) -> bool:
-        if stats["heavy_need"] > self.merge_heavy_cap:
-            return True
-        trav = stats["trav"]
-        return trav is not None and trav.overflowed(self.caps.as_dict())
+        return bool(self._overflow_list(stats))
 
     def _run_with_retune(self, run: Callable):
         """Run ``run() -> (state, recorded_stats)``; on overflow, grow the
@@ -581,7 +579,9 @@ class Engine:
         to 6 rounds). Overflow means interactions (or merge absorbers) were
         dropped; iteration matters because a truncated list hides deeper
         needs, so one growth round may reveal more. ``self.state`` changes
-        only at the end."""
+        only at the end. Ending with a cap still overflowing (6 rounds, no
+        cap could grow, or ``auto_retune`` off) raises a ``RuntimeWarning``
+        that names the caps and the needs."""
         new_state, stats = run()
         rounds = 0
         while self.auto_retune and rounds < 6 and self._overflowed(stats):
@@ -600,8 +600,25 @@ class Engine:
             self._build_step()
             new_state, stats = run()
             rounds += 1
+        if self._overflowed(stats):
+            warnings.warn(
+                f"Engine.step: a cap overflows after {rounds} retune "
+                f"rounds, so interactions or merge absorbers were dropped: "
+                + "; ".join(f"{name} {cap} < need {need}" for name, cap, need
+                            in self._overflow_list(stats)),
+                RuntimeWarning, stacklevel=3)
         self.state = new_state
         return self.state
+
+    def _overflow_list(self, stats) -> list:
+        """(cap name, cap, need) of every cap ``stats`` overflow."""
+        out = []
+        if stats["heavy_need"] > self.merge_heavy_cap:
+            out.append(("merge_heavy_cap", self.merge_heavy_cap,
+                        stats["heavy_need"]))
+        if stats["trav"] is not None:
+            out += stats["trav"].overflows(self.caps.as_dict())
+        return out
 
     def step(self, n: int = 1):
         """Advance ``n`` steps. Regrows the BH caps and the merge heavy cap

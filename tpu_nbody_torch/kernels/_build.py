@@ -19,6 +19,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -47,6 +48,7 @@ SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()   # sharded ranks may reach it at once
 last_build: dict = {}
 
 
@@ -136,15 +138,16 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use. Every function in
     :data:`SIGNATURES` returns a C int."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.tnt_error_string.argtypes = [ctypes.c_int]
-        lib.tnt_error_string.restype = ctypes.c_char_p
-        _lib = lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.tnt_error_string.argtypes = [ctypes.c_int]
+            lib.tnt_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

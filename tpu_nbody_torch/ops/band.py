@@ -15,6 +15,7 @@ kernel's launch shape and :func:`pair_work` counts the work of one call.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -23,6 +24,8 @@ import torch.nn.functional as F
 from tpu_nbody_torch.kernels import _build
 
 LAUNCHES = 0
+# sharded ranks run as threads of one process and launch concurrently
+_COUNT_LOCK = threading.Lock()
 
 MAX_BAND = 1024
 SWITCHES = ("exp4", "poly4")
@@ -180,5 +183,6 @@ def _launch(spos, smass, soft2, a, band: int, switch: str, plan: BandPlan):
         _SWITCH_IDS[switch], plan.T, plan.B,
         torch.cuda.current_stream(spos.device).cuda_stream)
     _build.check_launch("band_short_range", rc)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out

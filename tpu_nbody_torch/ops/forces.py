@@ -18,6 +18,7 @@ kernel's launch shape and :func:`pair_work` counts the work of one call.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple
 
 import torch
@@ -25,6 +26,8 @@ import torch
 from tpu_nbody_torch.kernels import _build
 
 LAUNCHES = 0
+# sharded ranks run as threads of one process and launch concurrently
+_COUNT_LOCK = threading.Lock()
 
 THREADS = 128   # threads per block, THREADS in csrc/allpairs.cu
 TILE = 256      # sources per staged tile, TILE in csrc/allpairs.cu
@@ -129,7 +132,8 @@ def _launch(pos, mass, soft2, tgt, plan: SplitPlan):
         out.data_ptr(), nt, ns, dim, ctypes.c_float(float(soft2)),
         plan.splits, torch.cuda.current_stream(pos.device).cuda_stream)
     _build.check_launch("allpairs", rc)
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     return out
 
 

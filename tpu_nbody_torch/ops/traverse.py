@@ -68,6 +68,11 @@ PAIR_BUDGET = 1 << 27
 TRAVERSALS = ("dense", "bfs", "hier")
 
 
+# the cap each need of :class:`TraversalStats` is held to, in field order
+NEED_CAPS = ("approx_cap", "leaf_list_cap", "direct_body_cap", "frontier_cap",
+             "group_cap", "num_nodes", "group_size")
+
+
 class TraversalStats(NamedTuple):
     """Max per-group list sizes actually needed (for cap auto-tuning):
     0-dim device tensors out of a force pass, Python ints once the engine
@@ -88,20 +93,20 @@ class TraversalStats(NamedTuple):
     # None for the dense and bfs traversals.
     cand_need: torch.Tensor | tuple | None = None
 
-    def overflowed(self, caps):
-        """Whether any need exceeds its cap in the mapping ``caps``."""
-        out = ((self.approx_need > caps["approx_cap"])
-               | (self.leaf_need > caps["leaf_list_cap"])
-               | (self.direct_need > caps["direct_body_cap"])
-               | (self.frontier_need > caps["frontier_cap"])
-               | (self.group_need > caps["group_cap"])
-               | (self.node_need > caps["num_nodes"])
-               | (self.group_size_need > caps["group_size"]))
+    def overflows(self, caps) -> list:
+        """(cap name, cap, need) of every cap in the mapping ``caps`` that
+        its need exceeds; one host sync a need on device tensors."""
+        out = [(cap, caps[cap], need) for cap, need in zip(NEED_CAPS, self)
+               if need > caps[cap]]
         cc = caps.get("cand_caps")
-        if cc is not None and self.cand_need is not None:
-            for need, c in zip(self.cand_need, cc):
-                out = out | (need > c)
+        if cc is not None and self.cand_need is not None and any(
+                need > c for need, c in zip(self.cand_need, cc)):
+            out.append(("cand_caps", cc, self.cand_need))
         return out
+
+    def overflowed(self, caps) -> bool:
+        """Whether any need exceeds its cap in the mapping ``caps``."""
+        return bool(self.overflows(caps))
 
     def flat(self):
         """Every need in one 1-D int64 tensor (field order, ``cand_need``
