@@ -21,12 +21,13 @@ n2 = 200,000):
   each with its sampled force error and its time; a 2-step subcycled run
   with extrapolation; the run-compressed deposits against the plain one;
 * bh_engine (path D): solver="bh" with kdk_reuse and the hier traversal on
-  the configuration of ``bench.py --solver bh``: step(2) to warm up and
-  settle the cap retune, tighten_caps(), step(2) again if the caps
-  changed, step(3) timed; then no cap overflowing, the force error of a
-  fresh pass, one pass timed by phase, the traversal needs on three scenes
-  at N = 1,000,000, and at N = 65,536 a pass at theta = 1e-3 against the
-  all-pairs kernel and dense against hier;
+  the configuration of ``bench.py --solver bh``, caps as configured:
+  step(1) to warm up and settle the cap retune, tighten_caps(), step(1)
+  timed; then no cap overflowing, the
+  force error of a fresh pass, the traversal needs on three scenes at
+  N = 1,000,000, and at N = 65,536 a pass at theta = 1e-3 against the
+  all-pairs kernel and dense against hier (path G times Barnes–Hut by
+  phase, from fitted caps);
 * sphere3d (path E): the reference GPU demo, the 3D sphere scene under
   exact all-pairs forces (the kernel's 3D instantiation) and semi-implicit
   Euler. Once as ``python -m tpu_nbody_torch.examples.sphere3d_demo`` runs
@@ -61,7 +62,15 @@ n2 = 200,000):
   engine (P² launches a force pass), the all-pairs kernel at a ring tile;
   F4: sharded Barnes–Hut at N = 65,536, its force error and LET needs,
   the all-pairs kernel at a LET import's shape; F5:
-  ``dryrun_multichip(8)`` and one ``entry()`` step against the CPU's.
+  ``dryrun_multichip(8)`` and one ``entry()`` step against the CPU's;
+* bench (path G): ``python -m tpu_nbody_torch.bench`` in process
+  (``bench.main``) three times: the default (pm at N = 1,000,000, 20
+  steps), ``--solver allpairs`` and ``--solver bh --steps 2 --repeats 3``;
+  each prints one JSON line with the four keys, a mean force error within
+  its limit, no retune inside a timed repeat (the bench raises) and a
+  per-phase table with a bound and a share of it on every row;
+* cuda_tests: ``python -m pytest --noconftest -m cuda
+  tests/test_torch_package.py -q`` in a child process, which must pass.
 
 On the way it
 
@@ -94,7 +103,9 @@ On the way it
 The kernels line gives, per kernel, ``launches`` (for the band kernel the
 main path's three step(20) calls; for the all-pairs kernel path E's run at
 2^20 bodies, the path it carries: the P3M main path launches it only in
-the force error after its steps) and ``launches_by_path``. Barnes–Hut launches neither
+the force error after its steps) and ``launches_by_path``, which holds
+path G's runs as ``bench_pm``, ``bench_allpairs`` and ``bench_bh`` (warm-up,
+timed repeats, force error and phase table). Barnes–Hut launches neither
 kernel in its steps (its pair math is plain torch); path D's counts are the
 all-pairs launches of its force-error measurements. Each kernel's bound_ms is
 the larger of its flops over the float32 peak and its bytes over the memory
@@ -109,13 +120,17 @@ without that line. It imports nothing of jax or of tpu_nbody.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+
+from tpu_nbody_torch.profiling import EventClock, bounds, card_info, timed_ms
 
 N = 1_000_000       # bodies of the two-disk scene
 N_SMALL = 65_536    # bodies of the kdk and euler all-pairs runs
@@ -149,9 +164,26 @@ N_F4 = 65_536       # bodies of the sharded Barnes–Hut check
 F_STEPS = 8         # steps per ShardedEngine.step call of path F1
 MERGER_ARGS = ["--n", "10000000", "--devices", str(P_RANKS), "--steps", "2"]
 DRYRUN_RANKS = 8
-PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores, 700 W
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
-RSQRT_PER_CLK_SM = 16
+# path D: Engine.step calls (label, steps): the warm-up, then, after
+# tighten_caps, the timed one
+BH_STEPS = (("warm-up", 1), ("timed", 1))
+# path G: the bench's command lines; the kernels each run must launch; the
+# limit of its mean force error (all-pairs: the kernel against itself)
+BENCH_RUNS = {
+    "pm": ([], ("band", "allpairs"), ERR_LIMIT),
+    "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
+    "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
+           ("allpairs",), BH_ERR_LIMIT),
+}
+# the first words of each per-phase row the bench must print
+BENCH_PHASES = {
+    "pm": ("hilbert sort", "CIC cells", "deposit", "FFT convolution",
+           "interpolation", "band", "rescue", "merge", "kernel hats"),
+    "allpairs": ("all-pairs kernel",),
+    "bh": ("build", "groups", "lists", "flatten", "evaluate", "assemble"),
+}
+CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
+              "tests/test_torch_package.py", "-q"]
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
 # the bench configuration (bench.py:244-294)
@@ -170,24 +202,6 @@ KNOBS = {"heavy_direct": dict(pm_heavy_cap=16), "tsc": dict(mesh_order=3),
          "ngp": dict(mesh_order=1), "interlace": dict(mesh_interlace=True),
          "two_tier": dict(mesh_rescue=4, mesh_rescue_hot=16,
                           mesh_rescue_hot_cap=128)}
-
-
-def _timed_ms(fn, reps=10):
-    """Median of ``reps`` CUDA-event timings of ``fn()``, after 2 warm-ups."""
-    import torch
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return 0.5 * (times[(reps - 1) // 2] + times[reps // 2])
 
 
 def _check_close(name, got, want):
@@ -209,24 +223,11 @@ def _compare(name, kernel_fn, plain_fn):
     want = plain_fn()
     torch.cuda.synchronize()
     err, scale = _check_close(name, got, want)
-    ms = _timed_ms(kernel_fn)
-    plain_ms = _timed_ms(plain_fn)
+    ms = timed_ms(kernel_fn)
+    plain_ms = timed_ms(plain_fn)
     print(f"{name}: max|diff| {err:.3e} (max|a| {scale:.3e}) kernel "
           f"{ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-
-
-def _bounds(work, ms, n_sm, max_clock_hz):
-    """bound_ms, what bounds it, the share of it reached in ``ms``, and the
-    rsqrt unit's floor, for pair_work ``work``."""
-    t_ops = work["flops"] / PEAK_FLOPS
-    t_bytes = work["bytes"] / PEAK_BYTES
-    bound_ms = 1e3 * max(t_ops, t_bytes)
-    return dict(bound_ms=bound_ms,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                pct_of_bound=100.0 * bound_ms / ms,
-                rsqrt_floor_ms=1e3 * work["pairs"] / (
-                    RSQRT_PER_CLK_SM * n_sm * max_clock_hz))
 
 
 class Paths:
@@ -330,31 +331,8 @@ def _pass_ms(st, cfg, params, dev):
     from tpu_nbody_torch import engine
     accel = engine.make_pm_accel(cfg, dev)
     kernel = accel.prepare(params)
-    return _timed_ms(lambda: accel(st.pos, st.mass, st.alive, params,
-                                   kernel=kernel), reps=3)
-
-
-class PhaseClock:
-    """Device time by phase: ``clock(name)`` marks the end of a phase
-    (``"start"`` the beginning of the timed work), and ``ms()`` gives the
-    milliseconds spent in each name, summed."""
-
-    def __init__(self):
-        self.marks = []
-
-    def __call__(self, name):
-        import torch
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.marks.append((name, ev))
-
-    def ms(self):
-        self.marks[-1][1].synchronize()
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            if name != "start":
-                out[name] = out.get(name, 0.0) + a.elapsed_time(b)
-        return out
+    return timed_ms(lambda: accel(st.pos, st.mass, st.alive, params,
+                                  kernel=kernel), reps=3)
 
 
 def _rel_err(got, want):
@@ -380,14 +358,11 @@ def _path_d(paths, cfg, params, dev, st0):
 
     def run():
         n0 = int(bh.state.n_alive())
-        for label, n in (("warm-up", 2), ("after tighten_caps", 2),
-                         ("timed", 3)):
-            if label == "after tighten_caps":
+        for label, n in BH_STEPS:
+            if label == "timed":
                 changed = bh.tighten_caps()
                 print(f"  tighten_caps: changed={changed} {bh.caps}",
                       flush=True)
-                if not changed:
-                    continue
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             bh.step(n)
@@ -395,7 +370,7 @@ def _path_d(paths, cfg, params, dev, st0):
             dt = time.perf_counter() - t0
             print(f"  step({n}) {label}: {dt:.3f} s; caps {bh.caps}",
                   flush=True)
-        return dt / 3, n0, int(bh.state.n_alive())
+        return dt / n, n0, int(bh.state.n_alive())
 
     sec, n0, n1 = paths.run("bh_engine", run)
     if any(paths.counts["bh_engine"].values()):
@@ -431,21 +406,6 @@ def _path_d(paths, cfg, params, dev, st0):
             raise AssertionError(f"bh: mean force error {e['mean']:.3e} > "
                                  f"{BH_ERR_LIMIT:.3e}")
     paths.run("bh_force_error", bh_error, need=("allpairs",))
-
-    # one pass of the stepped state by phase (device events); the force
-    # error's pass has warmed the allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    clock = PhaseClock()
-    accuracy.fitted_bh_pass(st.pos, st.mass, st.alive, cfg, params, bh.caps,
-                            probe=clock)
-    ms = clock.ms()
-    print(f"bh pass by phase (ms): tree build {ms['build']:.2f}, groups "
-          f"{ms['groups']:.2f}, hier lists {ms['lists']:.2f}, partner "
-          f"flatten {ms['flatten']:.2f}, pair evaluation "
-          f"{ms['evaluate']:.2f}, assembly {ms['assemble']:.2f}, total "
-          f"{sum(ms.values()):.2f}; peak memory of the pass "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del bh
 
     # the needs of one pass on three scenes at N = 1M, caps grown to fit
@@ -559,9 +519,9 @@ def _allpairs_3d_shape(name, pos, mass, params, rows, n_sm, max_clock_hz):
                                       pick(kernel(satellites)),
                                       plain(satellites))
     del full, want
-    ms = _timed_ms(lambda: kernel(mass), reps=5)
+    ms = timed_ms(lambda: kernel(mass), reps=5)
     plan = forces._card_plan(n, n, 3, pos.device)
-    bound = _bounds(forces.pair_work(n, n, 3), ms, n_sm, max_clock_hz)
+    bound = bounds(forces.pair_work(n, n, 3), ms, n_sm, max_clock_hz)
     print(f"{name}: max|diff| {err:.3e} on {n_rows} rows (max|a| "
           f"{scale:.3e}), worst row {row_err:.3e} of its own size, "
           f"satellites alone {sat_err:.3e} (max|a| {sat_scale:.3e}), two "
@@ -634,7 +594,7 @@ def _check_splat(name, bodies, view, mode="speed", gain=1.0):
     if levels > 1:
         raise AssertionError(f"{name}: uint8 frame {levels} levels from "
                              f"the CPU's")
-    ms = _timed_ms(lambda: render.render_frame(*bodies, **kw))
+    ms = timed_ms(lambda: render.render_frame(*bodies, **kw))
     print(f"render {name} {kw['width']}x{kw['height']} {mode}: {ms:.3f} ms, "
           f"{lit} lit pixels, brightest sum {peak:.1f}, two renders differ "
           f"by {again:.3e}, card against CPU {host:.3e}, uint8 within "
@@ -778,7 +738,7 @@ def _path_e(paths, params3, dev, bodies, n_sm, max_clock_hz):
                                     gain=0.6, **cam)
         if int((fb.sum(dim=2) > 0).sum()) == 0:
             raise AssertionError("render_frame_3d: the frame is black")
-        out["frame3d_ms"] = _timed_ms(lambda: render.render_frame_3d(
+        out["frame3d_ms"] = timed_ms(lambda: render.render_frame_3d(
             st.pos, st.vel, st.mass, st.alive, gain=0.6, **cam))
         hold["result"] = fb
     print(f"render_frame_3d N={cap} {bw}x{bh_}: {out['frame3d_ms']:.3f} ms "
@@ -952,7 +912,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
     # one pass by phase on rank 0, CUDA events; every rank enqueues on the
     # one stream, so a phase's time holds the other ranks' work enqueued
     # between rank 0's marks, which the collectives keep in step
-    clock = PhaseClock()
+    clock = EventClock()
 
     def probe(name):
         if grp.rank == 0:
@@ -986,8 +946,8 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
     one = pmesh.make_mesh(1, device=dev)
     local1 = sharded_pm.reshard_by_hilbert(gst, one, cfg)
     step1 = sharded_pm.make_sharded_pm_step(one, cfg, integrator="kdk_reuse")
-    p1_ms = _timed_ms(lambda: step1.accel(local1, params), reps=3)
-    pp_ms = _timed_ms(lambda: step.accel(local, params), reps=3)
+    p1_ms = timed_ms(lambda: step1.accel(local1, params), reps=3)
+    pp_ms = timed_ms(lambda: step.accel(local, params), reps=3)
     print(f"sharded_pm pass, median of 3: {p1_ms:.2f} ms on 1 rank, "
           f"{pp_ms:.2f} ms on {P} thread ranks", flush=True)
     del local1, step1
@@ -1012,8 +972,8 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
                                           chunk=cfg.mesh_chunk,
                                           switch=cfg.mesh_switch))
     results["band"]["sharded_shape"] = dict(
-        r, rows=rows, **_bounds(band.pair_work(rows, S, cfg.mesh_switch),
-                                r["ms"], n_sm, max_clock_hz))
+        r, rows=rows, **bounds(band.pair_work(rows, S, cfg.mesh_switch),
+                               r["ms"], n_sm, max_clock_hz))
     del se, step, timed, gst, local
     return dict(ms_per_step=1e3 * sec, device_ms_per_step=dev_ms,
                 body_updates_per_s=n1 / sec, rel_to_one_device=rel_mean,
@@ -1140,8 +1100,8 @@ def _path_f3(paths, params, dev, grp, n_sm, max_clock_hz, results):
         lambda: sharded._accel_vs_tile(tgt.pos, src.pos, tm, params.soft2))
     results["allpairs"]["ring_tile_shape"] = dict(
         r, targets=n_t, sources=src.pos.shape[0],
-        **_bounds(forces.pair_work(n_t, src.pos.shape[0], 2), r["ms"], n_sm,
-                  max_clock_hz))
+        **bounds(forces.pair_work(n_t, src.pos.shape[0], 2), r["ms"], n_sm,
+                 max_clock_hz))
     del se, one, local
 
 
@@ -1209,8 +1169,8 @@ def _path_f4(paths, params, dev, grp, g, n_sm, max_clock_hz, results):
                                                     params.soft2))
     results["allpairs"]["let_import_shape"] = dict(
         res, targets=tgt.shape[0], sources=P * E,
-        **_bounds(forces.pair_work(tgt.shape[0], P * E, 2), res["ms"], n_sm,
-                  max_clock_hz))
+        **bounds(forces.pair_work(tgt.shape[0], P * E, 2), res["ms"], n_sm,
+                 max_clock_hz))
     del se, step, local
 
 
@@ -1261,6 +1221,75 @@ def _path_f(paths, cfg, params, dev, n_sm, max_clock_hz, results):
     return dict(f1=f1, f2=f2)
 
 
+def _path_g(paths):
+    """Path G: the port's bench as a user runs it (module docstring).
+    Returns, per solver, the JSON line, ms/step (median, min, max), the
+    warm-up seconds and the mean force error."""
+    import torch
+    from tpu_nbody_torch import bench
+    out = {}
+    for solver, (argv, need, limit) in BENCH_RUNS.items():
+        print(f"path G: python -m tpu_nbody_torch.bench {' '.join(argv)}",
+              flush=True)
+        buf = io.StringIO()
+
+        def run():
+            with contextlib.redirect_stdout(buf):
+                return bench.main(argv)
+
+        rep = paths.run(f"bench_{solver}", run, need=need)
+        text = buf.getvalue()
+        print(text, end="", flush=True)
+        lines = text.splitlines()
+        if len(lines) != 1:
+            raise AssertionError(f"bench {solver}: {len(lines)} stdout "
+                                 f"lines, expected one JSON line")
+        line = json.loads(lines[0])
+        if (sorted(line) != ["metric", "unit", "value", "vs_baseline"]
+                or line["unit"] != "bodies/s" or not line["value"] > 0):
+            raise AssertionError(f"bench {solver}: bad JSON line {line}")
+        err = rep["force_error"]["mean"]
+        if not err <= limit:
+            raise AssertionError(f"bench {solver}: mean force error "
+                                 f"{err:.3e} > {limit:.3e}")
+        rows = rep["phases"] or []
+        missing = [p for p in BENCH_PHASES[solver]
+                   if not any(r["name"].startswith(p) for r in rows)]
+        if missing or not all(r["bound_ms"] > 0 and r["pct_of_bound"] > 0
+                              for r in rows):
+            raise AssertionError(f"bench {solver}: phase rows missing "
+                                 f"{missing} or without a bound: {rows}")
+        out[solver] = dict(line=line, ms_per_step=rep["ms_per_step"],
+                           warmup_s=rep["warmup_s"], force_error=err)
+        print(f"bench {solver}: ms/step median {rep['ms_per_step'][0]:.3f} "
+              f"[{rep['ms_per_step'][1]:.3f}-{rep['ms_per_step'][2]:.3f}], "
+              f"warm-up {rep['warmup_s']:.2f} s, force error mean "
+              f"{err:.4e}, launches {paths.counts[f'bench_{solver}']}",
+              flush=True)
+        del rep
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cuda_tests():
+    """The ``cuda``-marked tests in a child process (no jax there, so no
+    conftest); fails on a non-zero exit."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run(CUDA_TESTS, capture_output=True, text=True,
+                         timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    tail = res.stdout.strip().splitlines()[-1:] or [""]
+    print(f"cuda tests: {' '.join(CUDA_TESTS[1:])}: exit {res.returncode}, "
+          f"{tail[0]} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if res.returncode != 0:
+        print(res.stdout[-20000:], res.stderr[-4000:], sep="\n",
+              file=sys.stderr)
+        raise AssertionError(f"the cuda tests failed (exit "
+                             f"{res.returncode})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1275,12 +1304,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    card = card_info(dev)
+    if card["smi"] is None:
+        raise RuntimeError("nvidia-smi did not report the card's name and "
+                           "power limit")
+    print(card["smi"], flush=True)
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -1342,8 +1370,8 @@ def main() -> int:
         if (switch, S, n) == (cfg.mesh_switch, cfg.mesh_band, cap):
             plan = band._band_plan(cap, S)
             results["band"] = dict(
-                r, **_bounds(band.pair_work(cap, S, switch), r["ms"], n_sm,
-                             max_clock_hz),
+                r, **bounds(band.pair_work(cap, S, switch), r["ms"], n_sm,
+                            max_clock_hz),
                 plan=dict(T=plan.T, B=plan.B, threads=plan.threads,
                           smem=plan.smem))
 
@@ -1373,8 +1401,8 @@ def main() -> int:
     print("allpairs: two calls give the same bits", flush=True)
     ap_plan = forces._card_plan(4096, cap, 2, dev)
     results["allpairs"] = dict(
-        r, **_bounds(forces.pair_work(4096, cap, 2), r["ms"], n_sm,
-                     max_clock_hz),
+        r, **bounds(forces.pair_work(4096, cap, 2), r["ms"], n_sm,
+                    max_clock_hz),
         plan=dict(T=forces.T, blocks=ap_plan.blocks, splits=ap_plan.splits))
 
     # the all-pairs engine's shape: every body a target (plain version on
@@ -1386,11 +1414,11 @@ def main() -> int:
                                      targets=st0.pos[rows].contiguous())
     torch.cuda.synchronize()
     err, scale = _check_close("allpairs engine shape", full[rows], want)
-    eng_ms = _timed_ms(lambda: forces.accel_allpairs(
+    eng_ms = timed_ms(lambda: forces.accel_allpairs(
         st0.pos, live_mass, params.G, params.soft2), reps=5)
     eng_plan = forces._card_plan(cap, cap, 2, dev)
-    eng_bound = _bounds(forces.pair_work(cap, cap, 2), eng_ms, n_sm,
-                        max_clock_hz)
+    eng_bound = bounds(forces.pair_work(cap, cap, 2), eng_ms, n_sm,
+                       max_clock_hz)
     results["allpairs"]["engine_shape"] = dict(
         targets=cap, sources=cap, ms=eng_ms, max_abs_err_sampled=err,
         blocks=eng_plan.blocks, splits=eng_plan.splits, **eng_bound)
@@ -1531,10 +1559,10 @@ def main() -> int:
                                     run_compress=mode, ny=ny, grid_y=grid_y)
 
     plain = deposit()
-    dep = {"plain": _timed_ms(deposit)}
+    dep = {"plain": timed_ms(deposit)}
     for mode in (True, 8):
         _check_close(f"deposit run_compress={mode}", deposit(mode), plain)
-        dep[str(mode)] = _timed_ms(lambda: deposit(mode))
+        dep[str(mode)] = timed_ms(lambda: deposit(mode))
     print(f"  deposit (Hilbert-sorted bodies): plain {dep['plain']:.3f} ms, "
           f"run_compress=True {dep['True']:.3f} ms, run_compress=8 "
           f"{dep['8']:.3f} ms; both within {TOL} of max rho", flush=True)
@@ -1571,6 +1599,14 @@ def main() -> int:
           f"{f['f1']['ms_per_step']:.2f} against pm_main {1e3 * main_sec:.2f}"
           f"; merger10m {f['f2']['updates_per_s']:.1f} body-updates/s",
           flush=True)
+
+    # -- path G: the port's bench, then the cuda tests --------------------
+    g_runs = _path_g(paths)
+    print("ms/step in this run: bench "
+          + ", ".join(f"{k} {v['ms_per_step'][0]:.3f}"
+                      for k, v in g_runs.items())
+          + f"; bh warm-up {g_runs['bh']['warmup_s']:.2f} s", flush=True)
+    _cuda_tests()
 
     results["allpairs"]["demo_shape_3d"] = e["demo_shape_3d"]
     results["allpairs"]["engine_shape_3d"].update(

@@ -4,7 +4,6 @@ DistGroup on gloo in two processes; faults that must raise, not hang; the
 sharded state helpers."""
 
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -204,9 +203,12 @@ def test_thread_group_stress():
 
 
 _DIST_SCRIPT = textwrap.dedent("""
+    import sys
     import numpy as np, torch
+    import torch.distributed as dist
     from tpu_nbody_torch.parallel.mesh import make_mesh
-    g = make_mesh(device="cpu", backend="dist", timeout=60)
+    g = make_mesh(device="cpu", backend="dist", timeout=60,
+                  init_method=sys.argv[1])
     P, r = g.size, g.rank
     rng = np.random.default_rng(0)
     full = torch.from_numpy(rng.standard_normal((P * 8, 6)).astype("f4"))
@@ -237,27 +239,31 @@ _DIST_SCRIPT = textwrap.dedent("""
     if flags.dtype != torch.bool or flags.tolist() != [[True, True],
                                                        [False, True]]:
         raise SystemExit(f"bool all_gather {flags}")
+    dist.barrier()                  # no rank tears down while one talks
+    dist.destroy_process_group()
     print("rank", r, "ok", flush=True)
 """)
 
 
 def test_dist_group_on_gloo_two_processes(tmp_path):
     """The same ops on torch.distributed (gloo), world size 2, each process
-    checking its own results."""
+    checking its own results and then leaving the group in order (a
+    barrier, then destroy: a process that exited with the group alive
+    while the other rank still used it could abort in the backend's
+    teardown). The ranks meet through a file in ``tmp_path``: no TCP port
+    to pick and lose to another process between picking and binding it."""
     script = tmp_path / "rank.py"
     script.write_text(_DIST_SCRIPT)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    init_method = f"file://{tmp_path / 'rendezvous'}"
     procs = []
     for rank in range(2):
         env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
-                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
                    LOCAL_RANK=str(rank), OMP_NUM_THREADS="1",
                    PYTHONPATH=str(Path(__file__).resolve().parents[1]))
         procs.append(subprocess.Popen(
-            [sys.executable, str(script)], env=env, cwd=str(tmp_path),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [sys.executable, str(script), init_method], env=env,
+            cwd=str(tmp_path), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
     outs = []
     try:
         for p in procs:
@@ -265,9 +271,11 @@ def test_dist_group_on_gloo_two_processes(tmp_path):
     finally:
         for p in procs:
             p.kill()
+    report = "\n".join(f"--- rank {r} (exit code {p.returncode}):\n{out}"
+                       for r, (p, out) in enumerate(zip(procs, outs)))
     for rank, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, out
-        assert f"rank {rank} ok" in out
+        assert p.returncode == 0, report
+        assert f"rank {rank} ok" in out, report
 
 
 def test_make_mesh_and_sharded_states(monkeypatch):

@@ -83,3 +83,72 @@ def test_trace_raises_without_the_card_it_is_asked_for(tmp_path,
         with profiling.trace(str(tmp_path / "t")):
             pass
     assert not (tmp_path / "t").exists()
+
+
+class _HostEvent:
+    """Stands in for torch.cuda.Event on the CPU: a host clock."""
+
+    def __init__(self, enable_timing=True):
+        self.t = None
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.t - self.t)
+
+
+def test_timed_ms_and_event_clock(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    calls = []
+    ms = profiling.timed_ms(lambda: (calls.append(1), time.sleep(0.002)),
+                            reps=3)
+    assert len(calls) == 5 and 2.0 <= ms < 1000.0     # 2 warm-ups, 3 timed
+    clock = profiling.EventClock()
+    clock("start")
+    time.sleep(0.002)
+    clock("a")
+    clock("b")
+    time.sleep(0.002)
+    clock("a")
+    out = clock.ms()
+    assert set(out) == {"a", "b"} and out["a"] >= 4.0 and out["b"] >= 0.0
+
+
+def test_bounds_take_the_larger_time():
+    ops = profiling.bounds(dict(flops=67e9, bytes=3.35e6), 2.0)
+    assert ops["bound_by"] == "operations"
+    assert ops["bound_ms"] == pytest.approx(1.0)
+    assert ops["pct_of_bound"] == pytest.approx(50.0)
+    assert "rsqrt_floor_ms" not in ops
+    mem = profiling.bounds(dict(flops=0, bytes=3.35e9, pairs=16 * 132e6),
+                           4.0, n_sm=132, max_clock_hz=1e6)
+    assert mem["bound_by"] == "bytes"
+    assert mem["bound_ms"] == pytest.approx(1.0)
+    assert mem["rsqrt_floor_ms"] == pytest.approx(1e3)
+
+
+def test_card_info_reads_the_power_limit_or_says_not_read(monkeypatch):
+    import subprocess
+
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev: "card")
+
+    class Done:
+        returncode = 0
+        stdout = "NVIDIA H100 80GB HBM3, 700.00 W\n"
+
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: Done())
+    info = profiling.card_info("cuda:0")
+    assert info == dict(name="card", smi="NVIDIA H100 80GB HBM3, 700.00 W",
+                        power_limit="700.00 W")
+
+    def missing(*a, **k):
+        raise FileNotFoundError("nvidia-smi")
+
+    monkeypatch.setattr(subprocess, "run", missing)
+    info = profiling.card_info("cuda:0")
+    assert info == dict(name="card", smi=None,
+                        power_limit="power limit not read")

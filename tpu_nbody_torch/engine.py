@@ -645,10 +645,18 @@ class Engine:
             return False
         t = self.caps.tightened(self.last_stats)
         if t != self.caps:
-            self.caps = t
-            self._build_step()
+            self.set_caps(t)
             return True
         return False
+
+    def set_caps(self, caps: Caps):
+        """Step with ``caps`` from now on, e.g. caps fitted to the scene by
+        lists-only passes (:func:`tpu_nbody_torch.accuracy.fitted_bh_pass`
+        with ``evaluate=False``); the overflow retune still grows them."""
+        if self.solver == "bh":
+            tree_lib.check_id_range(self.cfg.capacity, caps.num_nodes)
+        self.caps = caps
+        self._build_step()
 
     def get_bodies(self):
         """Alive bodies as host numpy (pos, vel, mass)."""

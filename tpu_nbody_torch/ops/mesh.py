@@ -479,6 +479,13 @@ def _mesh_grids_one(spos, smass, origin, h, nw, grid, order, kernel,
     rho = _deposit_packed(smass, base, w, nw, grid, ny=ny, grid_y=grid_y)
     _, _, phi_hat = kernel
     pw = _conv_potential(rho, phi_hat, ny, grid, grid_y, extra=reach)
+    return _fd_gradient(pw, h, nw, ny, reach)
+
+
+def _fd_gradient(pw, h, nw, ny, reach):
+    """6th-order finite-difference gradient of the potential rows
+    :func:`_conv_potential` returns: the force-grid windows ``(fx, fy)``
+    of :func:`_mesh_grids_one`."""
     win = nw + 7 + reach
     pw = torch.roll(pw, 3, dims=1)[:, :win]
     c1 = 45.0 / (60.0 * h)

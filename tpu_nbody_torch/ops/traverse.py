@@ -480,7 +480,7 @@ def _hier_levels(G: int, NC: int, hier_sizes, cand_caps):
 def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
                 group_size: int, hier_sizes, cand_caps, leaf_list_cap: int,
                 direct_body_cap: int, hier_batch: int, evaluate: bool = True,
-                probe=None):
+                probe=None, gcount=None):
     """Masked-dense BH force evaluation over hierarchical chunk candidates.
 
     Per final-level chunk (``hier_sizes[-1]`` adjacent groups) the member
@@ -510,6 +510,7 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     dev = gvalid.device
     GS = group_size
     LC, DB = leaf_list_cap, direct_body_cap
+    tally = getattr(probe, "pairs", None)
     probe = probe or (lambda name: None)
 
     sizes, kcaps, lvl_map = _hier_levels(G, NC, hier_sizes, cand_caps)
@@ -534,6 +535,8 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     bmn_all = gminp.reshape(C, CH, 2)
     bmx_all = gmaxp.reshape(C, CH, 2)
     gv_all = padg(gvalid, False).reshape(C, CH)
+    if tally is not None:
+        gn_all = padg(gcount, 0).reshape(C, CH)
     bpos_all, _ = _group_bodies(tree.spos, padg(gstart, cap), GS)
     bpos_all = bpos_all.reshape(C, CH, GS, 2)
     probe("lists")
@@ -600,6 +603,10 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
             out += _point_accel(bpos[e], prow[e][:, None, :, 0:2],
                                 prow[e][:, None, :, 2] * wdir[e], soft2)
             acc_c[e] = out * gv[e][..., None, None]
+            if tally is not None:
+                tally(wapx[e].numel() * GS + wdir[e].numel() * GS,
+                      (gn_all[c][e] * gv[e] * ((wapx[e] != 0).sum(-1)
+                                               + wdir[e].sum(-1))).sum())
         probe("evaluate")
     acc_rows = acc.reshape(C * CH, GS, 2)[:G]
 
@@ -645,6 +652,14 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
     the JAX package's scalars are. With ``evaluate`` false the lists are
     built and measured but no pair block is evaluated: ``acc`` is zeros and
     ``stats`` is what the full pass would report.
+
+    ``probe(name)``, where given, is called as each phase's work is
+    enqueued: ``"groups"``, ``"lists"``, ``"flatten"`` (hier), ``"evaluate"``
+    and ``"assemble"``. A probe with a ``pairs(padded, needed)`` method
+    also gets, for each evaluated pair block, the pairs the block computes
+    (a Python int, padding included) and the pairs its groups need (a
+    0-dim device tensor: each group's bodies times its accepted nodes and
+    direct partners), hier and dense traversals.
     """
     if traversal not in TRAVERSALS:
         raise ValueError(f"unknown traversal {traversal!r}: expected one of "
@@ -658,6 +673,7 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
     NC = tree.code.shape[0]
     group_cap = min(group_cap, NC)  # at most one group per node
     spos = tree.spos
+    tally = getattr(probe, "pairs", None)
     probe = probe or (lambda name: None)
 
     gvalid, gstart, gcount, n_groups = make_groups(tree, GS, group_cap)
@@ -677,7 +693,8 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
             tree, gstart, gvalid, gmin, gmax, theta2, soft2, group_size=GS,
             hier_sizes=hier_sizes, cand_caps=cand_caps,
             leaf_list_cap=leaf_list_cap, direct_body_cap=direct_body_cap,
-            hier_batch=hier_batch, evaluate=evaluate, probe=probe)
+            hier_batch=hier_batch, evaluate=evaluate, probe=probe,
+            gcount=gcount)
         stats = TraversalStats(
             approx_need=zero, leaf_need=needs["leaf_need"],
             direct_need=needs["direct_need"], frontier_need=zero,
@@ -732,6 +749,10 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
         acc += _point_accel(bpos[g], prow[..., 0:2],
                             torch.where(pvalid[g], prow[..., 2], 0.0), soft2)
         acc_rows[g] = acc * gvalid[g][:, None, None]
+        if tally is not None:
+            tally(arows.shape[0] * GS * (approx_cap + direct_body_cap),
+                  (gcount[g] * gvalid[g] * (a_len[g] + pvalid[g].sum(-1)))
+                  .sum())
     probe("evaluate")
 
     stats = TraversalStats(

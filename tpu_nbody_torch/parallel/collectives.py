@@ -416,16 +416,25 @@ class DistGroup(Group):
         return [fn(*args[0])]
 
 
-def init_dist(device, timeout: float = DEFAULT_TIMEOUT):
+def init_dist(device, timeout: float = DEFAULT_TIMEOUT,
+              init_method: str | None = None):
     """Initialise ``torch.distributed`` from the environment ``torchrun``
     sets (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``,
     ``LOCAL_RANK``) with NCCL for a CUDA device and gloo for the CPU, and
-    return this process's device (``cuda:LOCAL_RANK`` for CUDA)."""
+    return this process's device (``cuda:LOCAL_RANK`` for CUDA).
+    ``init_method`` (e.g. ``file:///shared/path``) replaces the TCP
+    rendezvous at ``MASTER_ADDR:MASTER_PORT``; rank and world size still
+    come from ``RANK`` and ``WORLD_SIZE``."""
     dev = torch.device(device)
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
+        where = {}
+        if init_method is not None:
+            where = dict(init_method=init_method,
+                         rank=int(os.environ["RANK"]),
+                         world_size=int(os.environ["WORLD_SIZE"]))
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                                timeout=timedelta(seconds=timeout))
+                                timeout=timedelta(seconds=timeout), **where)
     return dev

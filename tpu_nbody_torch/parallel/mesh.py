@@ -22,8 +22,8 @@ BACKENDS = ("thread", "dist")
 
 
 def make_mesh(n_devices: int | None = None, *, device="cuda",
-              backend: str = "thread",
-              timeout: float = DEFAULT_TIMEOUT) -> Group:
+              backend: str = "thread", timeout: float = DEFAULT_TIMEOUT,
+              init_method: str | None = None) -> Group:
     """A group of ``n_devices`` ranks on ``device`` (the card unless the
     caller asks for the CPU; raises without a card).
 
@@ -31,13 +31,15 @@ def make_mesh(n_devices: int | None = None, *, device="cuda",
     device (default one rank). ``backend="dist"``: this process is one rank
     of ``torch.distributed`` (launch with ``torchrun``; NCCL for CUDA, gloo
     for the CPU), initialised here from the environment if the caller has
-    not; ``n_devices`` defaults to the world size and must equal it.
+    not (``init_method``: see :func:`~tpu_nbody_torch.parallel.
+    collectives.init_dist`); ``n_devices`` defaults to the world size and
+    must equal it.
     """
     dev = check_device(device)
     if backend == "thread":
         return ThreadGroup(n_devices or 1, dev, timeout)
     if backend == "dist":
-        group = DistGroup(init_dist(dev, timeout), timeout)
+        group = DistGroup(init_dist(dev, timeout, init_method), timeout)
         if n_devices and n_devices != group.size:
             raise ValueError(f"{n_devices} ranks asked for, the process "
                              f"group has {group.size}")
