@@ -23,11 +23,11 @@ n2 = 200,000):
 * bh_engine (path D): solver="bh" with kdk_reuse and the hier traversal on
   the configuration of ``bench.py --solver bh``, caps as configured:
   step(1) to warm up and settle the cap retune, tighten_caps(), step(1)
-  timed; then no cap overflowing, the
-  force error of a fresh pass, the traversal needs on three scenes at
-  N = 1,000,000, and at N = 65,536 a pass at theta = 1e-3 against the
-  all-pairs kernel and dense against hier (path G times Barnes–Hut by
-  phase, from fitted caps);
+  timed; then no cap overflowing, the pair kernel at one hier chunk of a
+  pass (below), the force error of a fresh pass, the traversal needs on
+  three scenes at N = 1,000,000, and at N = 65,536 a pass at theta = 1e-3
+  against the all-pairs kernel and dense against hier (path G times
+  Barnes–Hut by phase, from fitted caps);
 * sphere3d (path E): the reference GPU demo, the 3D sphere scene under
   exact all-pairs forces (the kernel's 3D instantiation) and semi-implicit
   Euler. Once as ``python -m tpu_nbody_torch.examples.sphere3d_demo`` runs
@@ -70,7 +70,8 @@ n2 = 200,000):
   its limit, no retune inside a timed repeat (the bench raises) and a
   per-phase table with a bound and a share of it on every row;
 * cuda_tests: ``python -m pytest --noconftest -m cuda
-  tests/test_torch_package.py -q`` in a child process, which must pass.
+  tests/test_torch_package.py tests/test_torch_rescue_kernel.py
+  tests/test_torch_bh_pairs.py -q`` in a child process, which must pass.
 
 On the way it
 
@@ -92,26 +93,36 @@ On the way it
    0, where the largest magnitude is the satellites' own, timing both with CUDA events (median of 10 timings of one call on an
    idle card, after 2 warm-ups; 5 at the engine's shape), and checks that
    the all-pairs kernel gives the same bits on a second call (2D and 3D);
+   the rescue kernel against its plain version on the sorted scene (the
+   main path's partner choice, every block in one launch); the
+   Barnes–Hut pair kernel against its plain version on one hier chunk of
+   a pass at N = 1M (its two launches, accepted nodes and direct
+   partners, cut to the chunk with the most nonzero masses; the kernel
+   also timed on the whole evaluation batch), within the same 1e-5;
 5. sets every launch count to 0 just before each path and reads it just
-   after, checking the launches each path must make (one band launch per
-   P3M force pass, one all-pairs launch per all-pairs force pass), finite
-   state and no growth of n_alive;
+   after, checking the launches each path must make (one band and one
+   rescue launch per P3M force pass, two rescues a rank's pass on the
+   sharded P3M, one all-pairs launch per all-pairs force pass, pair
+   kernel launches and no other in the Barnes–Hut steps), finite state
+   and no growth of n_alive;
 6. measures the force error against the exact all-pairs kernel on 4096
    sampled alive bodies (tpu_nbody_torch.accuracy), failing where a mean
    is over its limit.
 
-The kernels line gives, per kernel, ``launches`` (for the band kernel the
-main path's three step(20) calls; for the all-pairs kernel path E's run at
-2^20 bodies, the path it carries: the P3M main path launches it only in
-the force error after its steps) and ``launches_by_path``, which holds
-path G's runs as ``bench_pm``, ``bench_allpairs`` and ``bench_bh`` (warm-up,
-timed repeats, force error and phase table). Barnes–Hut launches neither
-kernel in its steps (its pair math is plain torch); path D's counts are the
-all-pairs launches of its force-error measurements. Each kernel's bound_ms is
-the larger of its flops over the float32 peak and its bytes over the memory
-rate (pair_work in its module); rsqrt_floor_ms is its pairs over the rsqrt
-unit's rate (16 a clock per SM at the card's highest SM clock), a second
-floor beside it.
+The kernels line gives, per kernel, ``launches`` (for the band and the
+rescue kernels the main path's three step(20) calls; for the all-pairs
+kernel path E's run at 2^20 bodies, the path it carries: the P3M main path
+launches it only in the force error after its steps; for the Barnes–Hut
+pair kernel path D's steps) and ``launches_by_path``, which holds path G's
+runs as ``bench_pm``, ``bench_allpairs`` and ``bench_bh`` (warm-up, timed
+repeats, force error and phase table). The rescue and pair kernels have no
+Pallas original: ``replaces`` names the XLA code they stand for. Each
+kernel's bound_ms is the larger of its flops over the float32 peak and its
+bytes over the memory rate (``pair_work``, ``rescue_pair_work`` in its
+module), counted for the pairs this run's data needs (the rescue's valid
+partner blocks, the pair kernel's nonzero masses); rsqrt_floor_ms is its
+pairs over the rsqrt unit's rate (16 a clock per SM at the card's highest
+SM clock), a second floor beside it.
 
 It prints one JSON line describing the kernels, then, as its last line,
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -170,20 +181,29 @@ BH_STEPS = (("warm-up", 1), ("timed", 1))
 # path G: the bench's command lines; the kernels each run must launch; the
 # limit of its mean force error (all-pairs: the kernel against itself)
 BENCH_RUNS = {
-    "pm": ([], ("band", "allpairs"), ERR_LIMIT),
+    "pm": ([], ("band", "rescue", "allpairs"), ERR_LIMIT),
     "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
     "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
-           ("allpairs",), BH_ERR_LIMIT),
+           ("allpairs", "bh_pairs"), BH_ERR_LIMIT),
 }
 # the first words of each per-phase row the bench must print
 BENCH_PHASES = {
     "pm": ("hilbert sort", "CIC cells", "deposit", "FFT convolution",
-           "interpolation", "band", "rescue", "merge", "kernel hats"),
+           "interpolation", "band", "rescue select", "rescue pairs", "merge",
+           "kernel hats"),
     "allpairs": ("all-pairs kernel",),
     "bh": ("build", "groups", "lists", "flatten", "evaluate", "assemble"),
 }
 CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
-              "tests/test_torch_package.py", "-q"]
+              "tests/test_torch_package.py",
+              "tests/test_torch_rescue_kernel.py",
+              "tests/test_torch_bh_pairs.py", "-q"]
+# the launch counter of each kernel: (module of tpu_nbody_torch.ops,
+# attribute)
+COUNTERS = {"band": ("band", "LAUNCHES"),
+            "rescue": ("band", "RESCUE_LAUNCHES"),
+            "allpairs": ("forces", "LAUNCHES"),
+            "bh_pairs": ("traverse", "LAUNCHES")}
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
 # the bench configuration (bench.py:244-294)
@@ -241,13 +261,11 @@ class Paths:
         """Run ``fn()`` as ``path``; fail if a kernel named in ``need`` was
         not launched in it."""
         import torch
-        from tpu_nbody_torch.ops import band, forces
-        band.LAUNCHES = 0
-        forces.LAUNCHES = 0
+        for mod, attr in COUNTERS.values():
+            setattr(_module(mod), attr, 0)
         out = fn()
         torch.cuda.synchronize()
-        self.counts[path] = {"band": band.LAUNCHES,
-                             "allpairs": forces.LAUNCHES}
+        self.counts[path] = launch_counts()
         for name in need:
             if self.counts[path][name] < 1:
                 raise AssertionError(f"{path}: the {name} kernel was never "
@@ -256,6 +274,23 @@ class Paths:
 
     def of(self, kernel):
         return {p: c[kernel] for p, c in self.counts.items()}
+
+
+def _module(name):
+    """The module of tpu_nbody_torch.ops that holds a launch counter."""
+    import importlib
+    return importlib.import_module(f"tpu_nbody_torch.ops.{name}")
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count now."""
+    return {k: getattr(_module(mod), attr)
+            for k, (mod, attr) in COUNTERS.items()}
+
+
+def _only(**counts) -> dict:
+    """Launch counts that name some kernels, the others 0."""
+    return {k: counts.get(k, 0) for k in COUNTERS}
 
 
 def _engine(cfg, params, dev, n, **kw):
@@ -267,26 +302,28 @@ def _engine(cfg, params, dev, n, **kw):
     return eng
 
 
-def _run_steps(eng, calls, steps, per_call, kernel):
+def _run_steps(eng, calls, steps, per_call, kernels):
     """``calls`` Engine.step(steps) calls, the first a warm-up; checks
-    ``per_call`` launches of ``kernel`` in each, finite state and no growth
-    of n_alive. Returns the fastest timed call's seconds and n_alive."""
+    ``per_call`` launches of each of ``kernels`` in each, finite state and
+    no growth of n_alive. Returns the fastest timed call's seconds and
+    n_alive."""
     import torch
-    from tpu_nbody_torch.ops import band, forces
-    mod = {"band": band, "allpairs": forces}[kernel]
     n0 = int(eng.state.n_alive())
     times = []
     for rep in range(calls):
-        before = mod.LAUNCHES
+        before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.step(steps[rep])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if mod.LAUNCHES - before != per_call(steps[rep]):
-            raise AssertionError(
-                f"{kernel} kernel launched {mod.LAUNCHES - before} times in "
-                f"step({steps[rep]}), expected {per_call(steps[rep])}")
+        after = launch_counts()
+        for kernel in kernels:
+            got = after[kernel] - before[kernel]
+            if got != per_call(steps[rep]):
+                raise AssertionError(
+                    f"{kernel} kernel launched {got} times in "
+                    f"step({steps[rep]}), expected {per_call(steps[rep])}")
         if rep:
             times.append(dt / steps[rep])
         print(f"  step({steps[rep]}) {'warm-up' if rep == 0 else 'timed'}: "
@@ -339,7 +376,114 @@ def _rel_err(got, want):
     return (got - want).norm(dim=1) / (want.norm(dim=1) + 1e-9)
 
 
-def _path_d(paths, cfg, params, dev, st0):
+def _rescue_shape(spos, smass, salive, cfg, params, a, n_sm, max_clock_hz):
+    """The rescue kernel against its plain version at the main path's
+    shape: the partner choice of the sorted scene (``mesh._rescue_select``,
+    the main path's S and k) and one launch over every block, as
+    ``_block_rescue`` makes it."""
+    import torch
+    from tpu_nbody_torch.ops import band, mesh
+    S = cfg.mesh_band
+    live = torch.where(salive, smass, 0.0)
+
+    def select():
+        return mesh._rescue_select(spos, live, salive, a, band=S,
+                                   k=cfg.mesh_rescue, chunk=cfg.mesh_chunk)
+
+    # the selection stays in torch: its device time, and the host's time
+    # to enqueue it (launch-bound where the two are close)
+    sel = select()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    select()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    select_ms = timed_ms(select, reps=5)
+    m = sel.rows.shape[0]
+    pvalid = sel.mval > 0
+    args = (sel.rows, torch.arange(m, device=spos.device), sel.rows,
+            sel.midx, pvalid, params.soft2, a, cfg.mesh_switch)
+    r = _compare(f"rescue {cfg.mesh_switch} S={S} k={sel.k} blocks={m}",
+                 lambda: band.rescue_pair_sum(*args),
+                 lambda: band.rescue_pair_sum_ref(*args, chunk=sel.cb))
+    valid = int(pvalid.sum())
+    plan = band._rescue_plan(S, sel.k)
+    out = dict(r, blocks=m, k=sel.k, valid_partner_blocks=valid,
+               need=int(sel.cnt.max()),
+               select=dict(ms=select_ms, host_enqueue_ms=enqueue_ms),
+               **bounds(band.rescue_pair_work(m, sel.k, S, valid, m,
+                                              cfg.mesh_switch),
+                        r["ms"], n_sm, max_clock_hz),
+               plan=dict(T=plan.T, PL=plan.PL, threads=plan.threads,
+                         smem=plan.smem))
+    print(f"  rescue: {valid} of {m * sel.k} partner slots valid, bound "
+          f"{out['bound_ms']:.4f} ms ({out['pct_of_bound']:.1f}%); the "
+          f"selection in torch {select_ms:.4f} ms on the card, "
+          f"{enqueue_ms:.4f} ms for the host to enqueue it", flush=True)
+    return out
+
+
+def _bh_chunk_shape(st, cfg, params, caps, n_sm, max_clock_hz):
+    """The pair kernel against its plain version at one hier chunk of a
+    Barnes–Hut pass at N = 1M (a whole plain pass takes seconds): the pass
+    runs with ``traverse.point_accel`` wrapped to keep the evaluation batch
+    whose direct-partner launch has the most nonzero masses; the chunk (one
+    row: CH groups) with the most of them is cut out of that batch's two
+    launches, accepted nodes and direct partners, and both run through the
+    kernel and the plain version. The kernel is also timed on the whole
+    batch, the launch shape of the pass."""
+    import torch
+    from tpu_nbody_torch import accuracy
+    from tpu_nbody_torch.ops import traverse
+    real = traverse.point_accel
+    calls, best = [], {}
+
+    def keep(targets, sources, masses, soft2):
+        calls.append((targets, sources, masses))
+        if len(calls) == 2:            # a batch: nodes, then direct
+            nz = int((masses != 0).sum())
+            if nz > best.get("nz", -1):
+                best.update(nz=nz, calls=list(calls))
+            calls.clear()
+        return real(targets, sources, masses, soft2)
+
+    traverse.point_accel = keep
+    try:
+        accuracy.fitted_bh_pass(st.pos, st.mass, st.alive, cfg, params, caps)
+    finally:
+        traverse.point_accel = real
+    nodes, direct = best["calls"]
+    row = int((direct[2] != 0).sum(dim=(1, 2)).argmax())
+    soft2 = params.soft2
+    out = {}
+    for name, (t, src, m) in (("nodes", nodes), ("direct", direct)):
+        t1, s1, m1 = (x[row:row + 1].contiguous() for x in (t, src, m))
+        M, C, NT, _ = t1.shape
+        r = _compare(
+            f"bh_pairs hier chunk, {name}: {C} groups x {NT} targets x "
+            f"{s1.shape[1]} sources",
+            lambda: traverse.point_accel(t1, s1, m1, soft2),
+            lambda: traverse._point_accel(t1, s1[:, None], m1, soft2))
+        batch_ms = timed_ms(lambda: traverse.point_accel(t, src, m, soft2))
+        work = traverse.pair_work(m, NT)
+        out[name] = dict(
+            r, groups=C, targets=NT, sources=s1.shape[1],
+            nonzero_masses=int((m1 != 0).sum()),
+            **bounds(traverse.pair_work(m1, NT), r["ms"], n_sm,
+                     max_clock_hz),
+            batch=dict(rows=t.shape[0], ms=batch_ms,
+                       **bounds(work, batch_ms, n_sm, max_clock_hz)))
+        print(f"  bh_pairs {name}: chunk bound {out[name]['bound_ms']:.4f} "
+              f"ms ({out[name]['pct_of_bound']:.1f}%); the batch of "
+              f"{t.shape[0]} chunks {batch_ms:.4f} ms, bound "
+              f"{out[name]['batch']['bound_ms']:.4f} ms "
+              f"({out[name]['batch']['pct_of_bound']:.1f}%)", flush=True)
+    plan = traverse._pairs_plan(direct[0].shape[2])
+    return dict(out["direct"], nodes_call=out["nodes"],
+                plan=dict(T=plan.T, tpg=plan.tpg, lanes=plan.lanes,
+                          threads=plan.threads))
+
+
+def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
     """Barnes–Hut end to end at N = 1M, then its checks (module
     docstring). Returns the timed seconds a step. Its force errors draw
     their samples from a generator of their own: how far the main path's
@@ -372,10 +516,11 @@ def _path_d(paths, cfg, params, dev, st0):
                   flush=True)
         return dt / n, n0, int(bh.state.n_alive())
 
-    sec, n0, n1 = paths.run("bh_engine", run)
-    if any(paths.counts["bh_engine"].values()):
-        raise AssertionError(f"Barnes–Hut steps launched a kernel: "
-                             f"{paths.counts['bh_engine']}")
+    sec, n0, n1 = paths.run("bh_engine", run, need=("bh_pairs",))
+    counts = paths.counts["bh_engine"]
+    if counts != _only(bh_pairs=counts["bh_pairs"]):
+        raise AssertionError(f"Barnes–Hut steps launched another kernel "
+                             f"than the pair kernel: {counts}")
     st = bh.state
     if not all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel,
                                                         st.mass)):
@@ -391,6 +536,8 @@ def _path_d(paths, cfg, params, dev, st0):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  caps {bh.caps}", flush=True)
     print(f"  last_stats {bh.last_stats}", flush=True)
+    results["bh_pairs"] = _bh_chunk_shape(st, cfg, params, bh.caps, n_sm,
+                                          max_clock_hz)
 
     # force error of a fresh pass of the initial scene (the JAX package's
     # measurement point), from the engine's caps, against the exact
@@ -405,7 +552,7 @@ def _path_d(paths, cfg, params, dev, st0):
         if not e["mean"] <= BH_ERR_LIMIT:
             raise AssertionError(f"bh: mean force error {e['mean']:.3e} > "
                                  f"{BH_ERR_LIMIT:.3e}")
-    paths.run("bh_force_error", bh_error, need=("allpairs",))
+    paths.run("bh_force_error", bh_error, need=("allpairs", "bh_pairs"))
     del bh
 
     # the needs of one pass on three scenes at N = 1M, caps grown to fit
@@ -445,14 +592,15 @@ def _path_d(paths, cfg, params, dev, st0):
         if not rel <= BH_OPEN_TOL:
             raise AssertionError(f"bh at theta=1e-3 is not the exact sum: "
                                  f"{rel:.3e} > {BH_OPEN_TOL}")
-    paths.run("bh_open_all", open_all, need=("allpairs",))
+    paths.run("bh_open_all", open_all, need=("allpairs", "bh_pairs"))
 
     def small_error():
         e = accuracy.sampled_force_error(s, small, params, SAMPLES, g,
                                          solver="bh")
         print(f"bh theta={params.theta} N={N_SMALL} (dense): force error "
               f"mean {e['mean']:.3e} p99 {e['p99']:.3e}", flush=True)
-    paths.run("bh_small_force_error", small_error, need=("allpairs",))
+    paths.run("bh_small_force_error", small_error,
+              need=("allpairs", "bh_pairs"))
 
     accs = {}
     for trav in ("dense", "hier"):
@@ -642,8 +790,7 @@ def _path_e(paths, params3, dev, bodies, n_sm, max_clock_hz):
     eng, frames, raw = paths.run("sphere3d_demo", demo, need=("allpairs",))
     count = _gif_frame_count(raw)
     st = eng.state
-    if paths.counts["sphere3d_demo"] != {"band": 0,
-                                         "allpairs": SPHERE_FRAMES}:
+    if paths.counts["sphere3d_demo"] != _only(allpairs=SPHERE_FRAMES):
         raise AssertionError(f"sphere3d_demo: launches "
                              f"{paths.counts['sphere3d_demo']}, expected "
                              f"{SPHERE_FRAMES} all-pairs and no band")
@@ -687,13 +834,14 @@ def _path_e(paths, params3, dev, bodies, n_sm, max_clock_hz):
     with pt("engine3d step(1) + step(3)") as hold:
         sec, n0, n1 = paths.run(
             "sphere3d_engine", lambda: _run_steps(big, 2, [1, 3],
-                                                  lambda s: s, "allpairs"),
+                                                  lambda s: s,
+                                                  ("allpairs",)),
             need=("allpairs",))
         hold["result"] = big.state
-    if paths.counts["sphere3d_engine"] != {"band": 0, "allpairs": 4}:
+    if paths.counts["sphere3d_engine"] != _only(allpairs=4):
         raise AssertionError(f"sphere3d_engine: launches "
                              f"{paths.counts['sphere3d_engine']}, expected "
-                             f"4 all-pairs and no band")
+                             f"4 all-pairs and no other")
     if n1 != n0 or n0 != cap:
         raise AssertionError(f"sphere3d_engine: n_alive {n0} -> {n1}, "
                              f"expected {cap} (merging is off)")
@@ -777,10 +925,11 @@ def _render_main(paths, cfg, params, dev, st0, stepped):
         return final, frames, time.perf_counter() - t0
 
     final, frames, sec = paths.run("render_movie_pm", movie, need=("band",))
-    if paths.counts["render_movie_pm"] != {"band": 64, "allpairs": 0}:
+    if paths.counts["render_movie_pm"] != _only(band=64, rescue=64):
         raise AssertionError(f"render_movie_pm: launches "
                              f"{paths.counts['render_movie_pm']}, expected "
-                             f"64 band (two passes a single step)")
+                             f"64 band and 64 rescue (two passes a single "
+                             f"step)")
     if not (frames.device.type == dev.type and frames.dtype == torch.uint8
             and tuple(frames.shape) == (8, h, w, 3)
             and int(final.step) == 32 and int(frames[0].sum()) > 0
@@ -831,7 +980,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         n0 = int(se.state.n_alive())
         out = {}
         for label in ("warm-up", "timed"):
-            b0 = band.LAUNCHES
+            b0, r0 = band.LAUNCHES, band.RESCUE_LAUNCHES
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
@@ -842,18 +991,22 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             torch.cuda.synchronize()
             host = time.perf_counter() - t0
             launches = band.LAUNCHES - b0
+            rescues = band.RESCUE_LAUNCHES - r0
             print(f"  step({F_STEPS}) {label}: {host:.3f} s host, "
                   f"{start.elapsed_time(end):.1f} ms device events, "
-                  f"{launches} band launches", flush=True)
-            if label == "timed" and launches != P * (F_STEPS + 1):
+                  f"{launches} band launches, {rescues} rescue launches",
+                  flush=True)
+            if label == "timed" and (launches != P * (F_STEPS + 1)
+                                     or rescues != 2 * launches):
                 raise AssertionError(
-                    f"sharded pm: {launches} band launches in step("
-                    f"{F_STEPS}), expected {P} a force pass x "
-                    f"{F_STEPS + 1} passes")
+                    f"sharded pm: {launches} band and {rescues} rescue "
+                    f"launches in step({F_STEPS}), expected {P} band a "
+                    f"force pass x {F_STEPS + 1} passes and two rescues "
+                    f"(local, cross-shard) a band launch")
             out[label] = (host / F_STEPS, start.elapsed_time(end) / F_STEPS)
         return out, n0
 
-    times, n0 = paths.run("sharded_pm", run, need=("band",))
+    times, n0 = paths.run("sharded_pm", run, need=("band", "rescue"))
     sec, dev_ms = times["timed"]
     st = se.state
     n1 = int(st.n_alive())
@@ -903,7 +1056,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         return gst, local, float(rel.mean())
 
     gst, local, rel_mean = paths.run("sharded_pm_force_error", error,
-                                     need=("band", "allpairs"))
+                                     need=("band", "rescue", "allpairs"))
     if paths.counts["sharded_pm_force_error"]["band"] != P + 1:
         raise AssertionError(
             f"sharded pm: {paths.counts['sharded_pm_force_error']} launches "
@@ -997,7 +1150,8 @@ def _path_f2(paths):
     args = MERGER_ARGS + ["--device", DEVICE]
     print(f"path F2: python -m tpu_nbody_torch.examples.merger10m "
           f"{' '.join(args)}", flush=True)
-    r = paths.run("merger10m", lambda: merger10m.main(args), need=("band",))
+    r = paths.run("merger10m", lambda: merger10m.main(args),
+                  need=("band", "rescue"))
     n_total = int(args[args.index("--n") + 1])
     alive = [n for _, n, _ in r["lines"]]
     st = r["engine"].state
@@ -1010,8 +1164,8 @@ def _path_f2(paths):
                              f"finite: {r['lines']}")
     print(f"merger10m: {r['updates_per_s']:.1f} body-updates/s "
           f"({r['seconds']:.2f} s for the steps, stats and gathers), "
-          f"n_alive {alive}, {paths.counts['merger10m']['band']} band "
-          f"launches, peak memory "
+          f"n_alive {alive}, launches {paths.counts['merger10m']}, peak "
+          f"memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     out = dict(updates_per_s=r["updates_per_s"], seconds=r["seconds"])
     del r, st
@@ -1122,11 +1276,14 @@ def _path_f4(paths, params, dev, grp, g, n_sm, max_clock_hz, results):
                        integrator="kdk_reuse", seed=3, device=dev)
     se.reset_default_scene(n1=N_F4 - N_F4 // 5, n2=N_F4 // 5)
     t0 = time.perf_counter()
-    paths.run("sharded_bh", lambda: se.step(2), need=("allpairs",))
+    paths.run("sharded_bh", lambda: se.step(2),
+              need=("allpairs", "bh_pairs"))
     sec = time.perf_counter() - t0
     print(f"sharded_bh step(2): {sec:.2f} s (retune rounds included), "
           f"{paths.counts['sharded_bh']['allpairs']} all-pairs launches "
-          f"(the import sums); LET needs: export {se.last_export_need} "
+          f"(the import sums), {paths.counts['sharded_bh']['bh_pairs']} "
+          f"pair-kernel launches (the local trees); LET needs: export "
+          f"{se.last_export_need} "
           f"(caps {se.let_approx_cap} + {se.let_body_cap}), leaf/frontier "
           f"caps {se.let_leaf_cap}/{se.let_frontier_cap}; traversal needs "
           f"{se.last_stats}", flush=True)
@@ -1151,7 +1308,8 @@ def _path_f4(paths, params, dev, grp, g, n_sm, max_clock_hz, results):
                                  f"{e['mean']:.3e} > {BH_ERR_LIMIT:.3e}")
         return local
 
-    local = paths.run("sharded_bh_force_error", error, need=("allpairs",))
+    local = paths.run("sharded_bh_force_error", error,
+                      need=("allpairs", "bh_pairs"))
     # the all-pairs kernel at the LET import shape: rank 0's bodies against
     # (P, E, 3) rows, here the other ranks' first E bodies
     E = se.let_approx_cap + se.let_body_cap
@@ -1184,10 +1342,10 @@ def _path_f5(paths, dev):
     paths.run("dryrun_multichip",
               lambda: graft_entry.dryrun_multichip(DRYRUN_RANKS,
                                                    device=DEVICE),
-              need=("band", "allpairs"))
+              need=("band", "rescue", "allpairs", "bh_pairs"))
     fn, (st, prm) = graft_entry.entry(device=DEVICE)
     t0 = time.perf_counter()
-    out = paths.run("entry", lambda: fn(st, prm))
+    out = paths.run("entry", lambda: fn(st, prm), need=("bh_pairs",))
     card_s = time.perf_counter() - t0
     cpu_fn, _ = graft_entry.entry(device="cpu")
     t0 = time.perf_counter()
@@ -1347,8 +1505,8 @@ def main() -> int:
     nw, ny, grid, grid_y, h, a, morigin = mesh._pm_geometry(
         origin, side, cfg.mesh_level, cfg.mesh_ny, cfg.mesh_split)
     st0 = eng.state
-    spos, smass, _, _ = mesh._hilbert_sort(st0.pos, st0.mass, st0.alive,
-                                           origin, side)
+    spos, smass, salive, _ = mesh._hilbert_sort(st0.pos, st0.mass,
+                                                st0.alive, origin, side)
     spos, smass = spos.contiguous(), smass.contiguous()
     print(f"scene: N={int(st0.n_alive())} capacity={cap}", flush=True)
 
@@ -1374,6 +1532,10 @@ def main() -> int:
                             max_clock_hz),
                 plan=dict(T=plan.T, B=plan.B, threads=plan.threads,
                           smem=plan.smem))
+
+    # -- rescue kernel vs plain, the same sorted scene ---------------------
+    results["rescue"] = _rescue_shape(spos, smass, salive, cfg, params, a,
+                                      n_sm, max_clock_hz)
 
     # -- all-pairs kernel vs plain ----------------------------------------
     g = torch.Generator(device=dev).manual_seed(11)
@@ -1446,13 +1608,14 @@ def main() -> int:
     paths.run("force_error_step0",
                      lambda: _force_error("pm_main step 0", st0, cfg, params,
                                           g),
-                     need=("band", "allpairs"))
+                     need=("band", "rescue", "allpairs"))
 
     # -- main path ----------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     sec, n0, n1 = paths.run(
         "pm_main", lambda: _run_steps(eng, 3, [STEPS] * 3, lambda s: s + 1,
-                                      "band"), need=("band",))
+                                      ("band", "rescue")),
+        need=("band", "rescue"))
     _report_run("pm_main", eng, sec, n0, n1)
     main_sec = sec
     hud = eng.stats()
@@ -1473,7 +1636,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     sec, n0, n1 = paths.run(
         "allpairs_engine", lambda: _run_steps(ap, 2, [2, 3], lambda s: s + 1,
-                                              "allpairs"),
+                                              ("allpairs",)),
         need=("allpairs",))
     _report_run(f"allpairs_engine kdk_reuse N={N}", ap, sec, n0, n1)
     ap_sec = sec
@@ -1485,7 +1648,7 @@ def main() -> int:
         sec, n0, n1 = paths.run(
             f"allpairs_{integrator}",
             lambda: _run_steps(e, 2, [4, 4], lambda s: per_step * s,
-                               "allpairs"), need=("allpairs",))
+                               ("allpairs",)), need=("allpairs",))
         _report_run(f"allpairs_engine {integrator} N={N_SMALL}", e, sec, n0,
                     n1)
 
@@ -1497,15 +1660,16 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     sec, n0, n1 = paths.run(
         "pm_subcycled", lambda: _run_steps(sub, 3, [STEPS] * 3,
-                                           lambda s: s + 1, "band"),
-        need=("band",))
+                                           lambda s: s + 1,
+                                           ("band", "rescue")),
+        need=("band", "rescue"))
     _report_run("pm_subcycled", sub, sec, n0, n1)
     print(f"pm_subcycled against pm_main in this run: "
           f"{1e3 * sec:.2f} against {1e3 * main_sec:.2f} ms/step", flush=True)
     paths.run("pm_subcycled_force_error",
               lambda: _force_error("pm_subcycled fresh pass after the run",
                                    sub.state, cfg_b, params, g, ERR_LIMIT),
-              need=("band", "allpairs"))
+              need=("band", "rescue", "allpairs"))
     del sub
 
     # -- path C: one fresh force pass per remaining knob --------------------
@@ -1525,7 +1689,8 @@ def main() -> int:
             out[name] = e
         return out
 
-    errs = paths.run("pm_knobs", knobs, need=("band", "allpairs"))
+    errs = paths.run("pm_knobs", knobs,
+                     need=("band", "rescue", "allpairs"))
     cic = errs["cic"]["mean"]
     checks = {
         "heavy_direct": errs["heavy_direct"]["mean"] <= 1.05 * cic,
@@ -1545,8 +1710,9 @@ def main() -> int:
                                 pm_mesh_extrapolate=True)
     ex = _engine(cfg_x, params, dev, N, solver="pm", integrator="kdk_reuse")
     paths.run("pm_extrapolate",
-              lambda: _run_steps(ex, 2, [2, 2], lambda s: s + 1, "band"),
-              need=("band",))
+              lambda: _run_steps(ex, 2, [2, 2], lambda s: s + 1,
+                                 ("band", "rescue")),
+              need=("band", "rescue"))
     print("  pm_mesh_extrapolate: two step(2) calls, state finite",
           flush=True)
     del ex
@@ -1569,7 +1735,7 @@ def main() -> int:
 
     # -- path D: Barnes–Hut -------------------------------------------------
     bh_sec = _path_d(paths, SimConfig(capacity=cap, **CFG, **BH_CFG), params,
-                     dev, st0)
+                     dev, st0, n_sm, max_clock_hz, results)
     # -- path E: the 3D demo, then the renders of the main path -------------
     e = _path_e(paths, params3, dev, sphere, n_sm, max_clock_hz)
     del sphere
@@ -1613,7 +1779,9 @@ def main() -> int:
         path_e_ms_per_step=e["ms_per_step"],
         path_e_body_updates_per_s=e["body_updates_per_s"])
     launches = {"band": paths.counts["pm_main"]["band"],
-                "allpairs": paths.counts["sphere3d_engine"]["allpairs"]}
+                "rescue": paths.counts["pm_main"]["rescue"],
+                "allpairs": paths.counts["sphere3d_engine"]["allpairs"],
+                "bh_pairs": paths.counts["bh_engine"]["bh_pairs"]}
     kernels = [
         dict(name="band_short_range", route="cuda",
              source="tpu_nbody_torch/csrc/band.cu",
@@ -1626,6 +1794,21 @@ def main() -> int:
              launches=launches["allpairs"],
              launches_by_path=paths.of("allpairs"), library_ms=None,
              **results["allpairs"]),
+        dict(name="rescue_pair_sum", route="cuda",
+             source="tpu_nbody_torch/csrc/rescue.cu",
+             replaces="tpu_nbody/ops/mesh.py:245",
+             replaces_also="tpu_nbody/parallel/sharded_pm.py:197",
+             replaces_kind="XLA pair sum (no Pallas original)",
+             launches=launches["rescue"],
+             launches_by_path=paths.of("rescue"), library_ms=None,
+             **results["rescue"]),
+        dict(name="bh_pairs", route="cuda",
+             source="tpu_nbody_torch/csrc/bh_pairs.cu",
+             replaces="tpu_nbody/ops/traverse.py:589",
+             replaces_kind="XLA pair blocks (no Pallas original)",
+             launches=launches["bh_pairs"],
+             launches_by_path=paths.of("bh_pairs"), library_ms=None,
+             **results["bh_pairs"]),
     ]
     print(f"render ms: 3D frame {e['frame3d_ms']:.3f} (splat alone "
           f"{e['splat_ms']:.3f}), pm_main speed {render_ms['speed']:.3f}, "

@@ -127,11 +127,15 @@ def test_phase_work_counts(small):
     n = 1_000_000 if not small else 20_000
     work = bench.phase_work(cfg, n)
     assert set(work) == {"sort", "cic", "deposit", "fft_fd", "interp",
-                         "band", "rescue", "merge", "kernel_hats"}
+                         "band", "rescue_select", "rescue_pairs", "merge",
+                         "kernel_hats"}
     assert work["band"] == band.pair_work(n, cfg.mesh_band, cfg.mesh_switch)
     S, k = cfg.mesh_band, cfg.mesh_rescue
-    assert work["rescue"]["pairs"] == n * k * S
-    assert work["rescue"]["flops"] >= n * k * S * band._PAIR_FLOPS["poly4"]
+    assert work["rescue_pairs"]["pairs"] == n * k * S
+    assert work["rescue_pairs"]["flops"] == \
+        n * k * S * band._PAIR_FLOPS["poly4"]
+    blocks = -(-n // S)
+    assert work["rescue_select"]["flops"] == 11 * blocks * blocks
     for row in work.values():             # counted from shapes alone
         assert all(isinstance(v, (int, float)) and v >= 0
                    for v in row.values())
@@ -161,9 +165,10 @@ class _HostEvent:
 PHASES = {
     "pm": ["hilbert sort (/8 steps)", "CIC cells", "deposit (4 plane "
            "scatter)", "FFT convolution + FD gradient", "interpolation",
-           "band S=256 (kernel)", "rescue k=4", "merge",
-           "kernel hats (/2 steps)"],
-    "bh": ["build", "groups", "lists", "evaluate", "assemble"],
+           "band S=256 (kernel)", "rescue select k=4",
+           "rescue pairs k=4 (kernel)", "merge", "kernel hats (/2 steps)"],
+    "bh": ["build", "groups", "lists", "evaluate (bh_pairs kernel)",
+           "assemble"],
     "allpairs": ["all-pairs kernel (4096 x 4096 slots)"],
 }
 BODIES = {"pm": 4096, "bh": 1024, "allpairs": 4096}

@@ -80,6 +80,7 @@ PHASE_REPS = 5          # CUDA-event timings a phase, after 2 warm-ups
 _CELL_FLOPS = {1: 6, 2: 16, 3: 35}
 _TAPS = {1: 1, 2: 4, 3: 9}            # cells a body touches
 _BOX_TEST_FLOPS = 11                  # mesh._box_gaps a pair of blocks
+_PICK_BYTES = 13                      # a rescue partner: int64, score, flag
 _MERGE_FLOPS = 6                      # distance test a (body, heavy) pair
 _F32, _C64 = 4, 8                     # bytes
 
@@ -124,11 +125,15 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64) -> dict:
     reads again. Per call of the phase: the table scales the re-sort by
     1/``pm_resort_every`` and the kernel hats by 1/steps. Dead bodies sort
     behind the alive ones and carry no work. The band row is
-    :func:`band.pair_work` of the ``n`` sorted bodies; the rescue row counts
-    the ``mesh_rescue`` partner blocks of S bodies that each body's block
-    evaluates, n·k·S pairs at the band's flops a pair, plus the box-gap
-    tests between blocks; the merge, a distance test of every body against
-    each of ``heavy_cap`` heavy slots. The sort counts no arithmetic: it is
+    :func:`band.pair_work` of the ``n`` sorted bodies; the rescue is two
+    rows: its selection (``rescue_select``: the box-gap test of every pair
+    of blocks, the block rows read once and the k partner indices, flags
+    and scores written once) and its pair sum (``rescue_pairs``, the rescue
+    kernel: the ``mesh_rescue`` partner blocks of S bodies that each body's
+    block evaluates, n·k·S pairs at the band's flops a pair, the rows and
+    indices read once and the accelerations written once); the merge, a
+    distance test of every body against each of ``heavy_cap`` heavy
+    slots. The sort counts no arithmetic: it is
     integer work, bounded by its bytes."""
     nw = 1 << cfg.mesh_level
     ny = cfg.mesh_ny or nw
@@ -164,10 +169,12 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64) -> dict:
         "interp": dict(flops=2 * (2 * K - 1) * n,
                        bytes=fgrid + weights + acc_out),
         "band": band.pair_work(n, S, cfg.mesh_switch),
-        "rescue": dict(pairs=rescue_pairs,
-                       flops=rescue_pairs * pair_flops
-                       + _BOX_TEST_FLOPS * blocks * blocks,
-                       bytes=body_in + acc_out),
+        "rescue_select": dict(flops=_BOX_TEST_FLOPS * blocks * blocks,
+                              bytes=body_in + blocks * k * _PICK_BYTES),
+        "rescue_pairs": dict(pairs=rescue_pairs,
+                             flops=rescue_pairs * pair_flops,
+                             bytes=n * 3 * _F32 + blocks * k * _PICK_BYTES
+                             + acc_out),
         "merge": dict(flops=_MERGE_FLOPS * n * heavy_cap,
                       bytes=body_in + n * (_F32 + 1)),
         "kernel_hats": dict(flops=hats, bytes=3 * grid_y * cols * _C64),
@@ -331,7 +338,9 @@ class _PairClock(profiling.EventClock):
 
 def _pm_phases(eng: Engine, steps: int) -> list:
     """(name, ms, work, scale) of each P3M phase, each run alone on the
-    Hilbert-sorted state."""
+    Hilbert-sorted state. The rescue is its base tier's selection and its
+    pair kernel; a two-tier rescue's hot tier (``mesh_rescue_hot``, off in
+    the bench's configuration) has no row."""
     cfg, params, st, dev = eng.cfg, eng.params, eng.state, eng.device
     origin, side = engine._root(cfg)
     nw, ny, grid, grid_y, h, a, morigin = mesh._pm_geometry(
@@ -352,6 +361,12 @@ def _pm_phases(eng: Engine, steps: int) -> list:
         return mesh._fd_gradient(pw, h, nw, ny, reach)
 
     fx, fy = fft_fd()
+    # the rescue's two halves, on the masses the pass gives it (dead at 0)
+    live_mass = torch.where(salive, smass, 0.0)
+    sel = mesh._rescue_select(spos, live_mass, salive, a, band=S,
+                              k=cfg.mesh_rescue, chunk=chunk)
+    tid = torch.arange(sel.rows.shape[0], device=dev)
+    pvalid = sel.mval > 0
     K = max(1, cfg.pm_resort_every)
     work = phase_work(cfg, int(st.n_alive()), eng.merge_heavy_cap)
     phases = [
@@ -371,11 +386,13 @@ def _pm_phases(eng: Engine, steps: int) -> list:
          lambda: band.band_short_range(spos, smass, params.soft2, a,
                                        band=S, chunk=chunk,
                                        switch=cfg.mesh_switch)),
-        (f"rescue k={cfg.mesh_rescue}", "rescue", 1.0,
-         lambda: mesh._block_rescue(
-             spos, smass, salive, params.soft2, a, band=S,
-             k=cfg.mesh_rescue, chunk=chunk, k_hot=cfg.mesh_rescue_hot,
-             hot_cap=cfg.mesh_rescue_hot_cap, switch=cfg.mesh_switch)),
+        (f"rescue select k={cfg.mesh_rescue}", "rescue_select", 1.0,
+         lambda: mesh._rescue_select(spos, live_mass, salive, a, band=S,
+                                     k=cfg.mesh_rescue, chunk=chunk)),
+        (f"rescue pairs k={cfg.mesh_rescue} (kernel)", "rescue_pairs", 1.0,
+         lambda: band.rescue_pair_sum(
+             sel.rows, tid, sel.rows, sel.midx, pvalid, params.soft2, a,
+             cfg.mesh_switch, chunk=sel.cb)),
         ("merge", "merge", 1.0,
          lambda: merge_bodies(st, params, heavy_cap=eng.merge_heavy_cap)),
         (f"kernel hats (/{steps} steps)", "kernel_hats", 1.0 / steps,
@@ -383,6 +400,10 @@ def _pm_phases(eng: Engine, steps: int) -> list:
     ]
     return [(name, profiling.timed_ms(fn, reps=PHASE_REPS), work[key], scale)
             for name, key, scale, fn in phases]
+
+
+# the Barnes–Hut rows that a hand kernel computes, named so in the table
+_BH_ROWS = {"evaluate": "evaluate (bh_pairs kernel)"}
 
 
 def _bh_phases(eng: Engine, steps: int) -> tuple:
@@ -407,8 +428,8 @@ def _bh_phases(eng: Engine, steps: int) -> tuple:
                          bytes=rows_out + nodes + n * 2 * _F32),
         "assemble": dict(flops=0, bytes=2 * n * 2 * _F32 + n * _F32),
     }
-    rows = [(name, ms[name], work[name], 1.0) for name in work
-            if name in ms]
+    rows = [(_BH_ROWS.get(name, name), ms[name], work[name], 1.0)
+            for name in work if name in ms]
     return rows, clock.padded, needed
 
 

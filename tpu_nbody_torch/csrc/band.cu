@@ -9,9 +9,10 @@
 // consecutive slots. Body i of block b sums, over every partner j of blocks
 // b-1, b and b+1,
 //     a_i += m_j * d * rsqrt(r2 + eps2)^3 * w(r2),   d = p_j - p_i,
-// with w the switch of ops/band.py::_short_weight. Partners before the first or
-// after the last body have mass 0 (the zero guard blocks of the JAX forms),
-// so there are no wrap-around pairs. The self pair gives d = 0, hence 0.
+// with w the switch of ops/band.py::_short_weight (pair_switch.cuh).
+// Partners before the first or after the last body have mass 0 (the zero
+// guard blocks of the JAX forms), so there are no wrap-around pairs. The
+// self pair gives d = 0, hence 0.
 //
 // What bounds it on this card: arithmetic. Counted from the plain formula
 // (rsqrt and max one operation each), a poly4 pair costs 21 flops: at
@@ -43,29 +44,11 @@
 
 #include <cuda_runtime.h>
 
-#include "fastmath.cuh"
+#include "pair_switch.cuh"
 
 namespace {
 
-enum { SWITCH_EXP4 = 0, SWITCH_POLY4 = 1 };
 constexpr int MAX_SMEM = 48 * 1024;  // default dynamic shared memory limit
-
-// m rsqrt(r2s)^3 w(r2) from the softened r2s = r2 + eps2, its rsqrt inv and
-// the mass m, with w poly4 (1 - r2 c)^4 clamped at 0 (c = 1/(4a^2)) or exp4
-// exp(-(r2 c)^2) (c = 1/a^2). r2 c = r2s c - eps2 c, so k = 1 + eps2 c
-// (poly4) or eps2 c (exp4).
-template <int SWITCH>
-__device__ __forceinline__ float pair_weight(float r2s, float inv, float m,
-                                             float c, float k) {
-  if (SWITCH == SWITCH_POLY4) {
-    const float t = fmaxf(0.0f, fmaf(-r2s, c, k));
-    const float q = (t * t) * inv;
-    return (q * q) * (m * inv);
-  } else {
-    const float q = fmaf(r2s, c, -k);
-    return (m * (inv * inv * inv)) * expf(-(q * q));
-  }
-}
 
 // CTA c covers S-blocks [c B, c B + B); thread s * tps + l of it holds the
 // targets l + k tps (k < T, below S) of its S-block s.
@@ -102,21 +85,14 @@ __global__ void band_kernel(const float* __restrict__ pos,
     ax[k] = 0.0f;
     ay[k] = 0.0f;
   }
-  const float ck = SWITCH == SWITCH_POLY4 ? fmaf(soft2, c, 1.0f) : soft2 * c;
+  const float ck = switch_k<SWITCH>(soft2, c);
   const int np = 3 * S;
 #pragma unroll 4
   for (int j = 0; j < np; ++j) {
     const float4 p = w[j];
 #pragma unroll
-    for (int k = 0; k < T; ++k) {
-      const float dx = p.x - xi[k];
-      const float dy = p.y - yi[k];
-      const float r2s = fmaf(dx, dx, fmaf(dy, dy, soft2));
-      const float f =
-          pair_weight<SWITCH>(r2s, rsqrt_ftz(r2s), p.z, c, ck);
-      ax[k] = fmaf(f, dx, ax[k]);
-      ay[k] = fmaf(f, dy, ay[k]);
-    }
+    for (int k = 0; k < T; ++k)
+      switched_pair<SWITCH>(p, xi[k], yi[k], soft2, c, ck, ax[k], ay[k]);
   }
 #pragma unroll
   for (int k = 0; k < T; ++k) {

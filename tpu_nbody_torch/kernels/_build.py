@@ -45,6 +45,13 @@ SIGNATURES = {
     "tnt_allpairs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # dim -> blocks of that kernel one SM holds at once (0 on error)
     "tnt_allpairs_blocks_per_sm": [_I],
+    # trows, tid, prows, pidx, pvalid, out, m, k, band, soft2, inv_scale,
+    # switch, T, PL, stream
+    "tnt_rescue_pairs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
+                         _I, _P],
+    # targets, sources, masses, out, M, C, NT, S, soft2, T, tpg, lanes,
+    # stream
+    "tnt_bh_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -161,17 +168,18 @@ def check_launch(name: str, rc: int):
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple, device=None,
-                 align: int = 4):
-    """Validate a kernel argument: a contiguous float32 CUDA tensor of the
-    given shape (on ``device`` when given) whose data starts on an
-    ``align``-byte boundary (the kernels read some as 8-byte pairs)."""
+                 align: int = 4, dtype=torch.float32):
+    """Validate a kernel argument: a contiguous CUDA tensor of ``dtype``
+    (float32 by default) and the given shape (on ``device`` when given)
+    whose data starts on an ``align``-byte boundary (the kernels read some
+    as 8-byte pairs)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor (CPU tensors take "
                          f"the plain version), got device {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")

@@ -1,15 +1,21 @@
-"""P3M band short-range pass: the hand-written CUDA kernel and its plain
-version (port of tpu_nbody.ops.band_pallas and mesh._band_short_range).
+"""P3M short-range pair sums: the hand-written CUDA kernels and their plain
+versions (port of tpu_nbody.ops.band_pallas, mesh._band_short_range and the
+pair sums of the block rescues).
 
 Bodies in Hilbert order are cut into blocks of ``band`` consecutive slots;
 each body sums the switched pair force m·d·(r²+ε²)^{-3/2}·w(r²) from every
 body of its own block and both neighbour blocks. Partners past either end
-of the array carry mass 0, so there are no wrap-around pairs.
+of the array carry mass 0, so there are no wrap-around pairs. The rescues
+(``mesh._block_rescue``, ``sharded_pm._cross_shard_rescue``) sum the same
+pair force from listed partner blocks further away.
 
 :func:`band_short_range` launches ``csrc/band.cu`` for a CUDA tensor and
-runs :func:`band_short_range_ref` for a CPU tensor; any other device raises.
-:data:`LAUNCHES` counts the kernel launches. :func:`_band_plan` chooses the
-kernel's launch shape and :func:`pair_work` counts the work of one call.
+runs :func:`band_short_range_ref` for a CPU tensor; :func:`rescue_pair_sum`
+launches ``csrc/rescue.cu`` or runs :func:`rescue_pair_sum_ref` alike; any
+other device raises. :data:`LAUNCHES` and :data:`RESCUE_LAUNCHES` count the
+two kernels' launches. :func:`_band_plan` and :func:`_rescue_plan` choose
+the launch shapes; :func:`pair_work` and :func:`rescue_pair_work` count the
+work of one call.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import torch.nn.functional as F
 
 from tpu_nbody_torch.kernels import _build
 
-LAUNCHES = 0
+LAUNCHES = 0           # csrc/band.cu
+RESCUE_LAUNCHES = 0    # csrc/rescue.cu
 # sharded ranks run as threads of one process and launch concurrently
 _COUNT_LOCK = threading.Lock()
 
@@ -38,6 +45,8 @@ _BODY_BYTES = 20          # pos and mass read once, (ax, ay) written once
 _SMEM_LIMIT = 48 * 1024   # MAX_SMEM in csrc/band.cu
 _MAX_THREADS = 1024
 _CTA_THREADS = 128        # threads a CTA aims at when B is not given
+_RESCUE_THREADS = 256     # threads a rescue CTA aims at
+_INDEX_BYTES = 9          # a partner's int64 index and bool flag
 
 
 class BandPlan(NamedTuple):
@@ -115,6 +124,19 @@ def _short_weight(r2, a, switch: str = "exp4"):
     return torch.exp(-((r2 / (a * a)) ** 2))
 
 
+def _pair_sum(ctr, part, pm, soft2, a, switch):
+    """Switched short-range pair sum of targets ``ctr`` (m, S, 3) over the
+    partner rows ``part`` (m, P, 3) with masses ``pm`` (m, P): (m, S, 2)."""
+    dx = part[:, None, :, 0] - ctr[:, :, None, 0]           # (m, S, P)
+    dy = part[:, None, :, 1] - ctr[:, :, None, 1]
+    r2 = dx * dx + dy * dy
+    inv = torch.rsqrt(r2 + soft2)
+    w = pm[:, None, :] * (inv * inv * inv)
+    w = w * _short_weight(r2, a, switch)
+    return torch.stack([torch.sum(w * dx, dim=2),
+                        torch.sum(w * dy, dim=2)], dim=-1)
+
+
 def _block_bounds(cap, S, chunk):
     """Blocks, blocks per chunk and chunk count of the band/rescue passes."""
     nb = -(-cap // S)
@@ -185,4 +207,137 @@ def _launch(spos, smass, soft2, a, band: int, switch: str, plan: BandPlan):
     _build.check_launch("band_short_range", rc)
     with _COUNT_LOCK:
         LAUNCHES += 1
+    return out
+
+
+class RescuePlan(NamedTuple):
+    """Launch shape of ``csrc/rescue.cu``: one CTA an output block, ``PL``
+    partner lanes of ``tps`` threads, each thread ``T`` targets."""
+    T: int
+    PL: int
+    tps: int
+    threads: int
+    smem: int
+
+
+def _rescue_plan(S: int, k: int, T: int = 4) -> RescuePlan:
+    """The rescue kernel's launch shape for blocks of ``S`` and ``k``
+    partner blocks (k >= 1). ``T`` is halved until it is at most ``S``; at
+    T = 4 and S = 128 a lane is one warp, so skipping an invalid partner
+    block is uniform over whole warps. ``PL`` is cut to ``k``, to about
+    :data:`_RESCUE_THREADS` threads and to the shared memory that stages PL
+    blocks."""
+    if not 1 <= S <= MAX_BAND:
+        raise ValueError(f"band {S} outside [1, {MAX_BAND}]")
+    if T not in (1, 2, 4, 8):
+        raise ValueError(f"T must be 1, 2, 4 or 8, got {T}")
+    if k < 1:
+        raise ValueError(f"a rescue launch needs k >= 1 partners, got {k}")
+    while T > S:
+        T //= 2
+    tps = -(-S // T)
+    PL = max(1, min(k, _RESCUE_THREADS // tps, _MAX_THREADS // tps,
+                    _SMEM_LIMIT // (16 * S)))
+    return RescuePlan(T=T, PL=PL, tps=tps, threads=PL * tps,
+                      smem=PL * S * 16)
+
+
+def rescue_pair_work(m: int, k: int, S: int, valid: int, row_blocks: int,
+                     switch: str = "poly4") -> dict:
+    """Pairs, flops and bytes of one rescue pair sum: ``m`` output blocks,
+    ``k`` partner slots each, of which ``valid`` are set (the kernel skips
+    the rest), over ``row_blocks`` distinct blocks of input rows. Every
+    valid partner block meets the S targets of its output block."""
+    _check_switch(switch)
+    pairs = valid * S * S
+    return dict(pairs=pairs, flops=pairs * _PAIR_FLOPS[switch],
+                bytes=(row_blocks * S * 3 * 4 + m * (8 + k * _INDEX_BYTES)
+                       + m * S * 2 * 4))
+
+
+def _rescue_args(trows, tid, prows, pidx, pvalid):
+    """Shapes (m, k, S) of a rescue call; raises on mismatched ones."""
+    m, k = pidx.shape
+    if trows.dim() != 2 or prows.dim() != 2 or trows.shape[1] % 3:
+        raise ValueError(f"rows must be (blocks, 3 S): {tuple(trows.shape)}, "
+                         f"{tuple(prows.shape)}")
+    S = trows.shape[1] // 3
+    if (prows.shape[1] != 3 * S or tuple(tid.shape) != (m,)
+            or tuple(pvalid.shape) != (m, k)):
+        raise ValueError(
+            f"rescue shapes disagree: trows {tuple(trows.shape)}, tid "
+            f"{tuple(tid.shape)}, prows {tuple(prows.shape)}, pidx "
+            f"{tuple(pidx.shape)}, pvalid {tuple(pvalid.shape)}")
+    return m, k, S
+
+
+def rescue_pair_sum_ref(trows, tid, prows, pidx, pvalid, soft2, a,
+                        switch: str = "exp4", *, chunk: int | None = None):
+    """Plain torch rescue pair sum: the rows of block ``tid[o]`` of
+    ``trows`` (Bt, 3S) as targets and the blocks ``pidx[o]`` of ``prows``
+    (Bp, 3S) as partners, those whose ``pvalid`` is false at mass 0;
+    (m, S, 2). ``chunk`` output blocks at a time (default all) bound the
+    (chunk, S, kS) temporaries; the rows are independent, so it changes no
+    bit."""
+    m, k, S = _rescue_args(trows, tid, prows, pidx, pvalid)
+    dtype = trows.dtype
+    chunk = chunk or max(m, 1)
+    out = []
+    for o0 in range(0, m, chunk):
+        o = slice(o0, o0 + chunk)
+        n = pidx[o].shape[0]
+        part = prows[pidx[o]].reshape(n, k * S, 3)
+        pm = (part[..., 2].reshape(n, k, S)
+              * pvalid[o].to(dtype)[:, :, None]).reshape(n, k * S)
+        out.append(_pair_sum(trows[tid[o]].reshape(n, S, 3), part, pm, soft2,
+                             a, switch))
+    if not out:
+        return torch.zeros((0, S, 2), dtype=dtype, device=trows.device)
+    return torch.cat(out)
+
+
+def rescue_pair_sum(trows, tid, prows, pidx, pvalid, soft2, a,
+                    switch: str = "exp4", *, chunk: int | None = None):
+    """Rescue pair sum (:func:`rescue_pair_sum_ref`): (m, S, 2) in the
+    order of ``tid``. CPU tensors take the plain version, chunked by
+    ``chunk``; CUDA tensors launch ``csrc/rescue.cu`` once, which reads the
+    partner blocks through ``pidx`` and needs no chunks. ``tid`` and
+    ``pidx`` hold int64 block indices, ``pvalid`` bools."""
+    tensors = (trows, tid, prows, pidx, pvalid)
+    if all(t.device.type == "cpu" for t in tensors):
+        return rescue_pair_sum_ref(trows, tid, prows, pidx, pvalid, soft2, a,
+                                   switch, chunk=chunk)
+    _check_switch(switch)
+    m, k, S = _rescue_args(*tensors)
+    dev = trows.device
+    _build.check_tensor("trows", trows, tuple(trows.shape))
+    _build.check_tensor("prows", prows, tuple(prows.shape), device=dev)
+    tid, pidx, pvalid = (t.contiguous() for t in (tid, pidx, pvalid))
+    _build.check_tensor("tid", tid, (m,), device=dev, dtype=torch.int64)
+    _build.check_tensor("pidx", pidx, (m, k), device=dev, dtype=torch.int64)
+    _build.check_tensor("pvalid", pvalid, (m, k), device=dev,
+                        dtype=torch.bool)
+    if m == 0 or k == 0:
+        return torch.zeros((m, S, 2), dtype=trows.dtype, device=dev)
+    return _rescue_launch(trows, tid, prows, pidx, pvalid, soft2, a, switch,
+                          _rescue_plan(S, k))
+
+
+def _rescue_launch(trows, tid, prows, pidx, pvalid, soft2, a, switch: str,
+                   plan: RescuePlan):
+    """Launch the rescue kernel with ``plan`` on checked arguments."""
+    global RESCUE_LAUNCHES
+    m, k = pidx.shape
+    S = trows.shape[1] // 3
+    out = torch.empty((m, S, 2), dtype=trows.dtype, device=trows.device)
+    inv_scale = 1.0 / (4.0 * a * a) if switch == "poly4" else 1.0 / (a * a)
+    rc = _build.library().tnt_rescue_pairs(
+        trows.data_ptr(), tid.data_ptr(), prows.data_ptr(), pidx.data_ptr(),
+        pvalid.data_ptr(), out.data_ptr(), m, k, S,
+        ctypes.c_float(float(soft2)), ctypes.c_float(inv_scale),
+        _SWITCH_IDS[switch], plan.T, plan.PL,
+        torch.cuda.current_stream(trows.device).cuda_stream)
+    _build.check_launch("rescue_pair_sum", rc)
+    with _COUNT_LOCK:
+        RESCUE_LAUNCHES += 1
     return out

@@ -13,7 +13,8 @@ short-range switch w (:func:`_short_weight`):
 * F_short = w·F is summed over a block-tridiagonal band in Hilbert order
   (:mod:`tpu_nbody_torch.ops.band`, the hand-written kernel on the card)
   plus an exact block rescue for neighbours the curve puts far apart
-  (:func:`_block_rescue`, one or two tiers).
+  (:func:`_block_rescue`, one or two tiers: the partner choice here, the
+  pair sum a second hand-written kernel, ``band.rescue_pair_sum``).
 
 The long-range grids can also be carried across steps
 (:func:`pm_mesh_state`): F_long subcycling, with the heaviest bodies kept
@@ -21,14 +22,15 @@ off the mesh and summed directly (:func:`_heavy_direct`) and the stale
 self-image cancelled (:func:`_self_term`).
 
 The FFTs go to the device's FFT library through ``torch.fft``; deposit,
-interpolation, rescue, the heavy-direct sum and the self-term are plain
-torch in this port so far (hand kernels for them are listed in ROADMAP.md,
-queue 2).
+interpolation, the rescue's partner choice, the heavy-direct sum and the
+self-term are plain torch in this port so far (hand kernels for them are
+listed in ROADMAP.md, queue 2b).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,7 +41,7 @@ from tpu_nbody_torch.ops import morton
 # The switch and the block layout are shared with the band pass, which owns
 # them; they keep their JAX-package names here.
 from tpu_nbody_torch.ops.band import (  # noqa: F401
-    SWITCHES, _block_bounds, _check_switch, _short_weight)
+    SWITCHES, _block_bounds, _check_switch, _pair_sum, _short_weight)
 
 ORDERS = (1, 2, 3)          # NGP, CIC, TSC
 
@@ -165,41 +167,25 @@ def _box_gaps(bb, bminx, bmaxx, bminy, bmaxy):
     return gx * gx + gy * gy
 
 
-def _pair_sum(ctr, part, pm, soft2, a, switch):
-    """Switched short-range pair sum of targets ``ctr`` (m, S, 3) over the
-    partner rows ``part`` (m, P, 3) with masses ``pm`` (m, P): (m, S, 2)."""
-    dx = part[:, None, :, 0] - ctr[:, :, None, 0]           # (m, S, P)
-    dy = part[:, None, :, 1] - ctr[:, :, None, 1]
-    r2 = dx * dx + dy * dy
-    inv = torch.rsqrt(r2 + soft2)
-    w = pm[:, None, :] * (inv * inv * inv)
-    w = w * _short_weight(r2, a, switch)
-    return torch.stack([torch.sum(w * dx, dim=2),
-                        torch.sum(w * dy, dim=2)], dim=-1)
+class RescueSelection(NamedTuple):
+    """The base tier's partner choice of :func:`_rescue_select`."""
+    rows: torch.Tensor       # (nc, 3S) block rows, zero blocks past B
+    bbox: torch.Tensor       # (nc, 4) block boxes, inverted past B
+    boxes: tuple             # (bminx, bmaxx, bminy, bmaxy), each (B,)
+    midx: torch.Tensor       # (nc, k) partner blocks, closest first
+    mval: torch.Tensor       # (nc, k) their scores; > 0 where wanted
+    cnt: torch.Tensor        # (B,) partner blocks each block wanted
+    k: int                   # partner slots, min(k, B)
+    cb: int                  # blocks a chunk of the selection
 
 
-def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
-                  chunk: int, k_hot: int = 0, hot_cap: int = 128,
-                  switch: str = "exp4"):
-    """Exact short-range rescue for pairs more than one block apart in
-    sorted order.
-
-    Per band block: alive-only bounding boxes, a chunked (cb, B) box-gap
-    test against the cutoff 2a, the ``k`` closest partner blocks that are
-    more than one block away (closest box first, so an overflow drops the
-    farthest, weakest pairs), one block-row gather and a dense
-    (cb, S, kS) pair sum. Returns ``(acc_sorted (cap, 2), need,
-    hot_count)``: ``need`` is the largest partner count any block wanted
-    (coverage is exact iff need <= k), ``hot_count`` the number of blocks
-    that wanted more than ``k``.
-
-    Two tiers (``k_hot > k``): the at most ``hot_cap`` hot blocks (need >
-    ``k``), found in block order by a rank search, also sum their partner
-    ranks ``k..k_hot-1`` of the same closest-first ranking, added into
-    their rows with ``index_add_``; hot blocks past ``hot_cap`` stay at the
-    base tier. See the JAX version for the measurements behind the design.
-    """
-    _check_switch(switch)
+def _rescue_select(spos, smass, salive, a, *, band: int, k: int,
+                   chunk: int) -> RescueSelection:
+    """The rescue's selection, everything but the pair sum: alive-only
+    block boxes, a chunked (cb, B) box-gap test against the cutoff 2a, the
+    ``k`` closest partner blocks more than one block away (top-k, ties
+    towards the lower index as in JAX) and the exact partner counts. The
+    nc = n_chunks · cb rows pad the B blocks to whole chunks."""
     cap = spos.shape[0]
     S = band
     dtype, dev = spos.dtype, spos.device
@@ -227,7 +213,7 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
     bbox = torch.cat([bbox, torch.tensor([big, -big, big, -big], dtype=dtype,
                                          device=dev).expand(n_pad, 4)])
     idx_all = torch.arange(B, device=dev)
-    accs, cnts = [], []
+    vals, idxs, cnts = [], [], []
     for c in range(n_chunks):
         b0 = c * cb
         g2 = _box_gaps(bbox[b0:b0 + cb], *boxes)              # (cb, B)
@@ -236,13 +222,45 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
         cnts.append(mask.sum(dim=1, dtype=torch.int32))     # partners needed
         score = torch.where(mask, rcut2 - g2, 0.0)
         mval, midx = _topk_lowest_index(score, k)            # (cb, k)
-        part = Xb[midx].reshape(cb, k * S, 3)                # block row gather
-        pm = (part[..., 2].reshape(cb, k, S)
-              * (mval > 0).to(dtype)[:, :, None]).reshape(cb, k * S)
-        accs.append(_pair_sum(Xb[b0:b0 + cb].reshape(cb, S, 3), part, pm,
-                              soft2, a, switch))
-    acc = torch.cat(accs).reshape(n_chunks * cb * S, 2)
-    cnt_all = torch.cat(cnts)[:B]                            # exact needs
+        vals.append(mval)
+        idxs.append(midx)
+    return RescueSelection(rows=Xb, bbox=bbox, boxes=boxes,
+                           midx=torch.cat(idxs), mval=torch.cat(vals),
+                           cnt=torch.cat(cnts)[:B], k=k, cb=cb)
+
+
+def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
+                  chunk: int, k_hot: int = 0, hot_cap: int = 128,
+                  switch: str = "exp4"):
+    """Exact short-range rescue for pairs more than one block apart in
+    sorted order.
+
+    Per band block: the ``k`` closest partner blocks more than one block
+    away (:func:`_rescue_select`: closest box first, so an overflow drops
+    the farthest, weakest pairs), then one switched pair sum over them
+    (:func:`band_ops.rescue_pair_sum`: the rescue kernel on the card, the
+    dense (cb, S, kS) plain version a chunk of cb blocks at a time on the
+    CPU). Returns ``(acc_sorted (cap, 2), need, hot_count)``: ``need`` is
+    the largest partner count any block wanted (coverage is exact iff need
+    <= k), ``hot_count`` the number of blocks that wanted more than ``k``.
+
+    Two tiers (``k_hot > k``): the at most ``hot_cap`` hot blocks (need >
+    ``k``), found in block order by a rank search, also sum their partner
+    ranks ``k..k_hot-1`` of the same closest-first ranking, added into
+    their rows with ``index_add_``; hot blocks past ``hot_cap`` stay at the
+    base tier. See the JAX version for the measurements behind the design.
+    """
+    _check_switch(switch)
+    cap = spos.shape[0]
+    S = band
+    dev = spos.device
+    sel = _rescue_select(spos, smass, salive, a, band=band, k=k, chunk=chunk)
+    Xb, k, cnt_all = sel.rows, sel.k, sel.cnt
+    B = cnt_all.shape[0]
+    tid = torch.arange(Xb.shape[0], device=dev)
+    acc = band_ops.rescue_pair_sum(Xb, tid, Xb, sel.midx, sel.mval > 0,
+                                   soft2, a, switch, chunk=sel.cb)
+    acc = acc.reshape(-1, 2)
     need = cnt_all.max()
     hot_count = (cnt_all > k).sum(dtype=torch.int32)
 
@@ -254,17 +272,16 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
             hrank, torch.arange(1, H + 1, device=dev), side="left"),
             0, B - 1)
         hvalid = torch.arange(H, device=dev) < torch.clamp(hot_count, max=H)
-        g2 = _box_gaps(bbox[hid], *boxes)                     # (H, B)
+        rcut2 = (2.0 * a) * (2.0 * a)
+        g2 = _box_gaps(sel.bbox[hid], *sel.boxes)             # (H, B)
+        idx_all = torch.arange(B, device=dev)
         mask = (g2 < rcut2) & ((hid[:, None] - idx_all[None, :]).abs() > 1)
         score = torch.where(mask, rcut2 - g2, 0.0)
         mval, midx = _topk_lowest_index(score, kh)            # (H, kh)
-        k2 = kh - k                                           # ranks k..kh-1
-        pmask = ((mval[:, k:] > 0) & hvalid[:, None]).to(dtype)
-        part = Xb[midx[:, k:]].reshape(H, k2 * S, 3)
-        pm = (part[..., 2].reshape(H, k2, S)
-              * pmask[:, :, None]).reshape(H, k2 * S)
-        acc2 = _pair_sum(Xb[hid].reshape(H, S, 3), part, pm, soft2, a,
-                         switch)                              # (H, S, 2)
+        # ranks k..kh-1; an invalid row (hid clamped to B - 1) sums nothing
+        acc2 = band_ops.rescue_pair_sum(
+            Xb, hid, Xb, midx[:, k:], (mval[:, k:] > 0) & hvalid[:, None],
+            soft2, a, switch)                                 # (H, S, 2)
         rows = (hid[:, None] * S
                 + torch.arange(S, device=dev)[None, :]).reshape(-1)
         acc.index_add_(0, rows, torch.where(hvalid[:, None, None], acc2,

@@ -34,14 +34,19 @@ Replaces the reference's per-body recursive traversal
 * Force evaluation is dense and blocked: (group_size x list) pair blocks
   with the reference point-mass kernel a += m_src * d * r^-3, r^2 = |d|^2 +
   eps^2 (``BarnesHutAlg.kt:250-259``). Self-pairs and padding contribute
-  exactly zero (d = 0 or mass = 0).
+  exactly zero (d = 0 or mass = 0). :func:`point_accel` evaluates them:
+  the hand-written kernel ``csrc/bh_pairs.cu`` for CUDA tensors (launches
+  counted in :data:`LAUNCHES`), its plain version :func:`_point_accel` for
+  CPU tensors.
 
 What differs from the JAX package, whose results it reproduces:
 
 * XLA fuses a pair block's arithmetic; eager PyTorch materialises every
   temporary. So each ``lax.map`` over chunks is a Python loop (no host sync
   inside) whose batch comes from a budget of :data:`PAIR_BUDGET` elements a
-  temporary, and ``group_chunk`` and ``hier_batch`` are upper bounds.
+  temporary, and ``group_chunk`` and ``hier_batch`` are upper bounds. The
+  kernel needs no pair temporary, so on the card the budget counts the
+  lists alone.
 * List compaction (:func:`_compact_rows`) is a cumsum and one scatter into
   a buffer one slot wider than the list, every refused write aimed at the
   extra slot, in place of ``top_k``: the same ascending ids.
@@ -55,17 +60,27 @@ What differs from the JAX package, whose results it reproduces:
 
 from __future__ import annotations
 
+import ctypes
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops.tree import Tree
 
 # Elements of one pair-block temporary (512 MiB of float32); about six are
 # live at once in :func:`_point_accel`.
 PAIR_BUDGET = 1 << 27
 TRAVERSALS = ("dense", "bfs", "hier")
+
+LAUNCHES = 0    # csrc/bh_pairs.cu
+# sharded ranks run as threads of one process and launch concurrently
+_COUNT_LOCK = threading.Lock()
+_PAIRS_THREADS = 256     # threads a CTA of csrc/bh_pairs.cu aims at
+_PAIRS_TILE = 256        # TILE in csrc/bh_pairs.cu
+_PAIR_FLOPS = 13         # ops/forces.py::_PAIR_FLOPS[2], the same formula
 
 
 # the cap each need of :class:`TraversalStats` is held to, in field order
@@ -131,6 +146,12 @@ def max_stats(a, b):
 
 def _arange(n, dev):
     return torch.arange(n, dtype=torch.int32, device=dev)
+
+
+def _pair_elems(GS: int, device) -> int:
+    """Elements a (target, source) slot costs in a pair temporary: ``GS``
+    targets a group in the plain version (CPU), none in the kernel."""
+    return GS if device.type == "cpu" else 1
 
 
 def _batch_rows(per_row: int, most: int) -> int:
@@ -543,7 +564,7 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
 
     body_rows = tree.body_rows
     Cb = _batch_rows(CH * max(K, DB), min(hier_batch, C))
-    eb = _batch_rows(CH * GS * max(K, DB), Cb)
+    eb = _batch_rows(CH * _pair_elems(GS, dev) * max(K, DB), Cb)
     acc = torch.zeros((C, CH, GS, 2), dtype=tree.spos.dtype, device=dev)
     l_tots, d_tots = [], []
     for c0 in range(0, C, Cb):
@@ -592,16 +613,17 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
         wdir = torch.gather(dmask, 2, leaf[:, None, :].expand(n, CH, DB))
         wdir = wdir & svalid[:, None, :]                      # (n, CH, DB)
         prow = body_rows[slots.long()]                        # (n, DB, 4)
-        com = crows[..., 1:3]                                 # (n, K, 2)
+        ppos = prow[..., 0:2].contiguous()                    # (n, DB, 2)
+        com = crows[..., 1:3].contiguous()                    # (n, K, 2)
         probe("flatten")
 
         # ---- masked-dense pair blocks ----
         bpos, acc_c = bpos_all[c], acc[c]                     # views
         for e0 in range(0, n, eb):
             e = slice(e0, e0 + eb)
-            out = _point_accel(bpos[e], com[e][:, None], wapx[e], soft2)
-            out += _point_accel(bpos[e], prow[e][:, None, :, 0:2],
-                                prow[e][:, None, :, 2] * wdir[e], soft2)
+            out = point_accel(bpos[e], com[e], wapx[e], soft2)
+            out += point_accel(bpos[e], ppos[e],
+                               prow[e][:, None, :, 2] * wdir[e], soft2)
             acc_c[e] = out * gv[e][..., None, None]
             if tally is not None:
                 tally(wapx[e].numel() * GS + wdir[e].numel() * GS,
@@ -619,7 +641,8 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
 
 
 def _point_accel(bpos, src_pos, src_mass, soft2):
-    """Blocked point-mass kernel: sum_j m_j * d_ij * r_ij^-3 (no G).
+    """Blocked point-mass kernel: sum_j m_j * d_ij * r_ij^-3 (no G), the
+    plain version of :func:`point_accel`.
 
     ``bpos`` (..., B, 2) targets, ``src_pos`` (..., S, 2) sources and
     ``src_mass`` (..., S) with broadcast-compatible leading dims; returns
@@ -630,6 +653,83 @@ def _point_accel(bpos, src_pos, src_mass, soft2):
     r2 = dx * dx + dy * dy + soft2
     w = src_mass[..., None, :] * torch.rsqrt(r2) / r2
     return torch.stack([(w * dx).sum(dim=-1), (w * dy).sum(dim=-1)], dim=-1)
+
+
+class PairsPlan(NamedTuple):
+    """Launch shape of ``csrc/bh_pairs.cu``: a CTA a target set, ``lanes``
+    lanes of ``tpg`` threads, each thread ``T`` targets."""
+    T: int
+    tpg: int
+    lanes: int
+    threads: int
+
+
+def _pairs_plan(NT: int, T: int = 8) -> PairsPlan:
+    """The pair kernel's launch shape for sets of ``NT`` targets: ``T``
+    halved until it is at most NT, ``tpg`` = ⌈NT/T⌉ threads hold a set,
+    and as many lanes of them as fit in about :data:`_PAIRS_THREADS`
+    threads (the source tiles are shared out among the lanes). At the
+    group size 512, tpg = 64: a lane is two whole warps."""
+    if T not in (1, 2, 4, 8):
+        raise ValueError(f"T must be 1, 2, 4 or 8, got {T}")
+    if NT < 1:
+        raise ValueError(f"a pair launch needs targets, got {NT}")
+    while T > NT:
+        T //= 2
+    tpg = -(-NT // T)
+    if tpg > 1024:
+        raise ValueError(f"{NT} targets a set need {tpg} threads of {T}; "
+                         f"at most 1024")
+    lanes = max(1, _PAIRS_THREADS // tpg)
+    return PairsPlan(T=T, tpg=tpg, lanes=lanes, threads=tpg * lanes)
+
+
+def pair_work(masses, NT: int) -> dict:
+    """Pairs, flops and bytes of one :func:`point_accel` call on
+    ``masses`` (M, C, S) with ``NT`` targets a set: the pairs its nonzero
+    masses need (what the kernel cannot skip is no more than the tiles
+    holding them), the targets, sources and masses read once and the
+    accelerations written once."""
+    M, C, S = masses.shape
+    pairs = int((masses != 0).sum()) * NT
+    return dict(pairs=pairs, flops=pairs * _PAIR_FLOPS,
+                bytes=4 * (M * C * NT * 2 * 2 + M * S * 2 + M * C * S))
+
+
+def point_accel(targets, sources, masses, soft2):
+    """Point-mass pair blocks: targets (M, C, NT, 2), sources (M, S, 2)
+    shared by the C target sets of a row, masses (M, C, S) one set each;
+    returns (M, C, NT, 2), sum_j m_j d_ij r_ij^-3 without G. CPU tensors
+    take :func:`_point_accel`; CUDA tensors launch ``csrc/bh_pairs.cu``,
+    which skips every source tile whose masses are all 0 for a set (no
+    change in the result)."""
+    if all(t.device.type == "cpu" for t in (targets, sources, masses)):
+        return _point_accel(targets, sources[:, None], masses, soft2)
+    M, C, NT, _ = targets.shape
+    S = sources.shape[1]
+    dev = targets.device
+    _build.check_tensor("targets", targets, (M, C, NT, 2), align=8)
+    _build.check_tensor("sources", sources, (M, S, 2), device=dev, align=8)
+    _build.check_tensor("masses", masses, (M, C, S), device=dev)
+    if M * C * NT == 0:
+        return torch.zeros_like(targets)
+    return _pairs_launch(targets, sources, masses, soft2, _pairs_plan(NT))
+
+
+def _pairs_launch(targets, sources, masses, soft2, plan: PairsPlan):
+    """Launch the pair kernel with ``plan`` on checked arguments."""
+    global LAUNCHES
+    M, C, NT, _ = targets.shape
+    out = torch.empty_like(targets)
+    rc = _build.library().tnt_bh_pairs(
+        targets.data_ptr(), sources.data_ptr(), masses.data_ptr(),
+        out.data_ptr(), M, C, NT, sources.shape[1],
+        ctypes.c_float(float(soft2)), plan.T, plan.tpg, plan.lanes,
+        torch.cuda.current_stream(targets.device).cuda_stream)
+    _build.check_launch("bh_pairs", rc)
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+    return out
 
 
 def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
@@ -736,19 +836,23 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
 
     # ---- force evaluation, chunked over groups (pure gather + math) ----
     bpos, _ = _group_bodies(spos, gstart, GS)                 # (G, GS, 2)
-    gchunk = _batch_rows(GS * max(approx_cap, direct_body_cap), group_chunk)
+    gchunk = _batch_rows(_pair_elems(GS, dev)
+                         * max(approx_cap, direct_body_cap), group_chunk)
     acc_rows = torch.zeros((group_cap, GS, 2), dtype=spos.dtype, device=dev)
     slot_a = _arange(approx_cap, dev)[None, :]
     for g0 in range(0, group_cap if evaluate else 0, gchunk):
         g = slice(g0, g0 + gchunk)
         avalid = slot_a < a_len[g][:, None]
         arows = tree.node_rows[torch.where(avalid, approx[g], 0).long()]
-        acc = _point_accel(bpos[g], arows[..., 1:3],
-                           torch.where(avalid, arows[..., 0], 0.0), soft2)
+        tgt = bpos[g][:, None]                                # (g, 1, GS, 2)
+        acc = point_accel(tgt, arows[..., 1:3].contiguous(),
+                          torch.where(avalid, arows[..., 0], 0.0)[:, None],
+                          soft2)
         prow = tree.body_rows[pslots[g].long()]               # (g, DB, 4)
-        acc += _point_accel(bpos[g], prow[..., 0:2],
-                            torch.where(pvalid[g], prow[..., 2], 0.0), soft2)
-        acc_rows[g] = acc * gvalid[g][:, None, None]
+        acc += point_accel(tgt, prow[..., 0:2].contiguous(),
+                           torch.where(pvalid[g], prow[..., 2],
+                                       0.0)[:, None], soft2)
+        acc_rows[g] = acc[:, 0] * gvalid[g][:, None, None]
         if tally is not None:
             tally(arows.shape[0] * GS * (approx_cap + direct_body_cap),
                   (gcount[g] * gvalid[g] * (a_len[g] + pvalid[g].sum(-1)))

@@ -185,12 +185,14 @@ def _cross_shard_rescue(spos, smass, salive, soft2, a, *, band, k,
        block needs (box gap < 2a and more than one block apart in global
        block order: the band's halo covers adjacent blocks), all-gathered;
     3. each local block sums the switched pair forces of its ``k`` closest
-       imported partner blocks (closest-first, as the local rescue ranks).
+       imported partner blocks (closest-first, as the local rescue ranks),
+       in one :func:`band_ops.rescue_pair_sum` (the rescue kernel on the
+       card).
 
-    The (B, P·B) gap test runs over chunks of local blocks, which changes
-    no result. Returns (acc_sorted (cap, 2), export_need, import_need):
-    coverage is exact up to the 2a cutoff iff export_need <= export_cap and
-    import_need <= k on every rank.
+    The (B, P·B) gap test and the plain pair sum run over chunks of local
+    blocks, which changes no result. Returns (acc_sorted (cap, 2),
+    export_need, import_need): coverage is exact up to the 2a cutoff iff
+    export_need <= export_cap and import_need <= k on every rank.
     """
     cap = spos.shape[0]
     S = band
@@ -239,17 +241,14 @@ def _cross_shard_rescue(spos, smass, salive, soft2, a, *, band, k,
     score = torch.where(cand, rcut2 - g2_imp, 0.0)
 
     cb = max(1, min(B, chunk // S))
-    Xb = X.reshape(B, S * 3)
-    accs = []
-    for b0 in range(0, B, cb):
-        mval, midx = mesh_ops._topk_lowest_index(score[b0:b0 + cb], kk)
-        m = mval.shape[0]
-        part = imp_rows[midx].reshape(m, kk * S, 3)
-        pm = (part[..., 2].reshape(m, kk, S)
-              * (mval > 0).to(dtype)[:, :, None]).reshape(m, kk * S)
-        accs.append(mesh_ops._pair_sum(Xb[b0:b0 + cb].reshape(m, S, 3), part,
-                                       pm, soft2, a, switch))
-    acc = torch.cat(accs).reshape(B * S, 2)[:cap]
+    picks = [mesh_ops._topk_lowest_index(score[b0:b0 + cb], kk)
+             for b0 in range(0, B, cb)]
+    mval = torch.cat([v for v, _ in picks])
+    midx = torch.cat([i for _, i in picks])
+    acc = band_ops.rescue_pair_sum(
+        X.reshape(B, S * 3), torch.arange(B, device=dev), imp_rows, midx,
+        mval > 0, soft2, a, switch, chunk=cb)
+    acc = acc.reshape(B * S, 2)[:cap]
     return acc, export_need, import_need
 
 
