@@ -23,11 +23,12 @@ n2 = 200,000):
 * bh_engine (path D): solver="bh" with kdk_reuse and the hier traversal on
   the configuration of ``bench.py --solver bh``, caps as configured:
   step(1) to warm up and settle the cap retune, tighten_caps(), step(1)
-  timed; then no cap overflowing, the pair kernel at one hier chunk of a
-  pass (below), the force error of a fresh pass, the traversal needs on
-  three scenes at N = 1,000,000, and at N = 65,536 a pass at theta = 1e-3
-  against the all-pairs kernel and dense against hier (path G times
-  Barnes–Hut by phase, from fitted caps);
+  timed, launching the hier kernel and no other; then no cap overflowing,
+  the hier kernel on a pass at the engine's caps (below), the force error
+  of a fresh pass, the traversal needs on three scenes at N = 1,000,000,
+  and at N = 65,536 a pass at theta = 1e-3 against the all-pairs kernel,
+  the pair kernel on the dense traversal's shape (below) and dense against
+  hier (path G times Barnes–Hut by phase, from fitted caps);
 * sphere3d (path E): the reference GPU demo, the 3D sphere scene under
   exact all-pairs forces (the kernel's 3D instantiation) and semi-implicit
   Euler. Once as ``python -m tpu_nbody_torch.examples.sphere3d_demo`` runs
@@ -71,7 +72,8 @@ n2 = 200,000):
   per-phase table with a bound and a share of it on every row;
 * cuda_tests: ``python -m pytest --noconftest -m cuda
   tests/test_torch_package.py tests/test_torch_rescue_kernel.py
-  tests/test_torch_bh_pairs.py -q`` in a child process, which must pass.
+  tests/test_torch_bh_pairs.py tests/test_torch_bh_hier.py -q`` in a
+  child process, which must pass.
 
 On the way it
 
@@ -95,14 +97,21 @@ On the way it
    the all-pairs kernel gives the same bits on a second call (2D and 3D);
    the rescue kernel against its plain version on the sorted scene (the
    main path's partner choice, every block in one launch); the
-   Barnes–Hut pair kernel against its plain version on one hier chunk of
-   a pass at N = 1M (its two launches, accepted nodes and direct
-   partners, cut to the chunk with the most nonzero masses; the kernel
-   also timed on the whole evaluation batch), within the same 1e-5;
+   Barnes–Hut pair kernel against its plain version on one group of a
+   dense pass at N = 65,536 (its two launches, accepted nodes and direct
+   partners, cut to the group with the most nonzero masses; the kernel
+   also timed on the whole evaluation chunk), within the same 1e-5; the
+   hier kernel on a pass at N = 1M with path D's caps: the pass against
+   the same pass through the masked-dense route (the plain evaluation
+   with the pair kernel) within 1e-5 of max |a| and with the same needs,
+   its per-group counts of accepted nodes and direct bodies against the
+   masks' exactly, its sums against the plain version (one run of the
+   whole pass, seconds) and on the chunk with the most direct bodies,
+   within the same 1e-5, timed over the whole pass;
 5. sets every launch count to 0 just before each path and reads it just
    after, checking the launches each path must make (one band and one
    rescue launch per P3M force pass, two rescues a rank's pass on the
-   sharded P3M, one all-pairs launch per all-pairs force pass, pair
+   sharded P3M, one all-pairs launch per all-pairs force pass, hier
    kernel launches and no other in the Barnes–Hut steps), finite state
    and no growth of n_alive;
 6. measures the force error against the exact all-pairs kernel on 4096
@@ -112,15 +121,19 @@ On the way it
 The kernels line gives, per kernel, ``launches`` (for the band and the
 rescue kernels the main path's three step(20) calls; for the all-pairs
 kernel path E's run at 2^20 bodies, the path it carries: the P3M main path
-launches it only in the force error after its steps; for the Barnes–Hut
-pair kernel path D's steps) and ``launches_by_path``, which holds path G's
-runs as ``bench_pm``, ``bench_allpairs`` and ``bench_bh`` (warm-up, timed
-repeats, force error and phase table). The rescue and pair kernels have no
-Pallas original: ``replaces`` names the XLA code they stand for. Each
+launches it only in the force error after its steps; for the hier kernel
+path D's steps; for the pair kernel the dense force error at N = 65,536,
+the Barnes–Hut main path being hier) and ``launches_by_path``, which
+holds path G's runs as ``bench_pm``, ``bench_allpairs`` and ``bench_bh``
+(warm-up, timed repeats, force error and phase table). The rescue and
+both Barnes–Hut kernels have no Pallas original: ``replaces`` names the
+XLA code they stand for. Each
 kernel's bound_ms is the larger of its flops over the float32 peak and its
 bytes over the memory rate (``pair_work``, ``rescue_pair_work`` in its
-module), counted for the pairs this run's data needs (the rescue's valid
-partner blocks, the pair kernel's nonzero masses); rsqrt_floor_ms is its
+module, ``hier_pair_work`` in traverse), counted for the pairs this run's
+data needs (the rescue's valid partner blocks, the pair kernel's nonzero
+masses, the hier groups' members times their accepted nodes and direct
+bodies, from the kernel's counts); rsqrt_floor_ms is its
 pairs over the rsqrt unit's rate (16 a clock per SM at the card's highest
 SM clock), a second floor beside it.
 
@@ -184,7 +197,7 @@ BENCH_RUNS = {
     "pm": ([], ("band", "rescue", "allpairs"), ERR_LIMIT),
     "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
     "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
-           ("allpairs", "bh_pairs"), BH_ERR_LIMIT),
+           ("allpairs", "bh_hier"), BH_ERR_LIMIT),
 }
 # the first words of each per-phase row the bench must print
 BENCH_PHASES = {
@@ -192,18 +205,21 @@ BENCH_PHASES = {
            "interpolation", "band", "rescue select", "rescue pairs", "merge",
            "kernel hats"),
     "allpairs": ("all-pairs kernel",),
-    "bh": ("build", "groups", "lists", "flatten", "evaluate", "assemble"),
+    "bh": ("build", "groups", "lists", "evaluate (bh_hier kernel)",
+           "assemble"),
 }
 CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_package.py",
               "tests/test_torch_rescue_kernel.py",
-              "tests/test_torch_bh_pairs.py", "-q"]
+              "tests/test_torch_bh_pairs.py", "tests/test_torch_bh_hier.py",
+              "-q"]
 # the launch counter of each kernel: (module of tpu_nbody_torch.ops,
 # attribute)
 COUNTERS = {"band": ("band", "LAUNCHES"),
             "rescue": ("band", "RESCUE_LAUNCHES"),
             "allpairs": ("forces", "LAUNCHES"),
-            "bh_pairs": ("traverse", "LAUNCHES")}
+            "bh_pairs": ("traverse", "LAUNCHES"),
+            "bh_hier": ("traverse", "HIER_LAUNCHES")}
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
 # the bench configuration (bench.py:244-294)
@@ -422,15 +438,15 @@ def _rescue_shape(spos, smass, salive, cfg, params, a, n_sm, max_clock_hz):
     return out
 
 
-def _bh_chunk_shape(st, cfg, params, caps, n_sm, max_clock_hz):
-    """The pair kernel against its plain version at one hier chunk of a
-    Barnes–Hut pass at N = 1M (a whole plain pass takes seconds): the pass
-    runs with ``traverse.point_accel`` wrapped to keep the evaluation batch
-    whose direct-partner launch has the most nonzero masses; the chunk (one
-    row: CH groups) with the most of them is cut out of that batch's two
-    launches, accepted nodes and direct partners, and both run through the
-    kernel and the plain version. The kernel is also timed on the whole
-    batch, the launch shape of the pass."""
+def _bh_pairs_shape(st, cfg, params, n_sm, max_clock_hz):
+    """The pair kernel against its plain version at the dense traversal's
+    shape, on a fitted pass at N = 65,536: the pass runs with
+    ``traverse.point_accel`` wrapped to keep the evaluation chunk whose
+    direct-partner launch has the most nonzero masses; the group (one row)
+    with the most of them is cut out of that chunk's two launches,
+    accepted nodes and direct partners, and both run through the kernel
+    and the plain version. The kernel is also timed on the whole chunk,
+    the launch shape of the pass."""
     import torch
     from tpu_nbody_torch import accuracy
     from tpu_nbody_torch.ops import traverse
@@ -439,7 +455,7 @@ def _bh_chunk_shape(st, cfg, params, caps, n_sm, max_clock_hz):
 
     def keep(targets, sources, masses, soft2):
         calls.append((targets, sources, masses))
-        if len(calls) == 2:            # a batch: nodes, then direct
+        if len(calls) == 2:            # a chunk: nodes, then direct
             nz = int((masses != 0).sum())
             if nz > best.get("nz", -1):
                 best.update(nz=nz, calls=list(calls))
@@ -448,7 +464,7 @@ def _bh_chunk_shape(st, cfg, params, caps, n_sm, max_clock_hz):
 
     traverse.point_accel = keep
     try:
-        accuracy.fitted_bh_pass(st.pos, st.mass, st.alive, cfg, params, caps)
+        accuracy.fitted_bh_pass(st.pos, st.mass, st.alive, cfg, params)
     finally:
         traverse.point_accel = real
     nodes, direct = best["calls"]
@@ -459,10 +475,10 @@ def _bh_chunk_shape(st, cfg, params, caps, n_sm, max_clock_hz):
         t1, s1, m1 = (x[row:row + 1].contiguous() for x in (t, src, m))
         M, C, NT, _ = t1.shape
         r = _compare(
-            f"bh_pairs hier chunk, {name}: {C} groups x {NT} targets x "
+            f"bh_pairs dense group, {name}: {C} group x {NT} targets x "
             f"{s1.shape[1]} sources",
             lambda: traverse.point_accel(t1, s1, m1, soft2),
-            lambda: traverse._point_accel(t1, s1[:, None], m1, soft2))
+            lambda: traverse.point_accel_ref(t1, s1, m1, soft2))
         batch_ms = timed_ms(lambda: traverse.point_accel(t, src, m, soft2))
         work = traverse.pair_work(m, NT)
         out[name] = dict(
@@ -472,15 +488,120 @@ def _bh_chunk_shape(st, cfg, params, caps, n_sm, max_clock_hz):
                      max_clock_hz),
             batch=dict(rows=t.shape[0], ms=batch_ms,
                        **bounds(work, batch_ms, n_sm, max_clock_hz)))
-        print(f"  bh_pairs {name}: chunk bound {out[name]['bound_ms']:.4f} "
-              f"ms ({out[name]['pct_of_bound']:.1f}%); the batch of "
-              f"{t.shape[0]} chunks {batch_ms:.4f} ms, bound "
+        print(f"  bh_pairs {name}: group bound "
+              f"{out[name]['bound_ms']:.4f} ms "
+              f"({out[name]['pct_of_bound']:.1f}%); the chunk of "
+              f"{t.shape[0]} groups {batch_ms:.4f} ms, bound "
               f"{out[name]['batch']['bound_ms']:.4f} ms "
               f"({out[name]['batch']['pct_of_bound']:.1f}%)", flush=True)
     plan = traverse._pairs_plan(direct[0].shape[2])
     return dict(out["direct"], nodes_call=out["nodes"],
                 plan=dict(T=plan.T, tpg=plan.tpg, lanes=plan.lanes,
                           threads=plan.threads))
+
+
+def _bh_hier_shape(st, cfg, params, caps, n_sm, max_clock_hz):
+    """The hier kernel on a Barnes–Hut pass at N = 1M with the engine's
+    caps (module docstring): the pass against the same pass through the
+    masked-dense route (``hier_accel_ref`` with the pair kernel) within
+    TOL of max |a|, with the same needs; on the arguments the pass gave
+    the kernel, its per-group counts against the masks' exactly, its sums
+    against the plain version's (the masked-dense route in plain torch,
+    one run, which takes seconds) and against the masked-dense route's,
+    and on the chunk with the most direct bodies against the plain
+    version. Times: the kernel over the whole pass (median of 10), the
+    plain version's one run, both on the chunk."""
+    import torch
+    from tpu_nbody_torch import accuracy
+    from tpu_nbody_torch.ops import traverse
+    real = traverse.hier_accel
+    seen = {}
+
+    def keep(*args, **kw):
+        seen.update(args=args, kw=kw)
+        return real(*args, **kw)
+
+    def one_pass(route):
+        traverse.hier_accel = route
+        try:
+            return accuracy.fitted_bh_pass(st.pos, st.mass, st.alive, cfg,
+                                           params, caps)
+        finally:
+            traverse.hier_accel = real
+
+    acc, need, fit = one_pass(keep)
+    acc_md, need_md, _ = one_pass(traverse.hier_accel_ref)
+    if fit != caps or need != need_md:
+        raise AssertionError(f"bh_hier: the needs differ from the "
+                             f"masked-dense route's: {need} against "
+                             f"{need_md} (caps {caps}, fitted {fit})")
+    err_md, scale = _check_close("bh_hier pass vs the masked-dense route",
+                                 acc, acc_md)
+    print(f"bh_hier pass vs the masked-dense route (bh_pairs): max|diff| "
+          f"{err_md:.3e} (max|a| {scale:.3e}); needs equal: {need}",
+          flush=True)
+
+    args, kw = seen["args"], dict(seen["kw"], counts=False)
+    got, cnt, walked = real(*args, **dict(kw, counts=True))
+    md, md_cnt, md_slots = traverse.hier_accel_ref(*args,
+                                                   **dict(kw, counts=True))
+    torch.cuda.synchronize()
+    if not torch.equal(cnt, md_cnt):
+        bad = int((cnt != md_cnt).any(dim=1).sum())
+        raise AssertionError(f"bh_hier: per-group counts differ from the "
+                             f"masks' in {bad} groups")
+    err_rows, _ = _check_close("bh_hier vs the masked-dense rows", got, md)
+
+    def plain():
+        return traverse.hier_accel_ref(
+            *args, **dict(kw, pair_sum=traverse.point_accel_ref))
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err, scale = _check_close("bh_hier vs its plain version", got, want)
+    del want, md
+    ms = timed_ms(lambda: real(*args, **kw))
+    work = traverse.hier_pair_work(cnt, args[6], args[0], args[1], args[3])
+    needed = work["pairs"]
+    print(f"bh_hier pass: {ms:.4f} ms against plain {plain_ms:.1f} ms (one "
+          f"run), max|diff| {err:.3e} (max|a| {scale:.3e}); pairs walked "
+          f"{int(walked):.4e} against {needed:.4e} needed "
+          f"({int(walked) / needed:.3f}x); the masked-dense route's slots "
+          f"{md_slots:.4e}; counts equal in {cnt.shape[0]} groups",
+          flush=True)
+
+    # the chunk with the most direct bodies, cut out
+    ids = args[3]
+    C, CH = ids.shape[0], args[5].shape[0] // ids.shape[0]
+    c = int(cnt[:, 1].reshape(C, CH).sum(dim=1).argmax())
+    g = slice(c * CH, (c + 1) * CH)
+    cut = (*args[:3], ids[c:c + 1], args[4][c:c + 1],
+           *(x[g] for x in args[5:10]), *args[10:])
+    r = _compare(
+        f"bh_hier chunk {c}: {CH} groups, {ids.shape[1]} candidates, "
+        f"{int(cnt[g, 1].sum())} direct bodies",
+        lambda: real(*cut, **kw),
+        lambda: traverse.hier_accel_ref(
+            *cut, **dict(kw, pair_sum=traverse.point_accel_ref)))
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **bounds(work, ms, n_sm, max_clock_hz),
+               pairs_walked=int(walked),
+               walked_over_needed=int(walked) / needed,
+               masked_dense_slots=md_slots,
+               masked_dense_max_abs_err=err_rows,
+               pass_vs_masked_dense=err_md, groups=cnt.shape[0],
+               candidates=ids.shape[1],
+               chunk=dict(r, index=c, groups=CH,
+                          direct_bodies=int(cnt[g, 1].sum())))
+    print(f"  bh_hier: bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}), {out['pct_of_bound']:.2f}% of it; rsqrt "
+          f"floor {out['rsqrt_floor_ms']:.4f} ms", flush=True)
+    return out
 
 
 def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
@@ -516,11 +637,11 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
                   flush=True)
         return dt / n, n0, int(bh.state.n_alive())
 
-    sec, n0, n1 = paths.run("bh_engine", run, need=("bh_pairs",))
+    sec, n0, n1 = paths.run("bh_engine", run, need=("bh_hier",))
     counts = paths.counts["bh_engine"]
-    if counts != _only(bh_pairs=counts["bh_pairs"]):
+    if counts != _only(bh_hier=counts["bh_hier"]):
         raise AssertionError(f"Barnes–Hut steps launched another kernel "
-                             f"than the pair kernel: {counts}")
+                             f"than the hier kernel: {counts}")
     st = bh.state
     if not all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel,
                                                         st.mass)):
@@ -536,8 +657,10 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"  caps {bh.caps}", flush=True)
     print(f"  last_stats {bh.last_stats}", flush=True)
-    results["bh_pairs"] = _bh_chunk_shape(st, cfg, params, bh.caps, n_sm,
-                                          max_clock_hz)
+    results["bh_hier"] = paths.run(
+        "bh_hier_check", lambda: _bh_hier_shape(st, cfg, params, bh.caps,
+                                                n_sm, max_clock_hz),
+        need=("bh_hier", "bh_pairs"))
 
     # force error of a fresh pass of the initial scene (the JAX package's
     # measurement point), from the engine's caps, against the exact
@@ -552,7 +675,7 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
         if not e["mean"] <= BH_ERR_LIMIT:
             raise AssertionError(f"bh: mean force error {e['mean']:.3e} > "
                                  f"{BH_ERR_LIMIT:.3e}")
-    paths.run("bh_force_error", bh_error, need=("allpairs", "bh_pairs"))
+    paths.run("bh_force_error", bh_error, need=("allpairs", "bh_hier"))
     del bh
 
     # the needs of one pass on three scenes at N = 1M, caps grown to fit
@@ -601,12 +724,18 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
               f"mean {e['mean']:.3e} p99 {e['p99']:.3e}", flush=True)
     paths.run("bh_small_force_error", small_error,
               need=("allpairs", "bh_pairs"))
+    results["bh_pairs"] = _bh_pairs_shape(s, small, params, n_sm,
+                                          max_clock_hz)
+
+    def dense_and_hier():
+        for trav in ("dense", "hier"):
+            c = dataclasses.replace(small, bh_traversal=trav)
+            accs[trav], _, _ = accuracy.fitted_bh_pass(s.pos, s.mass,
+                                                       s.alive, c, params)
 
     accs = {}
-    for trav in ("dense", "hier"):
-        c = dataclasses.replace(small, bh_traversal=trav)
-        accs[trav], _, _ = accuracy.fitted_bh_pass(s.pos, s.mass, s.alive, c,
-                                                   params)
+    paths.run("bh_dense_vs_hier", dense_and_hier,
+              need=("bh_pairs", "bh_hier"))
     diff = float((accs["hier"] - accs["dense"]).abs().max())
     scale = float(accs["dense"].abs().max())
     print(f"bh dense vs hier N={N_SMALL}: max|diff| {diff:.3e} (max|a| "
@@ -1781,7 +1910,8 @@ def main() -> int:
     launches = {"band": paths.counts["pm_main"]["band"],
                 "rescue": paths.counts["pm_main"]["rescue"],
                 "allpairs": paths.counts["sphere3d_engine"]["allpairs"],
-                "bh_pairs": paths.counts["bh_engine"]["bh_pairs"]}
+                "bh_pairs": paths.counts["bh_small_force_error"]["bh_pairs"],
+                "bh_hier": paths.counts["bh_engine"]["bh_hier"]}
     kernels = [
         dict(name="band_short_range", route="cuda",
              source="tpu_nbody_torch/csrc/band.cu",
@@ -1809,6 +1939,14 @@ def main() -> int:
              launches=launches["bh_pairs"],
              launches_by_path=paths.of("bh_pairs"), library_ms=None,
              **results["bh_pairs"]),
+        dict(name="bh_hier", route="cuda",
+             source="tpu_nbody_torch/csrc/bh_hier.cu",
+             replaces="tpu_nbody/ops/traverse.py:589",
+             replaces_kind="XLA pair blocks with the hier traversal's "
+                           "masks and partner flatten (no Pallas original)",
+             launches=launches["bh_hier"],
+             launches_by_path=paths.of("bh_hier"), library_ms=None,
+             **results["bh_hier"]),
     ]
     print(f"render ms: 3D frame {e['frame3d_ms']:.3f} (splat alone "
           f"{e['splat_ms']:.3f}), pm_main speed {render_ms['speed']:.3f}, "

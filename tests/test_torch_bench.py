@@ -198,6 +198,31 @@ def test_phase_table_rows(monkeypatch, capsys, solver):
     assert "not measured without a card" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("traversal,kernel", [("dense", "bh_pairs"),
+                                               ("hier", "bh_hier")])
+def test_bh_phase_rows_follow_the_route(monkeypatch, capsys, traversal,
+                                        kernel):
+    """The evaluate row names the kernel of the pass's traversal; a hier
+    pass has no flatten row and reports the pairs its kernel walks."""
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    cfg = dataclasses.replace(bench.bench_config(1024, "bh", True),
+                              bh_traversal=traversal)
+    assert bench.bh_kernel(cfg) == kernel
+    eng = Engine(cfg, Params.default(theta=0.5), solver="bh",
+                 integrator="kdk_reuse", device="cpu")
+    eng.reset_default_scene(n1=820, n2=204)
+    eng.step(1)
+    card = dict(name="host clock", smi=None, power_limit="not read")
+    rows = bench._phase_table(eng, 100.0, 2, sys.stderr, card)
+    assert [r["name"] for r in rows] == [
+        "build", "groups", "lists", f"evaluate ({kernel} kernel)",
+        "assemble"]
+    err = capsys.readouterr().err
+    assert ("walked by the bh_hier kernel" in err) == (kernel == "bh_hier")
+    assert bench.bh_kernel(bench.bench_config(1 << 20, "bh", False)) == \
+        "bh_hier"
+
+
 class _Tally:
     def __init__(self):
         self.padded, self.needed = 0, []

@@ -13,7 +13,8 @@ so the ``cuda`` tests also collect where jax is missing.
 On the card (marker ``cuda``, skipped without one): the kernel against its
 plain version within 1e-5 of the largest magnitude at small, ragged,
 padded and all-zero shapes, the launch count, and whole passes of the
-dense and hier traversals on the card against the same passes on the CPU.
+dense, bfs and hier traversals on the card against the same passes on the
+CPU (hier through csrc/bh_hier.cu, tests/test_torch_bh_hier.py).
 """
 
 import numpy as np
@@ -228,17 +229,21 @@ def test_point_accel_kernel_plans_on_card(cuda_device, T, lanes):
 @pytest.mark.cuda
 @pytest.mark.parametrize("trav", ["dense", "bfs", "hier"])
 def test_bh_pass_on_card_matches_cpu(cuda_device, trav):
-    """A whole pass on the card (the kernel) against the same pass on the
-    CPU (the plain version): the lists are the same, the sums within 1e-5
-    of max |a|; two launches a chunk of groups."""
+    """A whole pass on the card (the kernels) against the same pass on
+    the CPU (the plain versions): the lists are the same, the sums within
+    1e-5 of max |a|; dense and bfs launch the pair kernel twice a chunk of
+    groups, hier launches csrc/bh_hier.cu once and the pair kernel never."""
     want, st = ttraverse.bh_accel_from_tree(_galaxy_tree(), 0.5, SOFT2,
                                             80.0, traversal=trav, **CAPS)
-    n0 = ttraverse.LAUNCHES
+    n0, h0 = ttraverse.LAUNCHES, ttraverse.HIER_LAUNCHES
     got, st_c = ttraverse.bh_accel_from_tree(
         _galaxy_tree(device=cuda_device), 0.5, SOFT2, 80.0, traversal=trav,
         **CAPS)
     torch.cuda.synchronize()
     launches = ttraverse.LAUNCHES - n0
-    assert launches >= 2 and launches % 2 == 0
+    if trav == "hier":
+        assert launches == 0 and ttraverse.HIER_LAUNCHES == h0 + 1
+    else:
+        assert launches >= 2 and launches % 2 == 0
     assert [int(x) for x in st_c.flat()] == [int(x) for x in st.flat()]
     _assert_close_to(got.cpu(), want)

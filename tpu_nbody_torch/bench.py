@@ -328,11 +328,11 @@ class _PairClock(profiling.EventClock):
 
     def __init__(self):
         super().__init__()
-        self.padded = 0
+        self.padded = []
         self.needed = []
 
     def pairs(self, padded, needed):
-        self.padded += padded
+        self.padded.append(padded)
         self.needed.append(needed)
 
 
@@ -402,19 +402,26 @@ def _pm_phases(eng: Engine, steps: int) -> list:
             for name, key, scale, fn in phases]
 
 
-# the Barnes–Hut rows that a hand kernel computes, named so in the table
-_BH_ROWS = {"evaluate": "evaluate (bh_pairs kernel)"}
+def bh_kernel(cfg) -> str:
+    """The hand kernel that evaluates a Barnes–Hut pass of ``cfg``: the
+    hier traversal's ``bh_hier``, or the dense and bfs ``bh_pairs``."""
+    return ("bh_hier" if engine._resolve_traversal(cfg) == "hier"
+            else "bh_pairs")
 
 
 def _bh_phases(eng: Engine, steps: int) -> tuple:
-    """(rows, padded pairs, needed pairs) of one Barnes–Hut pass at the
-    engine's caps, timed by phase with CUDA events."""
+    """(rows, pairs computed, pairs needed) of one Barnes–Hut pass at the
+    engine's caps, timed by phase with CUDA events. The evaluate row names
+    the kernel of the pass's traversal; the pairs computed are the pair
+    slots the dense blocks evaluate (padding included) or the pairs the
+    hier kernel's CTAs walk (its own counter)."""
     st, n = eng.state, int(eng.state.n_alive())
     clock = _PairClock()
     _, need, _ = accuracy.fitted_bh_pass(st.pos, st.mass, st.alive, eng.cfg,
                                          eng.params, eng.caps, probe=clock)
     ms = clock.ms()
     needed = int(torch.stack(clock.needed).sum()) if clock.needed else 0
+    padded = sum(int(x) for x in clock.padded)
     nodes = need.node_need * 14 * _F32       # the node table's rows
     body_in = n * (2 * _F32 + _F32 + 1)
     rows_out = n * 4 * _F32                  # the sorted body rows
@@ -422,15 +429,15 @@ def _bh_phases(eng: Engine, steps: int) -> tuple:
         "build": dict(flops=0, bytes=body_in + nodes + rows_out),
         "groups": dict(flops=0, bytes=nodes + need.group_need * 25),
         "lists": dict(flops=0, bytes=nodes + need.group_need * 16),
-        "flatten": dict(flops=0, bytes=rows_out),
         "evaluate": dict(pairs=needed,
                          flops=needed * forces._PAIR_FLOPS[2],
                          bytes=rows_out + nodes + n * 2 * _F32),
         "assemble": dict(flops=0, bytes=2 * n * 2 * _F32 + n * _F32),
     }
-    rows = [(_BH_ROWS.get(name, name), ms[name], work[name], 1.0)
+    names = {"evaluate": f"evaluate ({bh_kernel(eng.cfg)} kernel)"}
+    rows = [(names.get(name, name), ms[name], work[name], 1.0)
             for name in work if name in ms]
-    return rows, clock.padded, needed
+    return rows, padded, needed
 
 
 def _allpairs_phases(eng: Engine, steps: int) -> list:
@@ -475,7 +482,9 @@ def _phase_table(eng: Engine, step_ms: float, steps: int, file,
     elif eng.solver == "bh":
         rows, padded, needed = _bh_phases(eng, steps)
         what = "the phases of one Barnes–Hut pass at the final caps"
-        extra = (f"# pairs evaluated {padded:.4e} (padding included) "
+        how = ("walked by the bh_hier kernel" if bh_kernel(eng.cfg)
+               == "bh_hier" else "(padding included)")
+        extra = (f"# pairs evaluated {padded:.4e} {how} "
                  f"against {needed:.4e} needed"
                  + (f" ({padded / needed:.2f}x)" if needed else ""))
     else:

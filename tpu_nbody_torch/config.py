@@ -86,7 +86,8 @@ class SimConfig:
     bh_hier_cand_caps: tuple = (131072, 32768, 4096)  # hier: per-chunk
                                    # candidate-list cap per level (regrown on
                                    # overflow; clipped to the node table)
-    bh_hier_batch: int = 32        # hier: chunks per partner-flatten batch
+    bh_hier_batch: int = 32        # hier: chunks per batch of the needs
+                                   # (and of the CPU's masked-dense sums)
     # P3M ("pm") solver knobs.
     mesh_level: int = 11           # world grid = 2^level per side over the root
     mesh_split: float = 4.0        # short/long split radius in cell units

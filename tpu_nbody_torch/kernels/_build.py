@@ -52,6 +52,10 @@ SIGNATURES = {
     # targets, sources, masses, out, M, C, NT, S, soft2, T, tpg, lanes,
     # stream
     "tnt_bh_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # node_rows, body_rows, spos, ids, cvalid, kend, gstart, gcount,
+    # gvalid, gmin, gmax, out, counts (or null), walked (or null), groups,
+    # K, CH, GS, cap, NC, stage, theta2, soft2, stream
+    "tnt_bh_hier": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
 }
 
 _lib = None

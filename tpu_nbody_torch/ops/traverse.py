@@ -26,18 +26,24 @@ Replaces the reference's per-body recursive traversal
   (groups x nodes) classification, :func:`_classify_dense`), ``"bfs"`` (a
   lockstep wave traversal, the independently derived cross-check,
   :func:`_traverse_all`) and ``"hier"`` (chunk-hierarchical candidate
-  refinement with masked-dense evaluation, :func:`_hier_accel`, the large-N
-  path). All lists have fixed capacity; the sizes a scene needs are
-  returned (:class:`TraversalStats`) so the engine can regrow the caps
-  instead of silently dropping interactions.
+  refinement, :func:`_hier_accel`, the large-N path). All lists have fixed
+  capacity; the sizes a scene needs are returned (:class:`TraversalStats`)
+  so the engine can regrow the caps instead of silently dropping
+  interactions.
 
-* Force evaluation is dense and blocked: (group_size x list) pair blocks
-  with the reference point-mass kernel a += m_src * d * r^-3, r^2 = |d|^2 +
-  eps^2 (``BarnesHutAlg.kt:250-259``). Self-pairs and padding contribute
-  exactly zero (d = 0 or mass = 0). :func:`point_accel` evaluates them:
-  the hand-written kernel ``csrc/bh_pairs.cu`` for CUDA tensors (launches
-  counted in :data:`LAUNCHES`), its plain version :func:`_point_accel` for
-  CPU tensors.
+* The point-mass kernel is the reference's: a += m_src * d * r^-3, r^2 =
+  |d|^2 + eps^2 (``BarnesHutAlg.kt:250-259``). Self-pairs and padding
+  contribute exactly zero (d = 0 or mass = 0). The dense and bfs
+  evaluations are dense and blocked, (group_size x list) pair blocks
+  through :func:`point_accel`: the hand-written kernel
+  ``csrc/bh_pairs.cu`` for CUDA tensors (launches counted in
+  :data:`LAUNCHES`), its plain version :func:`_point_accel` for CPU
+  tensors. The hier evaluation goes through :func:`hier_accel`: on the
+  card ``csrc/bh_hier.cu`` (:data:`HIER_LAUNCHES`), one launch a pass, a
+  CTA a group that tests its chunk's candidates and walks the accepted
+  nodes and the opened leaves' body ranges itself; on the CPU the
+  masked-dense :func:`hier_accel_ref` (per-group weights on padded pair
+  blocks, direct partners flattened to slots).
 
 What differs from the JAX package, whose results it reproduces:
 
@@ -45,8 +51,8 @@ What differs from the JAX package, whose results it reproduces:
   temporary. So each ``lax.map`` over chunks is a Python loop (no host sync
   inside) whose batch comes from a budget of :data:`PAIR_BUDGET` elements a
   temporary, and ``group_chunk`` and ``hier_batch`` are upper bounds. The
-  kernel needs no pair temporary, so on the card the budget counts the
-  lists alone.
+  kernels need no pair temporary, so on the card the budget counts the
+  lists alone, and the hier kernel runs once a pass.
 * List compaction (:func:`_compact_rows`) is a cumsum and one scatter into
   a buffer one slot wider than the list, every refused write aimed at the
   extra slot, in place of ``top_k``: the same ascending ids.
@@ -76,11 +82,14 @@ PAIR_BUDGET = 1 << 27
 TRAVERSALS = ("dense", "bfs", "hier")
 
 LAUNCHES = 0    # csrc/bh_pairs.cu
+HIER_LAUNCHES = 0   # csrc/bh_hier.cu
 # sharded ranks run as threads of one process and launch concurrently
 _COUNT_LOCK = threading.Lock()
 _PAIRS_THREADS = 256     # threads a CTA of csrc/bh_pairs.cu aims at
 _PAIRS_TILE = 256        # TILE in csrc/bh_pairs.cu
 _PAIR_FLOPS = 13         # ops/forces.py::_PAIR_FLOPS[2], the same formula
+_HIER_MAX_GS = 2048      # targets a group csrc/bh_hier.cu holds
+_HIER_STAGE = 2048       # STAGE in csrc/bh_hier.cu: leaf bodies staged
 
 
 # the cap each need of :class:`TraversalStats` is held to, in field order
@@ -498,28 +507,47 @@ def _hier_levels(G: int, NC: int, hier_sizes, cand_caps):
     return sizes, kcaps, lvl_map
 
 
+def _hier_needs(rows_all, ids, cvalid, bmn, bmx, theta2, soft2, *, LC: int,
+                batch: int):
+    """leaf_need and direct_need of the hier lists: per final chunk, the
+    direct leaves of the chunk box (``occ & leaf & ~pass_chunk``, a
+    superset of every member group's, since ``pass_chunk => pass_g``)
+    counted, and the bodies of the first ``LC`` of them in candidate order
+    summed, as the masked-dense form compacts and flattens them. ``bmn`` /
+    ``bmx`` (C, 2) are the chunk boxes; ``batch`` chunks at a time."""
+    C = ids.shape[0]
+    l_tots, d_tots = [], []
+    for c0 in range(0, C, batch):
+        c = slice(c0, c0 + batch)
+        crows = rows_all[torch.where(cvalid[c], ids[c], 0).long()]
+        occ = cvalid[c] & (crows[..., 0] > 0)                  # (n, K)
+        pcn = _box_pass_cols(bmn[c], bmx[c], crows[..., 3], crows[..., 4],
+                             crows[..., 5], theta2, soft2)
+        dleaf = occ & (crows[..., 6] < 0) & ~pcn
+        rank = torch.cumsum(dleaf, dim=1, dtype=torch.int32)
+        kept = dleaf & (rank <= LC)
+        l_tots.append(rank[:, -1])
+        d_tots.append(torch.where(kept, crows[..., 9].to(torch.int32),
+                                  0).sum(dim=1, dtype=torch.int32))
+    return torch.cat(l_tots).max(), torch.cat(d_tots).max()
+
+
 def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
                 group_size: int, hier_sizes, cand_caps, leaf_list_cap: int,
-                direct_body_cap: int, hier_batch: int, evaluate: bool = True,
-                probe=None, gcount=None):
-    """Masked-dense BH force evaluation over hierarchical chunk candidates.
+                direct_body_cap: int, hier_batch: int, gcount,
+                evaluate: bool = True, probe=None):
+    """BH force evaluation over hierarchical chunk candidates.
 
     Per final-level chunk (``hier_sizes[-1]`` adjacent groups) the member
-    groups share one candidate list; per-group accept and direct decisions
-    are dense masks over it (``accept = pass_g(n) & ~pass_g(parent)``,
-    ``direct = leaf & ~pass_g(n)``: the same local monotone-MAC tests as
-    :func:`_classify_dense`, so the interaction sets are identical), and
-    the force evaluation consumes the masks as per-group weights on dense
-    (group_size x K) pair blocks. Direct leaves are compacted once per
-    chunk; their body ranges flatten through :func:`_flatten_ranges`, and
-    the per-(group, partner-slot) weights are the leaf masks gathered at
-    each slot's leaf.
-
-    Everything after the candidate refinement runs at most ``hier_batch``
-    chunks at a time (fewer where the pair budget says so), and each such
-    batch is evaluated in sub-batches inside the budget, so the candidate
-    rows, weights and partner rows of all chunks never exist at once.
-    With ``evaluate`` false the pair blocks are skipped and the
+    groups share one candidate list (:func:`_hier_lists`); each group
+    accepts ``pass_g(n) & ~pass_g(parent)`` and takes the leaves with
+    ``~pass_g(n)`` direct, the local monotone-MAC tests of
+    :func:`_classify_dense`, so the interaction sets are the dense
+    traversal's. :func:`hier_accel` evaluates them: ``csrc/bh_hier.cu`` on
+    the card, which tests and walks the lists itself, and the masked-dense
+    :func:`hier_accel_ref` on the CPU. The needs are measured here
+    (:func:`_hier_needs`), ``hier_batch`` chunks at a time, whichever
+    evaluates. With ``evaluate`` false no pair is summed and the
     accelerations are zeros: a pass that only measures the needs.
 
     Returns (acc_rows (G, group_size, 2), needs dict).
@@ -530,7 +558,6 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     NC = rows_all.shape[0]
     dev = gvalid.device
     GS = group_size
-    LC, DB = leaf_list_cap, direct_body_cap
     tally = getattr(probe, "pairs", None)
     probe = probe or (lambda name: None)
 
@@ -551,26 +578,85 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     ids, cvalid, C, lvl_needs = _hier_lists(
         tree, gminp, gmaxp, theta2, soft2, g_pad=g_pad, sizes=sizes,
         kcaps=kcaps)
-    K = ids.shape[1]
-    LC = min(LC, K)                     # a chunk's leaves are candidates
-    bmn_all = gminp.reshape(C, CH, 2)
-    bmx_all = gmaxp.reshape(C, CH, 2)
-    gv_all = padg(gvalid, False).reshape(C, CH)
-    if tally is not None:
-        gn_all = padg(gcount, 0).reshape(C, CH)
-    bpos_all, _ = _group_bodies(tree.spos, padg(gstart, cap), GS)
-    bpos_all = bpos_all.reshape(C, CH, GS, 2)
+    LC = min(leaf_list_cap, ids.shape[1])  # a chunk's leaves are candidates
+    leaf_need, direct_need = _hier_needs(
+        rows_all, ids, cvalid, gminp.reshape(C, CH, 2).amin(dim=1),
+        gmaxp.reshape(C, CH, 2).amax(dim=1), theta2, soft2, LC=LC,
+        batch=min(hier_batch, C))
     probe("lists")
 
-    body_rows = tree.body_rows
+    if evaluate:
+        gcp = padg(gcount, 0)
+        out = hier_accel(
+            rows_all, tree.body_rows, tree.spos, ids, cvalid,
+            padg(gstart, cap), gcp, padg(gvalid, False), gminp, gmaxp,
+            theta2, soft2, group_size=GS, leaf_list_cap=LC,
+            direct_body_cap=direct_body_cap, hier_batch=hier_batch,
+            counts=tally is not None)
+        if tally is not None:
+            acc, counts, walked = out
+            tally(walked, (gcp.to(torch.int64) * counts.sum(dim=1)).sum())
+        else:
+            acc = out
+        acc_rows = acc[:G]
+    else:
+        acc_rows = torch.zeros((G, GS, 2), dtype=tree.spos.dtype, device=dev)
+    probe("evaluate")
+
+    cand_need = torch.zeros((len(hier_sizes),), dtype=torch.int32, device=dev)
+    for li, n in zip(lvl_map, lvl_needs):
+        cand_need[li] = n
+    needs = {"leaf_need": leaf_need, "direct_need": direct_need,
+             "cand_need": cand_need}
+    return acc_rows, needs
+
+
+def hier_accel_ref(node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
+                   gvalid, gmin, gmax, theta2, soft2, *, group_size: int,
+                   leaf_list_cap: int, direct_body_cap: int,
+                   hier_batch: int = 32, counts: bool = False,
+                   pair_sum=None):
+    """Plain version of :func:`hier_accel`: the masked-dense evaluation.
+
+    Per chunk of ``hier_batch`` final chunks (fewer where the pair budget
+    says so), the per-group accept masks over the shared candidates become
+    per-group weights on dense (group_size x K) pair blocks; the chunk's
+    direct leaves (chunk-box MAC) are compacted, at most ``leaf_list_cap``
+    of them, their body ranges flatten through :func:`_flatten_ranges` into
+    ``direct_body_cap`` partner slots, and the per-(group, slot) weights
+    are the per-group leaf masks gathered at each slot's leaf. The pair
+    blocks go through ``pair_sum`` (default :func:`point_accel`: the
+    ``bh_pairs`` kernel for CUDA tensors). Rows outside a group's members
+    are zero. With ``counts``, also returns each group's accepted nodes and
+    direct partner slots (groups, 2) int32 and the pair slots the blocks
+    compute (a Python int, padding included)."""
+    C, K = ids.shape
+    Gp = gstart.shape[0]
+    CH = Gp // C
+    GS = group_size
+    dev = ids.device
+    LC, DB = min(leaf_list_cap, K), direct_body_cap
+    pair = point_accel if pair_sum is None else pair_sum
+    elems = GS if pair_sum is not None else _pair_elems(GS, dev)
+
+    bmn_all = gmin.reshape(C, CH, 2)
+    bmx_all = gmax.reshape(C, CH, 2)
+    gv_all = gvalid.reshape(C, CH)
+    bpos_all, sl0 = _group_bodies(spos, gstart, GS)
+    bpos_all = bpos_all.reshape(C, CH, GS, 2)
+    slot = sl0[:, None] + _arange(GS, dev)[None, :]
+    member = (gvalid[:, None] & (slot >= gstart[:, None])
+              & (slot < (gstart + gcount)[:, None])).reshape(C, CH, GS)
+
     Cb = _batch_rows(CH * max(K, DB), min(hier_batch, C))
-    eb = _batch_rows(CH * _pair_elems(GS, dev) * max(K, DB), Cb)
-    acc = torch.zeros((C, CH, GS, 2), dtype=tree.spos.dtype, device=dev)
-    l_tots, d_tots = [], []
+    eb = _batch_rows(CH * elems * max(K, DB), Cb)
+    acc = torch.zeros((C, CH, GS, 2), dtype=spos.dtype, device=dev)
+    cnt = torch.zeros((C, CH, 2), dtype=torch.int32, device=dev)
+    walked = 0
     for c0 in range(0, C, Cb):
         c = slice(c0, min(c0 + Cb, C))
         bmn, bmx, gv = bmn_all[c], bmx_all[c], gv_all[c]
-        crows = rows_all[torch.where(cvalid[c], ids[c], 0).long()]
+        crows = node_rows[torch.where(cvalid[c], ids[c], 0).long()]
         n = crows.shape[0]                                    # (n, K, 14)
         occ = cvalid[c] & (crows[..., 0] > 0)
 
@@ -590,7 +676,7 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
         pcn = _box_pass_cols(bmn.amin(dim=1), bmx.amax(dim=1), crows[..., 3],
                              crows[..., 4], crows[..., 5], theta2, soft2)
         dleaf = occ & (crows[..., 6] < 0) & ~pcn              # (n, K)
-        lidx, llen, ltot = _compact_rows(dleaf, LC)
+        lidx, llen, _ = _compact_rows(dleaf, LC)
         lrows = torch.gather(crows, 1,
                              lidx.long()[..., None].expand(n, LC, 14))
         lvalid = _arange(LC, dev)[None, :] < llen[:, None]
@@ -602,42 +688,149 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
                              lrows[..., 5][:, None, :], theta2, soft2)
         dmask = (lvalid & (lrows[..., 0] > 0))[:, None, :] & gv[..., None] \
             & ~pnl                                            # (n, CH, LC)
-        l_tots.append(ltot)
-        probe("lists")
 
         # ---- partner flatten ----
-        slots, leaf, svalid, d_tot = _flatten_ranges(lstart, lcount, DB)
-        d_tots.append(d_tot)
-        if not evaluate:
-            continue
+        slots, leaf, svalid, _ = _flatten_ranges(lstart, lcount, DB)
         wdir = torch.gather(dmask, 2, leaf[:, None, :].expand(n, CH, DB))
         wdir = wdir & svalid[:, None, :]                      # (n, CH, DB)
         prow = body_rows[slots.long()]                        # (n, DB, 4)
         ppos = prow[..., 0:2].contiguous()                    # (n, DB, 2)
         com = crows[..., 1:3].contiguous()                    # (n, K, 2)
-        probe("flatten")
+        if counts:
+            cnt[c] = torch.stack([(wapx != 0).sum(-1, dtype=torch.int32),
+                                  wdir.sum(-1, dtype=torch.int32)], dim=-1)
+            walked += (wapx.numel() + wdir.numel()) * GS
 
         # ---- masked-dense pair blocks ----
-        bpos, acc_c = bpos_all[c], acc[c]                     # views
+        bpos, acc_c, mem = bpos_all[c], acc[c], member[c]     # views
         for e0 in range(0, n, eb):
             e = slice(e0, e0 + eb)
-            out = point_accel(bpos[e], com[e], wapx[e], soft2)
-            out += point_accel(bpos[e], ppos[e],
-                               prow[e][:, None, :, 2] * wdir[e], soft2)
-            acc_c[e] = out * gv[e][..., None, None]
-            if tally is not None:
-                tally(wapx[e].numel() * GS + wdir[e].numel() * GS,
-                      (gn_all[c][e] * gv[e] * ((wapx[e] != 0).sum(-1)
-                                               + wdir[e].sum(-1))).sum())
-        probe("evaluate")
-    acc_rows = acc.reshape(C * CH, GS, 2)[:G]
+            out = pair(bpos[e], com[e], wapx[e], soft2)
+            out += pair(bpos[e], ppos[e], prow[e][:, None, :, 2] * wdir[e],
+                        soft2)
+            acc_c[e] = out * mem[e][..., None]
+    acc = acc.reshape(Gp, GS, 2)
+    return (acc, cnt.reshape(Gp, 2), walked) if counts else acc
 
-    cand_need = torch.zeros((len(hier_sizes),), dtype=torch.int32, device=dev)
-    for li, n in zip(lvl_map, lvl_needs):
-        cand_need[li] = n
-    needs = {"leaf_need": torch.cat(l_tots).max(),
-             "direct_need": torch.cat(d_tots).max(), "cand_need": cand_need}
-    return acc_rows, needs
+
+def hier_accel(node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
+               gvalid, gmin, gmax, theta2, soft2, *, group_size: int,
+               leaf_list_cap: int, direct_body_cap: int,
+               hier_batch: int = 32, counts: bool = False):
+    """Accelerations (groups, group_size, 2) without G of every group's
+    member bodies, from its chunk's candidates (module docstring; the
+    definitions are ``csrc/bh_hier.cu``'s header).
+
+    ``node_rows`` (NC, 14) and ``body_rows`` (cap, 4) are the tree's
+    tables, ``spos`` (cap, 2) the sorted positions, ``ids`` / ``cvalid``
+    (C, K) int32 / bool each final chunk's candidates, ``gstart``,
+    ``gcount`` (groups,) int32, ``gvalid`` (groups,) bool and ``gmin`` /
+    ``gmax`` (groups, 2) the groups padded to groups = C x CH, as
+    :func:`_hier_accel` pads them. Row ``gstart - sl0 + i`` of a group's
+    window (``sl0`` = ``clamp(gstart, 0, cap - group_size)``) holds member
+    i; every other row is zero. With ``counts``, also returns each group's
+    accepted nodes and direct bodies (groups, 2) int32 and the pairs
+    walked.
+
+    CPU tensors take :func:`hier_accel_ref`; CUDA tensors launch
+    ``csrc/bh_hier.cu`` (counted in :data:`HIER_LAUNCHES`; the walked
+    pairs are then a 0-dim int64 device tensor: each group's sources times
+    the target slots of its lanes). The kernel drops nothing at
+    ``leaf_list_cap`` and ``direct_body_cap``, which the plain version
+    does: the two agree wherever no cap overflows (ROADMAP section 3)."""
+    tensors = (node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
+               gvalid, gmin, gmax)
+    specs = _hier_specs(*tensors)
+    for name, t, shape, dtype, _ in specs:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if all(t.device.type == "cpu" for t in tensors):
+        return hier_accel_ref(
+            *tensors, theta2, soft2, group_size=group_size,
+            leaf_list_cap=leaf_list_cap, direct_body_cap=direct_body_cap,
+            hier_batch=hier_batch, counts=counts)
+    cap = spos.shape[0]
+    if not 1 <= group_size <= min(cap, _HIER_MAX_GS):
+        raise ValueError(f"group_size {group_size}: the kernel holds 1 to "
+                         f"{min(cap, _HIER_MAX_GS)} targets a group")
+    for name, t, shape, dtype, align in specs:
+        _build.check_tensor(name, t, shape, device=ids.device, align=align,
+                            dtype=dtype)
+    return _hier_launch(*tensors, theta2, soft2, group_size, counts)
+
+
+def _hier_specs(node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
+                gvalid, gmin, gmax):
+    """(name, tensor, shape, dtype, alignment) of every :func:`hier_accel`
+    argument; shapes follow ``node_rows``, ``spos``, ``ids`` and
+    ``gstart``."""
+    if ids.dim() != 2 or gstart.dim() != 1:
+        raise ValueError(f"ids must be (C, K) and gstart (groups,), got "
+                         f"{tuple(ids.shape)} and {tuple(gstart.shape)}")
+    C, K = ids.shape
+    Gp = gstart.shape[0]
+    if C < 1 or Gp % C:
+        raise ValueError(f"{Gp} groups do not split into {C} chunks")
+    f32, i32 = torch.float32, torch.int32
+    return [("node_rows", node_rows, (node_rows.shape[0], 14), f32, 8),
+            ("body_rows", body_rows, (spos.shape[0], 4), f32, 16),
+            ("spos", spos, (spos.shape[0], 2), f32, 8),
+            ("ids", ids, (C, K), i32, 4),
+            ("cvalid", cvalid, (C, K), torch.bool, 1),
+            ("gstart", gstart, (Gp,), i32, 4),
+            ("gcount", gcount, (Gp,), i32, 4),
+            ("gvalid", gvalid, (Gp,), torch.bool, 1),
+            ("gmin", gmin, (Gp, 2), f32, 4),
+            ("gmax", gmax, (Gp, 2), f32, 4)]
+
+
+def _hier_launch(node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
+                 gvalid, gmin, gmax, theta2, soft2, GS: int, counts: bool,
+                 stage: int = _HIER_STAGE):
+    """Launch ``csrc/bh_hier.cu`` on checked arguments, staging ``stage``
+    leaf bodies at once (at most :data:`_HIER_STAGE`)."""
+    global HIER_LAUNCHES
+    dev = ids.device
+    Gp = gstart.shape[0]
+    C, K = ids.shape
+    out = torch.zeros((Gp, GS, 2), dtype=torch.float32, device=dev)
+    cnt = walked = None
+    if counts:
+        cnt = torch.zeros((Gp, 2), dtype=torch.int32, device=dev)
+        walked = torch.zeros((), dtype=torch.int64, device=dev)
+    # each chunk's last valid candidate + 1: the lists are padded to the
+    # widest chunk's, and the kernel stops there
+    kend = (cvalid * _arange(K, dev).add_(1)).amax(dim=1).to(torch.int32) \
+        if K else torch.zeros((C,), dtype=torch.int32, device=dev)
+    ptr = (lambda t: None if t is None else t.data_ptr())   # noqa: E731
+    rc = _build.library().tnt_bh_hier(
+        node_rows.data_ptr(), body_rows.data_ptr(), spos.data_ptr(),
+        ids.data_ptr(), cvalid.data_ptr(), kend.data_ptr(), gstart.data_ptr(),
+        gcount.data_ptr(), gvalid.data_ptr(), gmin.data_ptr(),
+        gmax.data_ptr(), out.data_ptr(), ptr(cnt), ptr(walked), Gp, K,
+        Gp // C, GS, spos.shape[0], node_rows.shape[0], stage,
+        ctypes.c_float(float(theta2)), ctypes.c_float(float(soft2)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("bh_hier", rc)
+    with _COUNT_LOCK:
+        HIER_LAUNCHES += 1
+    return (out, cnt, walked) if counts else out
+
+
+def hier_pair_work(counts, gcount, node_rows, body_rows, ids) -> dict:
+    """Pairs, flops and bytes of one :func:`hier_accel` call: the pairs its
+    groups need (members times accepted nodes and direct bodies, from
+    ``counts`` (groups, 2)), the node table, body rows, positions and
+    candidate lists read once and each member's acceleration written
+    once."""
+    pairs = int((gcount.to(torch.int64) * counts.sum(dim=1)).sum())
+    n = int(gcount.sum())
+    return dict(pairs=pairs, flops=pairs * _PAIR_FLOPS,
+                bytes=(node_rows.numel() + body_rows.numel()) * 4
+                + ids.numel() * 5 + gcount.numel() * 25 + n * (8 + 8))
 
 
 def _point_accel(bpos, src_pos, src_mass, soft2):
@@ -704,7 +897,7 @@ def point_accel(targets, sources, masses, soft2):
     which skips every source tile whose masses are all 0 for a set (no
     change in the result)."""
     if all(t.device.type == "cpu" for t in (targets, sources, masses)):
-        return _point_accel(targets, sources[:, None], masses, soft2)
+        return point_accel_ref(targets, sources, masses, soft2)
     M, C, NT, _ = targets.shape
     S = sources.shape[1]
     dev = targets.device
@@ -714,6 +907,12 @@ def point_accel(targets, sources, masses, soft2):
     if M * C * NT == 0:
         return torch.zeros_like(targets)
     return _pairs_launch(targets, sources, masses, soft2, _pairs_plan(NT))
+
+
+def point_accel_ref(targets, sources, masses, soft2):
+    """Plain version of :func:`point_accel`, same arguments: the sources
+    broadcast over the C sets of a row into :func:`_point_accel`."""
+    return _point_accel(targets, sources[:, None], masses, soft2)
 
 
 def _pairs_launch(targets, sources, masses, soft2, plan: PairsPlan):
@@ -754,12 +953,13 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
     ``stats`` is what the full pass would report.
 
     ``probe(name)``, where given, is called as each phase's work is
-    enqueued: ``"groups"``, ``"lists"``, ``"flatten"`` (hier), ``"evaluate"``
-    and ``"assemble"``. A probe with a ``pairs(padded, needed)`` method
-    also gets, for each evaluated pair block, the pairs the block computes
-    (a Python int, padding included) and the pairs its groups need (a
-    0-dim device tensor: each group's bodies times its accepted nodes and
-    direct partners), hier and dense traversals.
+    enqueued: ``"groups"``, ``"lists"``, ``"evaluate"`` and
+    ``"assemble"``. A probe with a ``pairs(padded, needed)`` method also
+    gets, for each evaluation call, the pairs it computes (dense and the
+    plain hier: a Python int, padding included; the hier kernel: the
+    pairs its CTAs walk, a 0-dim device tensor) and the pairs its groups
+    need (a 0-dim device tensor: each group's bodies times its accepted
+    nodes and direct partners), hier and dense traversals.
     """
     if traversal not in TRAVERSALS:
         raise ValueError(f"unknown traversal {traversal!r}: expected one of "
@@ -793,8 +993,8 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
             tree, gstart, gvalid, gmin, gmax, theta2, soft2, group_size=GS,
             hier_sizes=hier_sizes, cand_caps=cand_caps,
             leaf_list_cap=leaf_list_cap, direct_body_cap=direct_body_cap,
-            hier_batch=hier_batch, evaluate=evaluate, probe=probe,
-            gcount=gcount)
+            hier_batch=hier_batch, gcount=gcount, evaluate=evaluate,
+            probe=probe)
         stats = TraversalStats(
             approx_need=zero, leaf_need=needs["leaf_need"],
             direct_need=needs["direct_need"], frontier_need=zero,
