@@ -72,8 +72,8 @@ n2 = 200,000):
   per-phase table with a bound and a share of it on every row;
 * cuda_tests: ``python -m pytest --noconftest -m cuda
   tests/test_torch_package.py tests/test_torch_rescue_kernel.py
-  tests/test_torch_bh_pairs.py tests/test_torch_bh_hier.py -q`` in a
-  child process, which must pass.
+  tests/test_torch_rescue_select.py tests/test_torch_bh_pairs.py
+  tests/test_torch_bh_hier.py -q`` in a child process, which must pass.
 
 On the way it
 
@@ -95,8 +95,12 @@ On the way it
    0, where the largest magnitude is the satellites' own, timing both with CUDA events (median of 10 timings of one call on an
    idle card, after 2 warm-ups; 5 at the engine's shape), and checks that
    the all-pairs kernel gives the same bits on a second call (2D and 3D);
-   the rescue kernel against its plain version on the sorted scene (the
-   main path's partner choice, every block in one launch); the
+   the rescue selection kernel against its plain version on the sorted
+   scene (every block against every block at the main path's S and k,
+   bit for bit: counts, needs, scores, the valid partners), timed beside
+   the whole selection's device and host-enqueue times; the rescue kernel
+   against its plain version on the same scene (the main path's partner
+   choice, every block in one launch); the
    Barnes–Hut pair kernel against its plain version on one group of a
    dense pass at N = 65,536 (its two launches, accepted nodes and direct
    partners, cut to the group with the most nonzero masses; the kernel
@@ -109,31 +113,33 @@ On the way it
    whole pass, seconds) and on the chunk with the most direct bodies,
    within the same 1e-5, timed over the whole pass;
 5. sets every launch count to 0 just before each path and reads it just
-   after, checking the launches each path must make (one band and one
-   rescue launch per P3M force pass, two rescues a rank's pass on the
-   sharded P3M, one all-pairs launch per all-pairs force pass, hier
-   kernel launches and no other in the Barnes–Hut steps), finite state
-   and no growth of n_alive;
+   after, checking the launches each path must make (one band, one
+   rescue and one rescue selection launch per P3M force pass, two rescues
+   and three selections a rank's pass on the sharded P3M, one all-pairs
+   launch per all-pairs force pass, hier kernel launches and no other in
+   the Barnes–Hut steps), finite state and no growth of n_alive;
 6. measures the force error against the exact all-pairs kernel on 4096
    sampled alive bodies (tpu_nbody_torch.accuracy), failing where a mean
    is over its limit.
 
-The kernels line gives, per kernel, ``launches`` (for the band and the
-rescue kernels the main path's three step(20) calls; for the all-pairs
-kernel path E's run at 2^20 bodies, the path it carries: the P3M main path
-launches it only in the force error after its steps; for the hier kernel
-path D's steps; for the pair kernel the dense force error at N = 65,536,
-the Barnes–Hut main path being hier) and ``launches_by_path``, which
-holds path G's runs as ``bench_pm``, ``bench_allpairs`` and ``bench_bh``
-(warm-up, timed repeats, force error and phase table). The rescue and
-both Barnes–Hut kernels have no Pallas original: ``replaces`` names the
-XLA code they stand for. Each
-kernel's bound_ms is the larger of its flops over the float32 peak and its
+The kernels line gives, per kernel, ``launches`` (for the band, rescue
+and selection kernels the main path's three step(20) calls; for the
+all-pairs kernel path E's run at 2^20 bodies, the path it carries: the
+P3M main path launches it only in the force error after its steps; for
+the hier kernel path D's steps; for the pair kernel the dense force
+error at N = 65,536, the Barnes–Hut main path being hier) and
+``launches_by_path``, which holds path G's runs as ``bench_pm``,
+``bench_allpairs`` and ``bench_bh`` (warm-up, timed repeats, force error
+and phase table). The two rescue kernels and both Barnes–Hut kernels
+have no Pallas original: ``replaces`` names the XLA code they stand for.
+Each kernel's bound_ms is the larger of its flops over the float32 peak and its
 bytes over the memory rate (``pair_work``, ``rescue_pair_work`` in its
-module, ``hier_pair_work`` in traverse), counted for the pairs this run's
-data needs (the rescue's valid partner blocks, the pair kernel's nonzero
-masses, the hier groups' members times their accepted nodes and direct
-bodies, from the kernel's counts); rsqrt_floor_ms is its
+module, ``hier_pair_work`` in traverse, ``select_work`` in mesh),
+counted for the pairs this run's data needs (the rescue's valid partner
+blocks, the pair kernel's nonzero masses, the hier groups' members times
+their accepted nodes and direct bodies, the selection's union box of each
+target and group of 32 blocks and the members of the near groups, from
+the kernels' counters); rsqrt_floor_ms is its
 pairs over the rsqrt unit's rate (16 a clock per SM at the card's highest
 SM clock), a second floor beside it.
 
@@ -154,7 +160,8 @@ import sys
 import tempfile
 import time
 
-from tpu_nbody_torch.profiling import EventClock, bounds, card_info, timed_ms
+from tpu_nbody_torch.profiling import (EventClock, bounds, card_info,
+                                       device_ms, timed_ms)
 
 N = 1_000_000       # bodies of the two-disk scene
 N_SMALL = 65_536    # bodies of the kdk and euler all-pairs runs
@@ -194,7 +201,7 @@ BH_STEPS = (("warm-up", 1), ("timed", 1))
 # path G: the bench's command lines; the kernels each run must launch; the
 # limit of its mean force error (all-pairs: the kernel against itself)
 BENCH_RUNS = {
-    "pm": ([], ("band", "rescue", "allpairs"), ERR_LIMIT),
+    "pm": ([], ("band", "rescue", "rescue_select", "allpairs"), ERR_LIMIT),
     "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
     "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
            ("allpairs", "bh_hier"), BH_ERR_LIMIT),
@@ -211,12 +218,14 @@ BENCH_PHASES = {
 CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_package.py",
               "tests/test_torch_rescue_kernel.py",
+              "tests/test_torch_rescue_select.py",
               "tests/test_torch_bh_pairs.py", "tests/test_torch_bh_hier.py",
               "-q"]
 # the launch counter of each kernel: (module of tpu_nbody_torch.ops,
 # attribute)
 COUNTERS = {"band": ("band", "LAUNCHES"),
             "rescue": ("band", "RESCUE_LAUNCHES"),
+            "rescue_select": ("mesh", "SELECT_LAUNCHES"),
             "allpairs": ("forces", "LAUNCHES"),
             "bh_pairs": ("traverse", "LAUNCHES"),
             "bh_hier": ("traverse", "HIER_LAUNCHES")}
@@ -392,6 +401,88 @@ def _rel_err(got, want):
     return (got - want).norm(dim=1) / (want.norm(dim=1) + 1e-9)
 
 
+def _rescue_select_shape(spos, smass, salive, cfg, a):
+    """The selection kernel against its plain version at the main path's
+    shape: every block of the sorted scene against every block, the main
+    path's k, bit for bit (counts, needs, scores on every slot, indices on
+    the valid slots), both timed (CUDA events, median of 10), bound from
+    ``mesh.select_work`` of the near groups the kernel's counter reads
+    (the plain version's count beside it); then the whole selection as
+    ``_block_rescue`` calls it (the block boxes and the kernel): its device
+    time and the host's time to enqueue it. The kernel's ``ms`` is its
+    device time with the host's enqueue hidden (``device_ms``): one call
+    on an idle card (``call_ms``, the other kernels' method) is shorter
+    than the wrapper's enqueue and reads the host."""
+    import torch
+    from tpu_nbody_torch.ops import mesh
+    S, k = cfg.mesh_band, cfg.mesh_rescue
+    live = torch.where(salive, smass, 0.0)
+    _, bbox = mesh._block_boxes(spos, live, salive, S)
+    B, cb, _ = mesh._block_bounds(spos.shape[0], S, cfg.mesh_chunk)
+    rcut2 = mesh._rcut2(a)
+    k = min(k, B)
+    got = mesh.rescue_select(bbox, bbox, rcut2, k)
+    want = mesh._rescue_select_ref(bbox, bbox, rcut2, k, chunk=cb)
+    torch.cuda.synchronize()
+    valid = want.mval > 0
+    same = (torch.equal(got.cnt, want.cnt)
+            and int(got.need) == int(want.need)
+            and int(got.hot) == int(want.hot)
+            and torch.equal(got.mval.view(torch.int32),
+                            want.mval.view(torch.int32))
+            and torch.equal(got.midx[valid], want.midx[valid]))
+    if not same:
+        raise AssertionError("rescue_select: the kernel's selection differs "
+                             "from the plain version's")
+    groups = int(mesh.rescue_select(bbox, bbox, rcut2, k,
+                                    count_groups=True).groups)
+    plain_groups = int(mesh._rescue_select_ref(
+        bbox, bbox, rcut2, k, chunk=cb, count_groups=True).groups)
+    if groups != plain_groups:
+        raise AssertionError(f"rescue_select: the kernel tested {groups} "
+                             f"near groups, the plain count is "
+                             f"{plain_groups}")
+    ms = device_ms(lambda: mesh.rescue_select(bbox, bbox, rcut2, k))
+    call_ms = timed_ms(lambda: mesh.rescue_select(bbox, bbox, rcut2, k))
+    plain_ms = timed_ms(lambda: mesh._rescue_select_ref(bbox, bbox, rcut2, k,
+                                                        chunk=cb))
+
+    def select():
+        return mesh._rescue_select(spos, live, salive, a, band=S, k=k,
+                                   chunk=cfg.mesh_chunk)
+
+    select()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    select()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    select_ms = timed_ms(select)
+    select_device_ms = device_ms(select)
+    plan = mesh._select_plan(B, k)
+    out = dict(max_abs_err=float((got.mval - want.mval).abs().max()), ms=ms,
+               call_ms=call_ms, plain_ms=plain_ms, blocks=B, k=k,
+               need=int(want.need),
+               hot=int(want.hot), valid_partner_blocks=int(valid.sum()),
+               near_groups=groups, union_tests=B * -(-B // 32),
+               **bounds(mesh.select_work(B, B, k, groups, boxes=B), ms),
+               with_boxes=dict(ms=select_ms, device_ms=select_device_ms,
+                               host_enqueue_ms=enqueue_ms),
+               plan=dict(warps=plan.warps, tile=plan.tile,
+                         bufcap=plan.bufcap, smem=plan.smem))
+    print(f"rescue_select S={S} k={k} blocks={B}: the same bits as the "
+          f"plain version (need {out['need']}, {out['hot']} blocks over k, "
+          f"{out['valid_partner_blocks']} valid slots, {groups} near groups "
+          f"of 32 tested in full after {out['union_tests']} union tests); "
+          f"kernel {ms:.4f} ms "
+          f"on the device ({call_ms:.4f} ms a call on an idle card), plain "
+          f"{plain_ms:.4f} ms, bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_by']}, {out['pct_of_bound']:.2f}%); the selection "
+          f"with its boxes {select_ms:.4f} ms a call on an idle card "
+          f"({select_device_ms:.4f} ms on the device), {enqueue_ms:.4f} ms "
+          f"for the host to enqueue it", flush=True)
+    return out
+
+
 def _rescue_shape(spos, smass, salive, cfg, params, a, n_sm, max_clock_hz):
     """The rescue kernel against its plain version at the main path's
     shape: the partner choice of the sorted scene (``mesh._rescue_select``,
@@ -401,40 +492,28 @@ def _rescue_shape(spos, smass, salive, cfg, params, a, n_sm, max_clock_hz):
     from tpu_nbody_torch.ops import band, mesh
     S = cfg.mesh_band
     live = torch.where(salive, smass, 0.0)
-
-    def select():
-        return mesh._rescue_select(spos, live, salive, a, band=S,
-                                   k=cfg.mesh_rescue, chunk=cfg.mesh_chunk)
-
-    # the selection stays in torch: its device time, and the host's time
-    # to enqueue it (launch-bound where the two are close)
-    sel = select()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    select()
-    enqueue_ms = 1e3 * (time.perf_counter() - t0)
-    select_ms = timed_ms(select, reps=5)
+    sel = mesh._rescue_select(spos, live, salive, a, band=S,
+                              k=cfg.mesh_rescue, chunk=cfg.mesh_chunk)
     m = sel.rows.shape[0]
     pvalid = sel.mval > 0
+    midx = sel.midx.contiguous()
     args = (sel.rows, torch.arange(m, device=spos.device), sel.rows,
-            sel.midx, pvalid, params.soft2, a, cfg.mesh_switch)
+            midx, pvalid, params.soft2, a, cfg.mesh_switch)
     r = _compare(f"rescue {cfg.mesh_switch} S={S} k={sel.k} blocks={m}",
                  lambda: band.rescue_pair_sum(*args),
                  lambda: band.rescue_pair_sum_ref(*args, chunk=sel.cb))
     valid = int(pvalid.sum())
     plan = band._rescue_plan(S, sel.k)
     out = dict(r, blocks=m, k=sel.k, valid_partner_blocks=valid,
-               need=int(sel.cnt.max()),
-               select=dict(ms=select_ms, host_enqueue_ms=enqueue_ms),
+               need=int(sel.need),
                **bounds(band.rescue_pair_work(m, sel.k, S, valid, m,
                                               cfg.mesh_switch),
                         r["ms"], n_sm, max_clock_hz),
                plan=dict(T=plan.T, PL=plan.PL, threads=plan.threads,
                          smem=plan.smem))
     print(f"  rescue: {valid} of {m * sel.k} partner slots valid, bound "
-          f"{out['bound_ms']:.4f} ms ({out['pct_of_bound']:.1f}%); the "
-          f"selection in torch {select_ms:.4f} ms on the card, "
-          f"{enqueue_ms:.4f} ms for the host to enqueue it", flush=True)
+          f"{out['bound_ms']:.4f} ms ({out['pct_of_bound']:.1f}%)",
+          flush=True)
     return out
 
 
@@ -1054,11 +1133,12 @@ def _render_main(paths, cfg, params, dev, st0, stepped):
         return final, frames, time.perf_counter() - t0
 
     final, frames, sec = paths.run("render_movie_pm", movie, need=("band",))
-    if paths.counts["render_movie_pm"] != _only(band=64, rescue=64):
+    if paths.counts["render_movie_pm"] != _only(band=64, rescue=64,
+                                                rescue_select=64):
         raise AssertionError(f"render_movie_pm: launches "
                              f"{paths.counts['render_movie_pm']}, expected "
-                             f"64 band and 64 rescue (two passes a single "
-                             f"step)")
+                             f"64 band, 64 rescue and 64 rescue_select (two "
+                             f"passes a single step)")
     if not (frames.device.type == dev.type and frames.dtype == torch.uint8
             and tuple(frames.shape) == (8, h, w, 3)
             and int(final.step) == 32 and int(frames[0].sum()) > 0
@@ -1088,7 +1168,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
     """The sharded P3M main path at N = 1M on P_RANKS thread ranks."""
     import torch
     from tpu_nbody_torch import accuracy, engine
-    from tpu_nbody_torch.ops import band
+    from tpu_nbody_torch.ops import band, mesh
     from tpu_nbody_torch.parallel import mesh as pmesh
     from tpu_nbody_torch.parallel import sharded, sharded_pm
     from tpu_nbody_torch.parallel.collectives import run_spmd
@@ -1110,6 +1190,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         out = {}
         for label in ("warm-up", "timed"):
             b0, r0 = band.LAUNCHES, band.RESCUE_LAUNCHES
+            s0 = mesh.SELECT_LAUNCHES
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
@@ -1121,21 +1202,26 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             host = time.perf_counter() - t0
             launches = band.LAUNCHES - b0
             rescues = band.RESCUE_LAUNCHES - r0
+            selects = mesh.SELECT_LAUNCHES - s0
             print(f"  step({F_STEPS}) {label}: {host:.3f} s host, "
                   f"{start.elapsed_time(end):.1f} ms device events, "
-                  f"{launches} band launches, {rescues} rescue launches",
-                  flush=True)
+                  f"{launches} band launches, {rescues} rescue launches, "
+                  f"{selects} rescue_select launches", flush=True)
             if label == "timed" and (launches != P * (F_STEPS + 1)
-                                     or rescues != 2 * launches):
+                                     or rescues != 2 * launches
+                                     or selects != 3 * launches):
                 raise AssertionError(
-                    f"sharded pm: {launches} band and {rescues} rescue "
-                    f"launches in step({F_STEPS}), expected {P} band a "
-                    f"force pass x {F_STEPS + 1} passes and two rescues "
-                    f"(local, cross-shard) a band launch")
+                    f"sharded pm: {launches} band, {rescues} rescue and "
+                    f"{selects} rescue_select launches in step({F_STEPS}), "
+                    f"expected {P} band a force pass x {F_STEPS + 1} "
+                    f"passes, two rescues (local, cross-shard) and three "
+                    f"selections (local; the cross-shard export scores "
+                    f"and import picks) a band launch")
             out[label] = (host / F_STEPS, start.elapsed_time(end) / F_STEPS)
         return out, n0
 
-    times, n0 = paths.run("sharded_pm", run, need=("band", "rescue"))
+    times, n0 = paths.run("sharded_pm", run,
+                          need=("band", "rescue", "rescue_select"))
     sec, dev_ms = times["timed"]
     st = se.state
     n1 = int(st.n_alive())
@@ -1184,12 +1270,14 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
                                  f"{e['mean']:.3e} > {ERR_LIMIT:.3e}")
         return gst, local, float(rel.mean())
 
-    gst, local, rel_mean = paths.run("sharded_pm_force_error", error,
-                                     need=("band", "rescue", "allpairs"))
-    if paths.counts["sharded_pm_force_error"]["band"] != P + 1:
+    gst, local, rel_mean = paths.run(
+        "sharded_pm_force_error", error,
+        need=("band", "rescue", "rescue_select", "allpairs"))
+    counts = paths.counts["sharded_pm_force_error"]
+    if counts["band"] != P + 1 or counts["rescue_select"] != 3 * P + 1:
         raise AssertionError(
-            f"sharded pm: {paths.counts['sharded_pm_force_error']} launches "
-            f"for a sharded and a one-device pass, expected {P} + 1 band")
+            f"sharded pm: {counts} launches for a sharded and a one-device "
+            f"pass, expected {P} + 1 band and {3 * P} + 1 rescue_select")
 
     # one pass by phase on rank 0, CUDA events; every rank enqueues on the
     # one stream, so a phase's time holds the other ranks' work enqueued
@@ -1280,7 +1368,7 @@ def _path_f2(paths):
     print(f"path F2: python -m tpu_nbody_torch.examples.merger10m "
           f"{' '.join(args)}", flush=True)
     r = paths.run("merger10m", lambda: merger10m.main(args),
-                  need=("band", "rescue"))
+                  need=("band", "rescue", "rescue_select"))
     n_total = int(args[args.index("--n") + 1])
     alive = [n for _, n, _ in r["lines"]]
     st = r["engine"].state
@@ -1471,7 +1559,8 @@ def _path_f5(paths, dev):
     paths.run("dryrun_multichip",
               lambda: graft_entry.dryrun_multichip(DRYRUN_RANKS,
                                                    device=DEVICE),
-              need=("band", "rescue", "allpairs", "bh_pairs"))
+              need=("band", "rescue", "rescue_select", "allpairs",
+                    "bh_pairs"))
     fn, (st, prm) = graft_entry.entry(device=DEVICE)
     t0 = time.perf_counter()
     out = paths.run("entry", lambda: fn(st, prm), need=("bh_pairs",))
@@ -1662,7 +1751,9 @@ def main() -> int:
                 plan=dict(T=plan.T, B=plan.B, threads=plan.threads,
                           smem=plan.smem))
 
-    # -- rescue kernel vs plain, the same sorted scene ---------------------
+    # -- rescue selection and pair kernels vs plain, the same scene -------
+    results["rescue_select"] = _rescue_select_shape(spos, smass, salive,
+                                                    cfg, a)
     results["rescue"] = _rescue_shape(spos, smass, salive, cfg, params, a,
                                       n_sm, max_clock_hz)
 
@@ -1737,14 +1828,14 @@ def main() -> int:
     paths.run("force_error_step0",
                      lambda: _force_error("pm_main step 0", st0, cfg, params,
                                           g),
-                     need=("band", "rescue", "allpairs"))
+                     need=("band", "rescue", "rescue_select", "allpairs"))
 
     # -- main path ----------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     sec, n0, n1 = paths.run(
         "pm_main", lambda: _run_steps(eng, 3, [STEPS] * 3, lambda s: s + 1,
-                                      ("band", "rescue")),
-        need=("band", "rescue"))
+                                      ("band", "rescue", "rescue_select")),
+        need=("band", "rescue", "rescue_select"))
     _report_run("pm_main", eng, sec, n0, n1)
     main_sec = sec
     hud = eng.stats()
@@ -1788,17 +1879,17 @@ def main() -> int:
     sub = _engine(cfg_b, params, dev, N, solver="pm", integrator="kdk_reuse")
     torch.cuda.reset_peak_memory_stats()
     sec, n0, n1 = paths.run(
-        "pm_subcycled", lambda: _run_steps(sub, 3, [STEPS] * 3,
-                                           lambda s: s + 1,
-                                           ("band", "rescue")),
-        need=("band", "rescue"))
+        "pm_subcycled",
+        lambda: _run_steps(sub, 3, [STEPS] * 3, lambda s: s + 1,
+                           ("band", "rescue", "rescue_select")),
+        need=("band", "rescue", "rescue_select"))
     _report_run("pm_subcycled", sub, sec, n0, n1)
     print(f"pm_subcycled against pm_main in this run: "
           f"{1e3 * sec:.2f} against {1e3 * main_sec:.2f} ms/step", flush=True)
     paths.run("pm_subcycled_force_error",
               lambda: _force_error("pm_subcycled fresh pass after the run",
                                    sub.state, cfg_b, params, g, ERR_LIMIT),
-              need=("band", "rescue", "allpairs"))
+              need=("band", "rescue", "rescue_select", "allpairs"))
     del sub
 
     # -- path C: one fresh force pass per remaining knob --------------------
@@ -1819,7 +1910,7 @@ def main() -> int:
         return out
 
     errs = paths.run("pm_knobs", knobs,
-                     need=("band", "rescue", "allpairs"))
+                     need=("band", "rescue", "rescue_select", "allpairs"))
     cic = errs["cic"]["mean"]
     checks = {
         "heavy_direct": errs["heavy_direct"]["mean"] <= 1.05 * cic,
@@ -1840,8 +1931,8 @@ def main() -> int:
     ex = _engine(cfg_x, params, dev, N, solver="pm", integrator="kdk_reuse")
     paths.run("pm_extrapolate",
               lambda: _run_steps(ex, 2, [2, 2], lambda s: s + 1,
-                                 ("band", "rescue")),
-              need=("band", "rescue"))
+                                 ("band", "rescue", "rescue_select")),
+              need=("band", "rescue", "rescue_select"))
     print("  pm_mesh_extrapolate: two step(2) calls, state finite",
           flush=True)
     del ex
@@ -1909,6 +2000,7 @@ def main() -> int:
         path_e_body_updates_per_s=e["body_updates_per_s"])
     launches = {"band": paths.counts["pm_main"]["band"],
                 "rescue": paths.counts["pm_main"]["rescue"],
+                "rescue_select": paths.counts["pm_main"]["rescue_select"],
                 "allpairs": paths.counts["sphere3d_engine"]["allpairs"],
                 "bh_pairs": paths.counts["bh_small_force_error"]["bh_pairs"],
                 "bh_hier": paths.counts["bh_engine"]["bh_hier"]}
@@ -1932,6 +2024,16 @@ def main() -> int:
              launches=launches["rescue"],
              launches_by_path=paths.of("rescue"), library_ms=None,
              **results["rescue"]),
+        dict(name="rescue_select", route="cuda",
+             source="tpu_nbody_torch/csrc/rescue_select.cu",
+             replaces="tpu_nbody/ops/mesh.py:245",
+             replaces_also="tpu_nbody/parallel/sharded_pm.py:197",
+             replaces_kind="XLA box-gap test and top_k of the rescue "
+                           "(one_chunk, mesh.py:316-330; no Pallas "
+                           "original)",
+             launches=launches["rescue_select"],
+             launches_by_path=paths.of("rescue_select"), library_ms=None,
+             **results["rescue_select"]),
         dict(name="bh_pairs", route="cuda",
              source="tpu_nbody_torch/csrc/bh_pairs.cu",
              replaces="tpu_nbody/ops/traverse.py:589",

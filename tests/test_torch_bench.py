@@ -135,7 +135,11 @@ def test_phase_work_counts(small):
     assert work["rescue_pairs"]["flops"] == \
         n * k * S * band._PAIR_FLOPS["poly4"]
     blocks = -(-n // S)
-    assert work["rescue_select"]["flops"] == 11 * blocks * blocks
+    # the selection's union tests, then 32 box tests a near group
+    assert work["rescue_select"]["flops"] == 11 * blocks * -(-blocks // 32)
+    near = bench.phase_work(cfg, n, select_groups=1000)["rescue_select"]
+    assert near["flops"] == work["rescue_select"]["flops"] + 11 * 32 * 1000
+    assert near["bytes"] == work["rescue_select"]["bytes"]
     for row in work.values():             # counted from shapes alone
         assert all(isinstance(v, (int, float)) and v >= 0
                    for v in row.values())
@@ -165,7 +169,7 @@ class _HostEvent:
 PHASES = {
     "pm": ["hilbert sort (/8 steps)", "CIC cells", "deposit (4 plane "
            "scatter)", "FFT convolution + FD gradient", "interpolation",
-           "band S=256 (kernel)", "rescue select k=4",
+           "band S=256 (kernel)", "rescue select k=4 (kernel)",
            "rescue pairs k=4 (kernel)", "merge", "kernel hats (/2 steps)"],
     "bh": ["build", "groups", "lists", "evaluate (bh_pairs kernel)",
            "assemble"],

@@ -75,7 +75,7 @@ def _forms(spos, smass, salive, S, k, a):
     hid = torch.full((H,), B - 1, dtype=torch.int64, device=dev)
     hid[:hot.numel()] = hot
     hvalid = torch.arange(H, device=dev) < hot.numel()
-    g2 = tmesh._box_gaps(sel.bbox[hid], *sel.boxes)
+    g2 = tmesh._box_gaps(sel.bbox[hid], *sel.bbox.unbind(1))
     rcut2 = (2.0 * a) ** 2
     mask = (g2 < rcut2) & ((hid[:, None] - torch.arange(B, device=dev)
                             [None, :]).abs() > 1)

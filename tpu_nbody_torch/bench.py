@@ -79,7 +79,6 @@ PHASE_REPS = 5          # CUDA-event timings a phase, after 2 warm-ups
 # counted from mesh._cic_cells: scale 4, floor 2, then the weights
 _CELL_FLOPS = {1: 6, 2: 16, 3: 35}
 _TAPS = {1: 1, 2: 4, 3: 9}            # cells a body touches
-_BOX_TEST_FLOPS = 11                  # mesh._box_gaps a pair of blocks
 _PICK_BYTES = 13                      # a rescue partner: int64, score, flag
 _MERGE_FLOPS = 6                      # distance test a (body, heavy) pair
 _F32, _C64 = 4, 8                     # bytes
@@ -118,16 +117,20 @@ def _fft_flops(points: int, real: bool) -> float:
     return (2.5 if real else 5.0) * points * math.log2(points)
 
 
-def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64) -> dict:
+def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
+               select_groups: int = 0) -> dict:
     """Flops and bytes of each P3M phase of the bench at ``cfg`` with ``n``
-    alive bodies, counted from the shapes alone (pure Python): each input
+    alive bodies, counted from the shapes alone (pure Python) but for the
+    selection's ``select_groups``, which the caller counts: each input
     byte read once and each output byte written once, whatever the code
     reads again. Per call of the phase: the table scales the re-sort by
     1/``pm_resort_every`` and the kernel hats by 1/steps. Dead bodies sort
     behind the alive ones and carry no work. The band row is
     :func:`band.pair_work` of the ``n`` sorted bodies; the rescue is two
-    rows: its selection (``rescue_select``: the box-gap test of every pair
-    of blocks, the block rows read once and the k partner indices, flags
+    rows: its selection (``rescue_select``: the box tests the selection
+    kernel needs, :func:`mesh.select_work` of every block against every
+    block with ``select_groups`` near groups of 32 blocks, the kernel's
+    counter; the block rows read once and the k partner indices, flags
     and scores written once) and its pair sum (``rescue_pairs``, the rescue
     kernel: the ``mesh_rescue`` partner blocks of S bodies that each body's
     block evaluates, n·k·S pairs at the band's flops a pair, the rows and
@@ -169,7 +172,9 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64) -> dict:
         "interp": dict(flops=2 * (2 * K - 1) * n,
                        bytes=fgrid + weights + acc_out),
         "band": band.pair_work(n, S, cfg.mesh_switch),
-        "rescue_select": dict(flops=_BOX_TEST_FLOPS * blocks * blocks,
+        "rescue_select": dict(flops=mesh.select_work(
+                                  blocks, blocks, k, select_groups,
+                                  boxes=blocks)["flops"],
                               bytes=body_in + blocks * k * _PICK_BYTES),
         "rescue_pairs": dict(pairs=rescue_pairs,
                              flops=rescue_pairs * pair_flops,
@@ -338,9 +343,10 @@ class _PairClock(profiling.EventClock):
 
 def _pm_phases(eng: Engine, steps: int) -> list:
     """(name, ms, work, scale) of each P3M phase, each run alone on the
-    Hilbert-sorted state. The rescue is its base tier's selection and its
-    pair kernel; a two-tier rescue's hot tier (``mesh_rescue_hot``, off in
-    the bench's configuration) has no row."""
+    Hilbert-sorted state. The rescue is its selection (the block boxes and
+    the selection kernel) and its base tier's pair kernel; a two-tier
+    rescue's hot tier (``mesh_rescue_hot``, off in the bench's
+    configuration) adds no selection and has no pair row."""
     cfg, params, st, dev = eng.cfg, eng.params, eng.state, eng.device
     origin, side = engine._root(cfg)
     nw, ny, grid, grid_y, h, a, morigin = mesh._pm_geometry(
@@ -364,11 +370,13 @@ def _pm_phases(eng: Engine, steps: int) -> list:
     # the rescue's two halves, on the masses the pass gives it (dead at 0)
     live_mass = torch.where(salive, smass, 0.0)
     sel = mesh._rescue_select(spos, live_mass, salive, a, band=S,
-                              k=cfg.mesh_rescue, chunk=chunk)
+                              k=cfg.mesh_rescue, chunk=chunk,
+                              count_groups=True)
     tid = torch.arange(sel.rows.shape[0], device=dev)
     pvalid = sel.mval > 0
     K = max(1, cfg.pm_resort_every)
-    work = phase_work(cfg, int(st.n_alive()), eng.merge_heavy_cap)
+    work = phase_work(cfg, int(st.n_alive()), eng.merge_heavy_cap,
+                      select_groups=int(sel.groups))
     phases = [
         (f"hilbert sort (/{K} steps)", "sort", 1.0 / K,
          lambda: mesh._hilbert_sort(st.pos, st.mass, st.alive, origin,
@@ -386,7 +394,8 @@ def _pm_phases(eng: Engine, steps: int) -> list:
          lambda: band.band_short_range(spos, smass, params.soft2, a,
                                        band=S, chunk=chunk,
                                        switch=cfg.mesh_switch)),
-        (f"rescue select k={cfg.mesh_rescue}", "rescue_select", 1.0,
+        (f"rescue select k={cfg.mesh_rescue} (kernel)", "rescue_select",
+         1.0,
          lambda: mesh._rescue_select(spos, live_mass, salive, a, band=S,
                                      k=cfg.mesh_rescue, chunk=chunk)),
         (f"rescue pairs k={cfg.mesh_rescue} (kernel)", "rescue_pairs", 1.0,

@@ -35,6 +35,7 @@ LIB_NAME = "libtpu_nbody_torch.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes of every extern "C" launcher; each returns cudaError_t
 SIGNATURES = {
     # pos, mass, out, cap, band, soft2, inv_scale (1/(4a²) poly4, 1/a²
@@ -56,6 +57,10 @@ SIGNATURES = {
     # gvalid, gmin, gmax, out, counts (or null), walked (or null), groups,
     # K, CH, GS, cap, NC, stage, theta2, soft2, stream
     "tnt_bh_hier": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
+    # tbox, cbox, cgid (or null), cvalid (or null), mval, midx, cnt, stats,
+    # groups (or null), tgid0, M, C, kh, kthr, rcut2, warps, tile, bufcap,
+    # stream
+    "tnt_rescue_select": [_P] * 9 + [_L] + [_I] * 4 + [_F] + [_I] * 3 + [_P],
 }
 
 _lib = None

@@ -13,8 +13,9 @@ short-range switch w (:func:`_short_weight`):
 * F_short = w·F is summed over a block-tridiagonal band in Hilbert order
   (:mod:`tpu_nbody_torch.ops.band`, the hand-written kernel on the card)
   plus an exact block rescue for neighbours the curve puts far apart
-  (:func:`_block_rescue`, one or two tiers: the partner choice here, the
-  pair sum a second hand-written kernel, ``band.rescue_pair_sum``).
+  (:func:`_block_rescue`, one or two tiers: the partner choice
+  :func:`rescue_select`, a hand-written kernel on the card, and the pair
+  sum a second one, ``band.rescue_pair_sum``).
 
 The long-range grids can also be carried across steps
 (:func:`pm_mesh_state`): F_long subcycling, with the heaviest bodies kept
@@ -22,13 +23,18 @@ off the mesh and summed directly (:func:`_heavy_direct`) and the stale
 self-image cancelled (:func:`_self_term`).
 
 The FFTs go to the device's FFT library through ``torch.fft``; deposit,
-interpolation, the rescue's partner choice, the heavy-direct sum and the
-self-term are plain torch in this port so far (hand kernels for them are
-listed in ROADMAP.md, queue 2b).
+interpolation, the heavy-direct sum and the self-term are plain torch in
+this port so far (hand kernels for them are listed in ROADMAP.md, queue
+2b). :func:`rescue_select` launches ``csrc/rescue_select.cu`` for CUDA
+tensors and runs :func:`_rescue_select_ref` for CPU tensors;
+:data:`SELECT_LAUNCHES` counts its launches, :func:`_select_plan` chooses
+its launch shape and :func:`select_work` counts the work a run's data
+needs of it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
@@ -36,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_nbody_torch.config import f32
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import band as band_ops
 from tpu_nbody_torch.ops import morton
 # The switch and the block layout are shared with the band pass, which owns
@@ -44,6 +51,13 @@ from tpu_nbody_torch.ops.band import (  # noqa: F401
     SWITCHES, _block_bounds, _check_switch, _pair_sum, _short_weight)
 
 ORDERS = (1, 2, 3)          # NGP, CIC, TSC
+SELECT_LAUNCHES = 0         # csrc/rescue_select.cu
+_SELECT_WARPS = 16          # warps a selection CTA, one target each; the
+                            # most csrc/rescue_select.cu takes
+_SELECT_GROUP = 32          # candidates behind one union box of the kernel
+_BOX_TEST_FLOPS = 11        # _box_gaps of one pair of boxes
+_SELECT_SLACK = 128         # keys a warp buffers beyond kh between prunes
+_SELECT_SMEM = 232448       # shared memory a CTA may use (227 KB)
 
 
 def _check_order(order: int):
@@ -167,66 +181,257 @@ def _box_gaps(bb, bminx, bmaxx, bminy, bmaxy):
     return gx * gx + gy * gy
 
 
+def _block_boxes(spos, smass, salive, band):
+    """Block rows and alive-only bounding boxes of sorted bodies.
+
+    Returns (X (B, S, 3) packed pos+mass rows, bbox (B, 4) as [minx, maxx,
+    miny, maxy]); empty and padding blocks get the inverted box (+big,
+    -big, +big, -big), whose gap to everything is huge, so they never
+    pair."""
+    cap = spos.shape[0]
+    S = band
+    B = -(-cap // S)
+    pad = B * S - cap
+    X = F.pad(torch.cat([spos, smass[:, None]], dim=1),
+              (0, 0, 0, pad)).reshape(B, S, 3)
+    lv = F.pad(salive, (0, pad)).reshape(B, S, 1)
+    big = torch.finfo(spos.dtype).max
+    lo = torch.where(lv, X[..., :2], big).amin(dim=1)          # (B, 2)
+    hi = torch.where(lv, X[..., :2], -big).amax(dim=1)
+    return X, torch.stack([lo, hi], dim=2).reshape(B, 4)
+
+
+def _rcut2(a):
+    """The rescue's squared cutoff (2a)², in Python double as the JAX
+    package writes it; torch compares and subtracts it as float32."""
+    return (2.0 * a) * (2.0 * a)
+
+
+class Selection(NamedTuple):
+    """What :func:`rescue_select` returns for M targets."""
+    mval: torch.Tensor       # (M, kh) scores, highest first; > 0 if wanted
+    midx: torch.Tensor       # (M, kh) int64 candidate indices
+    cnt: torch.Tensor        # (M,) int32 candidates each target wanted
+    need: torch.Tensor       # () int32 max cnt
+    hot: torch.Tensor        # () int32 targets with cnt > k
+    groups: torch.Tensor | None = None  # () int64 near groups, if counted
+
+
+class SelectPlan(NamedTuple):
+    """Launch shape of ``csrc/rescue_select.cu``: ``warps`` a CTA, a
+    shared table of ``tile`` candidate boxes, ``bufcap`` buffered keys a
+    warp; ``smem`` bytes of shared memory."""
+    warps: int
+    tile: int
+    bufcap: int
+    smem: int
+
+
+def _select_plan(C: int, kh: int) -> SelectPlan:
+    """The selection kernel's launch shape for ``C`` candidates and ``kh``
+    partner slots. A warp buffers kh rounded up to 32 keys plus
+    :data:`_SELECT_SLACK` and sorts into as many again; the
+    :data:`_SELECT_WARPS` warps a CTA are cut so the buffers take at most
+    half the shared memory, and the table takes the rest, whole groups of
+    32 boxes each with its union box, up to all ``C`` candidates (one
+    tile)."""
+    if kh < 0 or C < 1:
+        raise ValueError(f"a selection needs C >= 1 candidates and kh >= 0 "
+                         f"slots, got C={C}, kh={kh}")
+    kp = -(-kh // 32) * 32
+    bufcap = kp + _SELECT_SLACK
+    per_warp = 8 * (bufcap + kp)
+    warps = max(1, min(_SELECT_WARPS, (_SELECT_SMEM // 2) // per_warp))
+    room = _SELECT_SMEM - 16 - warps * per_warp
+    fit = room // (33 * 16) * 32        # 32 boxes and their union
+    if fit < 32:
+        raise ValueError(f"kh={kh} partner slots leave no room for the "
+                         f"box table in shared memory")
+    tile = min(-(-C // 32) * 32, fit)
+    return SelectPlan(warps=warps, tile=tile, bufcap=bufcap,
+                      smem=16 + 16 * tile + tile // 2 + warps * per_warp)
+
+
+def _union_boxes(cbox):
+    """The union box of each :data:`_SELECT_GROUP` consecutive candidate
+    boxes of ``cbox`` (C, 4), the last group padded with the inverted
+    infinite box, as the selection kernel builds them."""
+    C = cbox.shape[0]
+    pad = -C % _SELECT_GROUP
+    inf = math.inf
+    fill = torch.tensor([inf, -inf, inf, -inf], dtype=cbox.dtype,
+                        device=cbox.device).expand(pad, 4)
+    g = torch.cat([cbox, fill]).reshape(-1, _SELECT_GROUP, 4)
+    return torch.stack([g[..., 0].amin(1), g[..., 1].amax(1),
+                        g[..., 2].amin(1), g[..., 3].amax(1)], dim=1)
+
+
+def select_work(M: int, C: int, kh: int, groups: int, *,
+                boxes=None) -> dict:
+    """Flops and bytes of one selection of ``M`` targets among ``C``
+    candidates that this run's data needs: the box test (11 flops) of one
+    union box a (target, group of :data:`_SELECT_GROUP` candidates), and
+    of the members of the ``groups`` groups whose union box is near (the
+    kernel's counter, :func:`rescue_select` with ``count_groups``); the
+    ``boxes`` distinct boxes read (default M + C; M where the targets are
+    the candidates), and the kh scores and indices and the count of each
+    target written."""
+    unions = M * -(-C // _SELECT_GROUP)
+    boxes = M + C if boxes is None else boxes
+    return dict(
+        flops=_BOX_TEST_FLOPS * (unions + _SELECT_GROUP * groups),
+        bytes=16 * boxes + M * (12 * kh + 4) + 8)
+
+
+def _rescue_select_ref(tbox, cbox, rcut2, kh, *, k=None, tgid0=0,
+                       cgid=None, cvalid=None, chunk=None,
+                       count_groups=False) -> Selection:
+    """Plain torch selection: for each target box of ``tbox`` (M, 4), the
+    squared gap to every candidate box of ``cbox`` (C, 4), masked by
+    g2 < rcut2, |gid_t − gid_j| > 1 (gid_t = tgid0 + t, gid_j = ``cgid[j]``
+    or j) and ``cvalid``; the ``kh`` highest scores rcut2 − g2 (0 where
+    masked out), ties to the lower index as ``jax.lax.top_k``; the counts,
+    their max and the number above ``k`` (default kh). ``chunk`` targets
+    at a time (default all) bound the (chunk, C) temporaries; the rows are
+    independent, so it changes no bit. ``count_groups``: also the
+    (target, group of 32 candidates) pairs whose union box passes the
+    kernel's skip test, what the kernel's counter counts."""
+    M, C = tbox.shape[0], cbox.shape[0]
+    dev = tbox.device
+    k = kh if k is None else k
+    chunk = chunk or M
+    cg = torch.arange(C, device=dev) if cgid is None else cgid
+    tg = tgid0 + torch.arange(M, device=dev)
+    boxes = cbox.unbind(1)
+    unions = _union_boxes(cbox).unbind(1) if count_groups else None
+    vals, idxs, cnts = [], [], []
+    groups = torch.zeros((), dtype=torch.int64, device=dev)
+    for r0 in range(0, M, chunk):
+        if count_groups:
+            g2u = _box_gaps(tbox[r0:r0 + chunk], *unions)
+            groups += (~(g2u >= rcut2)).sum()
+        g2 = _box_gaps(tbox[r0:r0 + chunk], *boxes)              # (m, C)
+        mask = (g2 < rcut2) & ((tg[r0:r0 + chunk, None]
+                                - cg[None, :]).abs() > 1)
+        if cvalid is not None:
+            mask = mask & cvalid[None, :]
+        cnts.append(mask.sum(dim=1, dtype=torch.int32))        # exact needs
+        score = torch.where(mask, rcut2 - g2, 0.0)
+        mval, midx = _topk_lowest_index(score, kh)               # (m, kh)
+        vals.append(mval)
+        idxs.append(midx)
+    cnt = torch.cat(cnts)
+    return Selection(mval=torch.cat(vals), midx=torch.cat(idxs), cnt=cnt,
+                     need=cnt.max(), hot=(cnt > k).sum(dtype=torch.int32),
+                     groups=groups if count_groups else None)
+
+
+def rescue_select(tbox, cbox, rcut2, kh, *, k=None, tgid0=0, cgid=None,
+                  cvalid=None, chunk=None, count_groups=False) -> Selection:
+    """The rescue's partner selection (:func:`_rescue_select_ref`). CPU
+    tensors take the plain version, chunked by ``chunk``; CUDA tensors
+    launch ``csrc/rescue_select.cu`` once, which needs no chunks and keeps
+    ``need`` and ``hot`` on the device. ``cgid`` holds int64 ids,
+    ``cvalid`` bools; ``kh`` is at most C. ``count_groups`` fills
+    ``groups``, the near groups the kernel tests in full (its counter on
+    the card)."""
+    given = [t for t in (tbox, cbox, cgid, cvalid) if t is not None]
+    if all(t.device.type == "cpu" for t in given):
+        return _rescue_select_ref(tbox, cbox, rcut2, kh, k=k, tgid0=tgid0,
+                                  cgid=cgid, cvalid=cvalid, chunk=chunk,
+                                  count_groups=count_groups)
+    M, C = tbox.shape[0], cbox.shape[0]
+    dev = tbox.device
+    _build.check_tensor("tbox", tbox, (M, 4), align=16)
+    _build.check_tensor("cbox", cbox, (C, 4), device=dev, align=16)
+    if cgid is not None:
+        _build.check_tensor("cgid", cgid, (C,), device=dev, dtype=torch.int64)
+    if cvalid is not None:
+        _build.check_tensor("cvalid", cvalid, (C,), device=dev,
+                            dtype=torch.bool)
+    if not 0 <= kh <= C:
+        raise ValueError(f"kh={kh} partner slots for {C} candidates")
+    k = kh if k is None else k
+    if C == 0:                  # no candidate: nothing to launch
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return Selection(
+            mval=torch.zeros((M, kh), dtype=tbox.dtype, device=dev),
+            midx=torch.zeros((M, kh), dtype=torch.int64, device=dev),
+            cnt=torch.zeros((M,), dtype=torch.int32, device=dev),
+            need=zero, hot=zero.clone(),
+            groups=(torch.zeros((), dtype=torch.int64, device=dev)
+                    if count_groups else None))
+    return _select_launch(tbox, cbox, rcut2, kh, k, tgid0, cgid, cvalid,
+                          _select_plan(C, kh), count_groups)
+
+
+def _select_launch(tbox, cbox, rcut2, kh, k, tgid0, cgid, cvalid,
+                   plan: SelectPlan, count_groups=False) -> Selection:
+    """Launch the selection kernel with ``plan`` on checked arguments."""
+    global SELECT_LAUNCHES
+    M, C = tbox.shape[0], cbox.shape[0]
+    dev = tbox.device
+    mval = torch.empty((M, kh), dtype=tbox.dtype, device=dev)
+    midx = torch.empty((M, kh), dtype=torch.int64, device=dev)
+    cnt = torch.empty((M,), dtype=torch.int32, device=dev)
+    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
+    groups = (torch.zeros((), dtype=torch.int64, device=dev)
+              if count_groups else None)
+    rc = _build.library().tnt_rescue_select(
+        tbox.data_ptr(), cbox.data_ptr(),
+        None if cgid is None else cgid.data_ptr(),
+        None if cvalid is None else cvalid.data_ptr(),
+        mval.data_ptr(), midx.data_ptr(), cnt.data_ptr(), stats.data_ptr(),
+        None if groups is None else groups.data_ptr(), tgid0, M, C, kh, k,
+        ctypes.c_float(float(rcut2)), plan.warps, plan.tile, plan.bufcap,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("rescue_select", rc)
+    with band_ops._COUNT_LOCK:
+        SELECT_LAUNCHES += 1
+    return Selection(mval=mval, midx=midx, cnt=cnt, need=stats[0],
+                     hot=stats[1], groups=groups)
+
+
 class RescueSelection(NamedTuple):
-    """The base tier's partner choice of :func:`_rescue_select`."""
-    rows: torch.Tensor       # (nc, 3S) block rows, zero blocks past B
-    bbox: torch.Tensor       # (nc, 4) block boxes, inverted past B
-    boxes: tuple             # (bminx, bmaxx, bminy, bmaxy), each (B,)
-    midx: torch.Tensor       # (nc, k) partner blocks, closest first
-    mval: torch.Tensor       # (nc, k) their scores; > 0 where wanted
+    """Both tiers' partner choice of :func:`_rescue_select`."""
+    rows: torch.Tensor       # (B, 3S) block rows
+    bbox: torch.Tensor       # (B, 4) block boxes, inverted where empty
+    midx: torch.Tensor       # (B, k) partner blocks, closest first
+    mval: torch.Tensor       # (B, k) their scores; > 0 where wanted
+    hot_midx: torch.Tensor   # (B, kh - k) ranks k..kh-1 of the same ranking
+    hot_mval: torch.Tensor   # (B, kh - k)
     cnt: torch.Tensor        # (B,) partner blocks each block wanted
+    need: torch.Tensor       # () max cnt
+    hot: torch.Tensor        # () blocks with cnt > k
     k: int                   # partner slots, min(k, B)
-    cb: int                  # blocks a chunk of the selection
+    cb: int                  # blocks a chunk of the plain versions
+    groups: torch.Tensor | None = None  # near groups, if counted
 
 
 def _rescue_select(spos, smass, salive, a, *, band: int, k: int,
-                   chunk: int) -> RescueSelection:
+                   chunk: int, k_hot: int = 0,
+                   count_groups: bool = False) -> RescueSelection:
     """The rescue's selection, everything but the pair sum: alive-only
-    block boxes, a chunked (cb, B) box-gap test against the cutoff 2a, the
-    ``k`` closest partner blocks more than one block away (top-k, ties
-    towards the lower index as in JAX) and the exact partner counts. The
-    nc = n_chunks · cb rows pad the B blocks to whole chunks."""
+    block boxes, then one :func:`rescue_select` of every block against
+    every block with the cutoff 2a: the kh = max(k, min(k_hot, B)) closest
+    partner blocks more than one block away, closest first (ties towards
+    the lower index as in JAX), and the exact partner counts. Ranks
+    0..k-1 are the base tier, ranks k..kh-1 the hot tier's, so both tiers
+    come from one ranking and one launch. ``count_groups``: also the
+    selection's near groups (:func:`rescue_select`)."""
     cap = spos.shape[0]
     S = band
-    dtype, dev = spos.dtype, spos.device
-    B, cb, n_chunks = _block_bounds(cap, S, chunk)
-    pad = B * S - cap
-    fields = torch.cat([spos, smass[:, None]], dim=1)
-    fields = F.pad(fields, (0, 0, 0, pad))
-    live = F.pad(salive, (0, pad))
-    X = fields.reshape(B, S, 3)
-    lv = live.reshape(B, S)
-    big = torch.finfo(dtype).max
-    # alive-only bounding boxes; empty blocks get inverted boxes whose gap
-    # to everything is huge => no partners.
-    bminx = torch.where(lv, X[..., 0], big).amin(dim=1)
-    bmaxx = torch.where(lv, X[..., 0], -big).amax(dim=1)
-    bminy = torch.where(lv, X[..., 1], big).amin(dim=1)
-    bmaxy = torch.where(lv, X[..., 1], -big).amax(dim=1)
-    boxes = (bminx, bmaxx, bminy, bmaxy)
-    rcut2 = (2.0 * a) * (2.0 * a)
-
+    B, cb, _ = _block_bounds(cap, S, chunk)
+    X, bbox = _block_boxes(spos, smass, salive, band)
     k = min(k, B)
-    n_pad = n_chunks * cb - B
-    Xb = F.pad(X.reshape(B, S * 3), (0, 0, 0, n_pad))
-    bbox = torch.stack(boxes, dim=1)
-    bbox = torch.cat([bbox, torch.tensor([big, -big, big, -big], dtype=dtype,
-                                         device=dev).expand(n_pad, 4)])
-    idx_all = torch.arange(B, device=dev)
-    vals, idxs, cnts = [], [], []
-    for c in range(n_chunks):
-        b0 = c * cb
-        g2 = _box_gaps(bbox[b0:b0 + cb], *boxes)              # (cb, B)
-        dblk = (b0 + torch.arange(cb, device=dev))[:, None] - idx_all[None, :]
-        mask = (g2 < rcut2) & (dblk.abs() > 1)
-        cnts.append(mask.sum(dim=1, dtype=torch.int32))     # partners needed
-        score = torch.where(mask, rcut2 - g2, 0.0)
-        mval, midx = _topk_lowest_index(score, k)            # (cb, k)
-        vals.append(mval)
-        idxs.append(midx)
-    return RescueSelection(rows=Xb, bbox=bbox, boxes=boxes,
-                           midx=torch.cat(idxs), mval=torch.cat(vals),
-                           cnt=torch.cat(cnts)[:B], k=k, cb=cb)
+    kh = max(k, min(k_hot, B))
+    sel = rescue_select(bbox, bbox, _rcut2(a), kh, k=k, chunk=cb,
+                        count_groups=count_groups)
+    return RescueSelection(
+        rows=X.reshape(B, S * 3), bbox=bbox,
+        midx=sel.midx[:, :k], mval=sel.mval[:, :k],
+        hot_midx=sel.midx[:, k:], hot_mval=sel.mval[:, k:], cnt=sel.cnt,
+        need=sel.need, hot=sel.hot, k=k, cb=cb, groups=sel.groups)
 
 
 def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
@@ -236,7 +441,8 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
     sorted order.
 
     Per band block: the ``k`` closest partner blocks more than one block
-    away (:func:`_rescue_select`: closest box first, so an overflow drops
+    away (:func:`_rescue_select`, through :func:`rescue_select`: the
+    selection kernel on the card; closest box first, so an overflow drops
     the farthest, weakest pairs), then one switched pair sum over them
     (:func:`band_ops.rescue_pair_sum`: the rescue kernel on the card, the
     dense (cb, S, kS) plain version a chunk of cb blocks at a time on the
@@ -254,39 +460,32 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
     cap = spos.shape[0]
     S = band
     dev = spos.device
-    sel = _rescue_select(spos, smass, salive, a, band=band, k=k, chunk=chunk)
-    Xb, k, cnt_all = sel.rows, sel.k, sel.cnt
+    sel = _rescue_select(spos, smass, salive, a, band=band, k=k, chunk=chunk,
+                         k_hot=k_hot)
+    rows, k, cnt_all = sel.rows, sel.k, sel.cnt
     B = cnt_all.shape[0]
-    tid = torch.arange(Xb.shape[0], device=dev)
-    acc = band_ops.rescue_pair_sum(Xb, tid, Xb, sel.midx, sel.mval > 0,
+    tid = torch.arange(B, device=dev)
+    acc = band_ops.rescue_pair_sum(rows, tid, rows, sel.midx, sel.mval > 0,
                                    soft2, a, switch, chunk=sel.cb)
     acc = acc.reshape(-1, 2)
-    need = cnt_all.max()
-    hot_count = (cnt_all > k).sum(dtype=torch.int32)
 
     if k_hot > k:
         H = min(hot_cap, B)
-        kh = min(k_hot, B)
         hrank = torch.cumsum((cnt_all > k).to(torch.int64), 0)  # 1-indexed
         hid = torch.clamp(torch.searchsorted(
             hrank, torch.arange(1, H + 1, device=dev), side="left"),
             0, B - 1)
-        hvalid = torch.arange(H, device=dev) < torch.clamp(hot_count, max=H)
-        rcut2 = (2.0 * a) * (2.0 * a)
-        g2 = _box_gaps(sel.bbox[hid], *sel.boxes)             # (H, B)
-        idx_all = torch.arange(B, device=dev)
-        mask = (g2 < rcut2) & ((hid[:, None] - idx_all[None, :]).abs() > 1)
-        score = torch.where(mask, rcut2 - g2, 0.0)
-        mval, midx = _topk_lowest_index(score, kh)            # (H, kh)
+        hvalid = torch.arange(H, device=dev) < torch.clamp(sel.hot, max=H)
         # ranks k..kh-1; an invalid row (hid clamped to B - 1) sums nothing
         acc2 = band_ops.rescue_pair_sum(
-            Xb, hid, Xb, midx[:, k:], (mval[:, k:] > 0) & hvalid[:, None],
+            rows, hid, rows, sel.hot_midx[hid],
+            (sel.hot_mval[hid] > 0) & hvalid[:, None],
             soft2, a, switch)                                 # (H, S, 2)
-        rows = (hid[:, None] * S
-                + torch.arange(S, device=dev)[None, :]).reshape(-1)
-        acc.index_add_(0, rows, torch.where(hvalid[:, None, None], acc2,
-                                            0.0).reshape(-1, 2))
-    return acc[:cap], need, hot_count
+        rows_h = (hid[:, None] * S
+                  + torch.arange(S, device=dev)[None, :]).reshape(-1)
+        acc.index_add_(0, rows_h, torch.where(hvalid[:, None, None], acc2,
+                                              0.0).reshape(-1, 2))
+    return acc[:cap], sel.need, sel.hot
 
 
 def _cic_cells(spos, origin, h, nw, order, ny=None):

@@ -43,9 +43,6 @@ from tpu_nbody_torch.parallel.sharded import _merge_sharded
 from tpu_nbody_torch.state import SimState
 
 INTEGRATORS = ("kdk", "kdk_reuse", "euler")
-# elements of one (local blocks x all blocks) gap temporary of the
-# cross-shard rescue; its rows are taken in chunks below this
-_GAP_BUDGET = 1 << 25
 
 
 class PmShardStats(NamedTuple):
@@ -141,37 +138,6 @@ def _fd_force_window(phi_slab, h, *, group: Group, nw, ny):
     return fx_full[3:4 + ny], fy_full[3:4 + ny]              # (ny+1, m)
 
 
-def _block_bboxes(spos, smass, salive, band):
-    """Alive-only bounding boxes of the locally sorted rank's blocks.
-
-    Returns (X (B, S, 3) packed pos+mass rows, bbox (B, 4) as [minx, maxx,
-    miny, maxy]); empty and padding blocks get inverted boxes (+big/-big),
-    whose gap to everything is huge, so they never pair."""
-    cap = spos.shape[0]
-    S = band
-    B = -(-cap // S)
-    pad = B * S - cap
-    X = F.pad(torch.cat([spos, smass[:, None]], dim=1),
-              (0, 0, 0, pad)).reshape(B, S, 3)
-    lv = F.pad(salive, (0, pad)).reshape(B, S)
-    big = torch.finfo(spos.dtype).max
-    bbox = torch.stack(
-        [torch.where(lv, X[..., 0], big).amin(dim=1),
-         torch.where(lv, X[..., 0], -big).amax(dim=1),
-         torch.where(lv, X[..., 1], big).amin(dim=1),
-         torch.where(lv, X[..., 1], -big).amax(dim=1)], dim=1)
-    return X, bbox
-
-
-def _bbox_gap2(bb, other):
-    """Squared box-box gap: bb (B, 4) against other (M, 4) -> (B, M)."""
-    gx = torch.clamp(torch.maximum(bb[:, 0:1] - other[None, :, 1],
-                                   other[None, :, 0] - bb[:, 1:2]), min=0.0)
-    gy = torch.clamp(torch.maximum(bb[:, 2:3] - other[None, :, 3],
-                                   other[None, :, 2] - bb[:, 3:4]), min=0.0)
-    return gx * gx + gy * gy
-
-
 def _cross_shard_rescue(spos, smass, salive, soft2, a, *, band, k,
                         export_cap, chunk, group: Group, switch="exp4"):
     """Short-range rescue for block pairs on different ranks.
@@ -184,41 +150,38 @@ def _cross_shard_rescue(spos, smass, salive, soft2, a, *, band, k,
     2. each rank exports up to ``export_cap`` of its blocks that a remote
        block needs (box gap < 2a and more than one block apart in global
        block order: the band's halo covers adjacent blocks), all-gathered;
+       a block's export score is the closest remote block's, the rank-0
+       score of :func:`mesh_ops.rescue_select` against the remote boxes;
     3. each local block sums the switched pair forces of its ``k`` closest
-       imported partner blocks (closest-first, as the local rescue ranks),
-       in one :func:`band_ops.rescue_pair_sum` (the rescue kernel on the
-       card).
+       imported partner blocks (a second :func:`mesh_ops.rescue_select`,
+       closest-first as the local rescue ranks), in one
+       :func:`band_ops.rescue_pair_sum` (the rescue kernel on the card).
 
-    The (B, P·B) gap test and the plain pair sum run over chunks of local
-    blocks, which changes no result. Returns (acc_sorted (cap, 2),
-    export_need, import_need): coverage is exact up to the 2a cutoff iff
-    export_need <= export_cap and import_need <= k on every rank.
+    Both selections are the selection kernel on the card (one launch each)
+    and the plain version, ``chunk`` // ``band`` blocks at a time, on the
+    CPU. Returns (acc_sorted (cap, 2), export_need, import_need): coverage
+    is exact up to the 2a cutoff iff export_need <= export_cap and
+    import_need <= k on every rank.
     """
     cap = spos.shape[0]
     S = band
     dtype, dev = spos.dtype, spos.device
     P = group.size
     me = group.rank
-    X, bbox = _block_bboxes(spos, smass, salive, band)
+    X, bbox = mesh_ops._block_boxes(spos, smass, salive, band)
     B = X.shape[0]
-    rcut2 = (2.0 * a) * (2.0 * a)
+    cb = max(1, min(B, chunk // S))
+    rcut2 = mesh_ops._rcut2(a)
     gid = me * B + torch.arange(B, device=dev)               # global block ids
 
     bbox_all = group.all_gather(bbox).reshape(P * B, 4)
-    gid_all = torch.arange(P * B, device=dev)
-    remote = (gid_all // B) != me
+    remote = (torch.arange(P * B, device=dev) // B) != me
     # export score of each local block: the closest remote block needing it
-    rows = max(1, _GAP_BUDGET // (P * B))
-    scores = []
-    for b0 in range(0, B, rows):
-        g2 = _bbox_gap2(bbox[b0:b0 + rows], bbox_all)         # (rows, P*B)
-        need = ((g2 < rcut2) & remote[None, :]
-                & ((gid[b0:b0 + rows, None] - gid_all[None, :]).abs() > 1))
-        scores.append(torch.where(need, rcut2 - g2, 0.0).amax(dim=1))
-    exp_score = torch.cat(scores)
-    export_need = (exp_score > 0).sum(dtype=torch.int32)
+    exp = mesh_ops.rescue_select(bbox, bbox_all, rcut2, 1, k=0, tgid0=me * B,
+                                 cvalid=remote, chunk=cb)
+    export_need = exp.hot                                    # #(score > 0)
     E = min(export_cap, B)
-    val, eidx = mesh_ops._topk_lowest_index(exp_score, E)    # (E,)
+    val, eidx = mesh_ops._topk_lowest_index(exp.mval[:, 0], E)  # (E,)
     evalid = val > 0
     erows = X.reshape(B, S * 3)[eidx] * evalid[:, None].to(dtype)
     big = torch.finfo(dtype).max
@@ -232,24 +195,16 @@ def _cross_shard_rescue(spos, smass, salive, soft2, a, *, band, k,
     imp_gid = group.all_gather(egid).reshape(P * E)
     imp_shard = torch.arange(P, device=dev).repeat_interleave(E)
 
-    g2_imp = _bbox_gap2(bbox, imp_bbox)                      # (B, P*E)
-    cand = ((g2_imp < rcut2) & (imp_shard[None, :] != me)
-            & ((gid[:, None] - imp_gid[None, :]).abs() > 1)
-            & (imp_gid[None, :] >= 0))
-    import_need = cand.sum(dim=1, dtype=torch.int32).max()
     kk = min(k, P * E)
-    score = torch.where(cand, rcut2 - g2_imp, 0.0)
-
-    cb = max(1, min(B, chunk // S))
-    picks = [mesh_ops._topk_lowest_index(score[b0:b0 + cb], kk)
-             for b0 in range(0, B, cb)]
-    mval = torch.cat([v for v, _ in picks])
-    midx = torch.cat([i for _, i in picks])
+    imp = mesh_ops.rescue_select(bbox, imp_bbox, rcut2, kk, tgid0=me * B,
+                                 cgid=imp_gid,
+                                 cvalid=(imp_shard != me) & (imp_gid >= 0),
+                                 chunk=cb)
     acc = band_ops.rescue_pair_sum(
-        X.reshape(B, S * 3), torch.arange(B, device=dev), imp_rows, midx,
-        mval > 0, soft2, a, switch, chunk=cb)
+        X.reshape(B, S * 3), torch.arange(B, device=dev), imp_rows, imp.midx,
+        imp.mval > 0, soft2, a, switch, chunk=cb)
     acc = acc.reshape(B * S, 2)[:cap]
-    return acc, export_need, import_need
+    return acc, export_need, imp.need
 
 
 def _pm_accel_local_sorted(spos, smass, salive, G, soft2, origin, root_side,

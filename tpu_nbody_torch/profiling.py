@@ -32,6 +32,7 @@ import torch
 PEAK_FLOPS = 67e12      # float32 outside the tensor cores, flop/s
 PEAK_BYTES = 3.35e12    # HBM3, bytes/s
 RSQRT_PER_CLK_SM = 16   # rsqrt results a clock per SM (the SFU rate)
+LEAD_CYCLES = 4_000_000  # device_ms's spin kernel, about 2 ms on an H100
 
 
 def _first_tensor(x):
@@ -141,6 +142,30 @@ def timed_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return 0.5 * (times[(reps - 1) // 2] + times[reps // 2])
+
+
+def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` with the host's
+    enqueue hidden: each timing starts behind a spin kernel of
+    :data:`LEAD_CYCLES` clocks (``torch.cuda._sleep``),
+    so the events bracket the device work alone. :func:`timed_ms` times
+    one call on an idle card, where a call shorter than the host's enqueue
+    of it reads the host."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(LEAD_CYCLES)
         start.record()
         fn()
         end.record()
