@@ -73,7 +73,9 @@ n2 = 200,000):
 * cuda_tests: ``python -m pytest --noconftest -m cuda
   tests/test_torch_package.py tests/test_torch_rescue_kernel.py
   tests/test_torch_rescue_select.py tests/test_torch_bh_pairs.py
-  tests/test_torch_bh_hier.py -q`` in a child process, which must pass.
+  tests/test_torch_bh_hier.py tests/test_torch_merge_kernel.py
+  tests/test_torch_interp_kernel.py -q`` in a child process, which must
+  pass.
 
 On the way it
 
@@ -111,27 +113,41 @@ On the way it
    its per-group counts of accepted nodes and direct bodies against the
    masks' exactly, its sums against the plain version (one run of the
    whole pass, seconds) and on the chunk with the most direct bodies,
-   within the same 1e-5, timed over the whole pass;
+   within the same 1e-5, timed over the whole pass; the interpolation
+   kernel against its plain version bit for bit on the sorted scene (the
+   fresh pass from the force-grid windows in CIC, NGP and TSC, and path
+   B's carried table of [T | dT] lanes with frac), the CIC pass timed
+   beside ``torch.nn.functional.grid_sample`` as a yardstick; the merge
+   kernel against its plain version (the same alive flags and heavy_need,
+   masses within MERGE_RTOL) on a synthetic scene of 2^20 bodies with
+   chains of heavies and more heavies than the cap of 64, and on the main
+   path's state after its steps, timed there;
 5. sets every launch count to 0 just before each path and reads it just
    after, checking the launches each path must make (one band, one
-   rescue and one rescue selection launch per P3M force pass, two rescues
-   and three selections a rank's pass on the sharded P3M, one all-pairs
-   launch per all-pairs force pass, hier kernel launches and no other in
-   the Barnes–Hut steps), finite state and no growth of n_alive;
+   rescue, one rescue selection and one interpolation launch per P3M
+   force pass, one merge launch set a step of an engine that merges, two
+   rescues and three selections a rank's pass on the sharded P3M and two
+   merge launch sets a rank's step, one all-pairs launch per all-pairs
+   force pass, hier and merge kernel launches and no other in the
+   Barnes–Hut steps), finite state and no growth of n_alive;
 6. measures the force error against the exact all-pairs kernel on 4096
    sampled alive bodies (tpu_nbody_torch.accuracy), failing where a mean
    is over its limit.
 
-The kernels line gives, per kernel, ``launches`` (for the band, rescue
-and selection kernels the main path's three step(20) calls; for the
+The kernels line gives, per kernel, ``launches`` (for the band, rescue,
+selection, interpolation and merge kernels the main path's three
+step(20) calls; for the
 all-pairs kernel path E's run at 2^20 bodies, the path it carries: the
 P3M main path launches it only in the force error after its steps; for
 the hier kernel path D's steps; for the pair kernel the dense force
 error at N = 65,536, the Barnes–Hut main path being hier) and
 ``launches_by_path``, which holds path G's runs as ``bench_pm``,
 ``bench_allpairs`` and ``bench_bh`` (warm-up, timed repeats, force error
-and phase table). The two rescue kernels and both Barnes–Hut kernels
-have no Pallas original: ``replaces`` names the XLA code they stand for.
+and phase table). The two rescue kernels, both Barnes–Hut kernels, the
+merge and the interpolation have no Pallas original: ``replaces`` names
+the XLA code they stand for. The interpolation's ``library_ms`` is
+``grid_sample``'s time on the same windows and positions, a yardstick the
+port never calls; the merge's is null (no PyTorch call computes it).
 Each kernel's bound_ms is the larger of its flops over the float32 peak and its
 bytes over the memory rate (``pair_work``, ``rescue_pair_work`` in its
 module, ``hier_pair_work`` in traverse, ``select_work`` in mesh),
@@ -139,7 +155,10 @@ counted for the pairs this run's data needs (the rescue's valid partner
 blocks, the pair kernel's nonzero masses, the hier groups' members times
 their accepted nodes and direct bodies, the selection's union box of each
 target and group of 32 blocks and the members of the near groups, from
-the kernels' counters); rsqrt_floor_ms is its
+the kernels' counters, the merge's distance tests of every alive body
+against min(heavy_need, cap) heavies, ``merge.merge_work``; the
+interpolation's window cells its bodies touch, ``mesh.interp_work``);
+rsqrt_floor_ms is its
 pairs over the rsqrt unit's rate (16 a clock per SM at the card's highest
 SM clock), a second floor beside it.
 
@@ -167,6 +186,10 @@ N = 1_000_000       # bodies of the two-disk scene
 N_SMALL = 65_536    # bodies of the kdk and euler all-pairs runs
 STEPS = 20          # steps per Engine.step call of the P3M paths
 TOL = 1e-5          # kernel vs plain: max |diff| <= TOL * max |plain|
+# merge kernel vs plain: the same alive flags and heavy_need, masses within
+# this relative difference (the kernel sums the gains with atomics)
+MERGE_RTOL = 1e-6
+MERGE_HEAVIES = 2000  # heavies of the synthetic merge scene (cap 64)
 ERR_LIMIT = 5e-4    # mean relative force error of P3M vs exact
 # The same of Barnes–Hut at theta = 0.5. The monopole error grows with N at
 # a fixed group size (both packages agree on it for the same bodies): about
@@ -201,7 +224,8 @@ BH_STEPS = (("warm-up", 1), ("timed", 1))
 # path G: the bench's command lines; the kernels each run must launch; the
 # limit of its mean force error (all-pairs: the kernel against itself)
 BENCH_RUNS = {
-    "pm": ([], ("band", "rescue", "rescue_select", "allpairs"), ERR_LIMIT),
+    "pm": ([], ("band", "rescue", "rescue_select", "interp", "merge",
+                "allpairs"), ERR_LIMIT),
     "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
     "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
            ("allpairs", "bh_hier"), BH_ERR_LIMIT),
@@ -220,7 +244,8 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_rescue_kernel.py",
               "tests/test_torch_rescue_select.py",
               "tests/test_torch_bh_pairs.py", "tests/test_torch_bh_hier.py",
-              "-q"]
+              "tests/test_torch_merge_kernel.py",
+              "tests/test_torch_interp_kernel.py", "-q"]
 # the launch counter of each kernel: (module of tpu_nbody_torch.ops,
 # attribute)
 COUNTERS = {"band": ("band", "LAUNCHES"),
@@ -228,9 +253,13 @@ COUNTERS = {"band": ("band", "LAUNCHES"),
             "rescue_select": ("mesh", "SELECT_LAUNCHES"),
             "allpairs": ("forces", "LAUNCHES"),
             "bh_pairs": ("traverse", "LAUNCHES"),
-            "bh_hier": ("traverse", "HIER_LAUNCHES")}
+            "bh_hier": ("traverse", "HIER_LAUNCHES"),
+            "merge": ("merge", "LAUNCHES"),
+            "interp": ("mesh", "INTERP_LAUNCHES")}
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
+# merge launch sets an Engine.step(s) of the one-device engines: one a step
+P3M_MERGES = {"merge": lambda s: s}
 # the bench configuration (bench.py:244-294)
 CFG = dict(mesh_level=12, mesh_ny=2048, mesh_split=2.5, mesh_band=128,
            mesh_rescue=8, mesh_chunk=16384, mesh_switch="poly4",
@@ -327,11 +356,12 @@ def _engine(cfg, params, dev, n, **kw):
     return eng
 
 
-def _run_steps(eng, calls, steps, per_call, kernels):
+def _run_steps(eng, calls, steps, per_call, kernels, other=None):
     """``calls`` Engine.step(steps) calls, the first a warm-up; checks
-    ``per_call`` launches of each of ``kernels`` in each, finite state and
-    no growth of n_alive. Returns the fastest timed call's seconds and
-    n_alive."""
+    ``per_call`` launches of each of ``kernels`` in each (and ``other``'s
+    count of each kernel it names: {kernel: steps -> launches}), finite
+    state and no growth of n_alive. Returns the fastest timed call's
+    seconds and n_alive."""
     import torch
     n0 = int(eng.state.n_alive())
     times = []
@@ -343,12 +373,14 @@ def _run_steps(eng, calls, steps, per_call, kernels):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         after = launch_counts()
-        for kernel in kernels:
+        want = {k: per_call for k in kernels}
+        want.update(other or {})
+        for kernel, fn in want.items():
             got = after[kernel] - before[kernel]
-            if got != per_call(steps[rep]):
+            if got != fn(steps[rep]):
                 raise AssertionError(
                     f"{kernel} kernel launched {got} times in "
-                    f"step({steps[rep]}), expected {per_call(steps[rep])}")
+                    f"step({steps[rep]}), expected {fn(steps[rep])}")
         if rep:
             times.append(dt / steps[rep])
         print(f"  step({steps[rep]}) {'warm-up' if rep == 0 else 'timed'}: "
@@ -513,6 +545,191 @@ def _rescue_shape(spos, smass, salive, cfg, params, a, n_sm, max_clock_hz):
                          smem=plan.smem))
     print(f"  rescue: {valid} of {m * sel.k} partner slots valid, bound "
           f"{out['bound_ms']:.4f} ms ({out['pct_of_bound']:.1f}%)",
+          flush=True)
+    return out
+
+
+def _merge_compare(name, st, params, H):
+    """The merge kernel against its plain version on one state: the same
+    alive flags and heavy_need, masses within MERGE_RTOL; both timed (the
+    kernel's five launches on the device with the host's enqueue hidden,
+    ``device_ms``, and a call on an idle card; the plain version a call).
+    Returns the row's numbers with the bound of the tests the data
+    needs."""
+    import torch
+    from tpu_nbody_torch.ops import merge
+    got, need = merge.merge_bodies(st, params, heavy_cap=H)
+    want, wneed = merge._merge_bodies_ref(st, params, heavy_cap=H)
+    torch.cuda.synchronize()
+    n_alive = int(st.n_alive())
+    victims = n_alive - int(want.alive.sum())
+    err = float((got.mass - want.mass).abs().max())
+    rel = float(((got.mass - want.mass).abs()
+                 / want.mass.abs().clamp_min(1e-30)).max())
+    if not (int(need) == int(wneed) and torch.equal(got.alive, want.alive)
+            and rel <= MERGE_RTOL):
+        raise AssertionError(
+            f"{name}: the merge kernel disagrees with its plain version: "
+            f"heavy_need {int(need)} against {int(wneed)}, alive equal "
+            f"{torch.equal(got.alive, want.alive)}, mass max rel {rel:.3e}")
+    ms = device_ms(lambda: merge.merge_bodies(st, params, heavy_cap=H))
+    call_ms = timed_ms(lambda: merge.merge_bodies(st, params, heavy_cap=H))
+    plain_ms = timed_ms(lambda: merge._merge_bodies_ref(st, params,
+                                                        heavy_cap=H))
+    work = merge.merge_work(n_alive, int(wneed), H, st.dim)
+    out = dict(max_abs_err=err, max_rel_err=rel, ms=ms, call_ms=call_ms,
+               plain_ms=plain_ms, bodies=st.capacity, alive=n_alive,
+               heavy_need=int(wneed), heavy_cap=H, victims=victims,
+               tests=work["tests"], **bounds(work, ms))
+    print(f"{name}: {victims} bodies absorbed of {n_alive}, heavy_need "
+          f"{int(wneed)} (cap {H}): the plain version's alive flags and "
+          f"heavy_need, mass max rel diff {rel:.3e}; kernel {ms:.4f} ms on "
+          f"the device ({call_ms:.4f} ms a call on an idle card), plain "
+          f"{plain_ms:.4f} ms, bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_by']}, {out['pct_of_bound']:.2f}%)", flush=True)
+    return out
+
+
+def _merge_scene(cap, dev):
+    """A synthetic merge scene of ``cap`` bodies in the two-disk world:
+    light bodies everywhere, MERGE_HEAVIES heavies of distinct masses (so
+    ``heavy_need`` overflows the main path's cap of 64 and the kernel's
+    select runs), the 63 heaviest in 21 chains of three 6 px apart (the
+    middle one the lowest index, the ends both its victims, or the first
+    the lowest, the third then neither absorbing nor absorbed), each heavy
+    with light bodies around it and some of them dead."""
+    import torch
+    from tpu_nbody_torch.state import SimState
+    g = torch.Generator(device=dev).manual_seed(21)
+    pos = torch.rand((cap, 2), generator=g, device=dev) * torch.tensor(
+        [2400.0, 800.0], device=dev)
+    mass = torch.rand((cap,), generator=g, device=dev) + 0.5
+    alive = torch.rand((cap,), generator=g, device=dev) > 0.02
+    hs = torch.randperm(cap // 8, generator=g, device=dev)[:MERGE_HEAVIES] * 8
+    mass[hs] = torch.linspace(9000.0, 4001.0, MERGE_HEAVIES, device=dev)
+    alive[hs] = True
+    at = torch.rand((MERGE_HEAVIES, 2), generator=g, device=dev) * \
+        torch.tensor([2300.0, 700.0], device=dev) + 50.0
+    chains = 21
+    for c in range(chains):         # the 63 heaviest: chains of three
+        for j in range(3):
+            at[3 * c + j] = at[3 * c] + torch.tensor([6.0 * j, 0.0],
+                                                     device=dev)
+    lo = torch.sort(hs[:3 * chains].view(chains, 3), dim=1).values
+    mid_low = torch.arange(chains, device=dev) % 2 == 0
+    # even chains: the lowest index in the middle; odd: at the first end
+    order = torch.where(mid_low[:, None], lo[:, [1, 0, 2]], lo)
+    hs = torch.cat([order.reshape(-1), hs[3 * chains:]])
+    pos[hs] = at
+    for k in range(1, 8):           # satellites, within 3 px
+        pos[hs + k] = at + (torch.rand((MERGE_HEAVIES, 2), generator=g,
+                                       device=dev) - 0.5) * 4.0
+    return SimState(pos=pos.contiguous(), vel=torch.zeros_like(pos),
+                    mass=torch.where(alive, mass, 0.0).contiguous(),
+                    alive=alive.contiguous(),
+                    step=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _interp_shape(spos, smass, salive, cfg, params, origin, side):
+    """The interpolation kernel against its plain version at the main
+    path's shape, on the Hilbert-sorted scene: the fresh pass from the
+    force-grid windows in CIC (the main path), NGP and TSC, and path B's
+    carried table of [T | dT] lanes with frac, bit for bit; the CIC pass
+    timed (``device_ms``, a call on an idle card) beside its plain version
+    and, as a yardstick only, ``torch.nn.functional.grid_sample``
+    (bilinear, ``align_corners=True``) of the same windows at the same
+    positions."""
+    import torch
+    import torch.nn.functional as F
+    from tpu_nbody_torch.ops import mesh
+    nw, ny, grid, _, h, a, mo = mesh._pm_geometry(
+        origin, side, cfg.mesh_level, cfg.mesh_ny, cfg.mesh_split)
+
+    def same_bits(name, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            err = float((got - want).abs().max())
+            raise AssertionError(f"interp {name}: the kernel's bits differ "
+                                 f"from the plain version's (max |diff| "
+                                 f"{err:.3e})")
+        print(f"interp {name}: the plain version's bits", flush=True)
+
+    out = {}
+    for order in (2, 1, 3):
+        kernel = mesh._kernel_hats(grid, h, params.soft2, a, spos.dtype,
+                                   spos.device, grid_y=2 * ny,
+                                   deconv_order=order,
+                                   switch=cfg.mesh_switch)
+        fx, fy = mesh._mesh_grids_one(spos, smass, mo, h, nw, grid, order,
+                                      kernel, ny=ny)
+        base, w = mesh._cic_cells(spos, mo, h, nw, order, ny=ny)
+
+        def run(fx=fx, fy=fy, base=base, w=w):
+            return mesh._interp_packed(fx, fy, base, w, nw, ny=ny)
+
+        def plain(fx=fx, fy=fy, base=base, w=w):
+            return mesh._interp_packed_ref(fx, fy, base, w, nw, ny=ny)
+
+        name = {1: "NGP", 2: "CIC", 3: "TSC"}[order]
+        got = run()
+        same_bits(f"{name} windows {tuple(fx.shape)}", got, plain())
+        if order != 2:
+            continue
+        ms = device_ms(run)
+        call_ms = timed_ms(run)
+        plain_ms = timed_ms(plain)
+        # the yardstick: bilinear sampling of (fx, fy) at the bodies'
+        # cell-centre coordinates, as the CIC weights read them
+        u = (spos - torch.tensor(mo, device=spos.device)) / h - 0.5
+        rows, cols = fx.shape
+        g = torch.stack([2.0 * u[:, 0] / (cols - 1) - 1.0,
+                         2.0 * u[:, 1] / (rows - 1) - 1.0], dim=-1)
+        g = g[None, None].contiguous()
+        img = torch.stack([fx, fy])[None].contiguous()
+
+        def library():
+            return F.grid_sample(img, g, mode="bilinear",
+                                 align_corners=True)
+
+        lib = library()[0, :, 0].T
+        lib_diff = float((lib - got).abs().max())
+        library_ms = timed_ms(library)
+        n, K = w.shape
+        work = mesh.interp_work(base, K, nw, cols)
+        out.update(max_abs_err=float((got - plain()).abs().max()), ms=ms,
+                   call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library="torch.nn.functional.grid_sample (bilinear, "
+                           "align_corners=True)",
+                   library_max_abs_diff=lib_diff, bodies=n, taps=K,
+                   windows=list(fx.shape), cells=work["cells"],
+                   **bounds(work, ms))
+        print(f"interp CIC {n} bodies: kernel {ms:.4f} ms on the device "
+              f"({call_ms:.4f} ms a call on an idle card), plain "
+              f"{plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms (max "
+              f"|diff| from the kernel {lib_diff:.3e}), bound "
+              f"{out['bound_ms']:.5f} ms ({out['bound_by']}, "
+              f"{out['pct_of_bound']:.2f}%; {work['cells']} window cells "
+              f"touched)", flush=True)
+
+    # path B: the carried table, [T | dT] lanes, extrapolated by frac
+    kw = dict(mesh_level=cfg.mesh_level, split_cells=cfg.mesh_split,
+              mesh_ny=cfg.mesh_ny, heavy_cap=16, switch=cfg.mesh_switch)
+    seed = mesh.pm_mesh_state(spos, smass, salive, params.soft2, origin,
+                              side, prev="zero", **kw)
+    moved = (spos + 0.5).contiguous()
+    state = mesh.pm_mesh_state(moved, smass, salive, params.soft2, origin,
+                               side, prev=seed[0], **kw)
+    T = state[0][0]
+    base, w = mesh._cic_cells(moved, mo, h, nw, 2, ny=ny)
+    same_bits(f"carried table {tuple(T.shape)} frac 0.25",
+              mesh._interp_rows(T, base, w, frac=0.25),
+              mesh._interp_rows_ref(T, base, w, frac=0.25))
+    out["carried_table_ms"] = device_ms(
+        lambda: mesh._interp_rows(T, base, w, frac=0.25))
+    out["carried_table_plain_ms"] = timed_ms(
+        lambda: mesh._interp_rows_ref(T, base, w, frac=0.25))
+    print(f"interp carried table: kernel {out['carried_table_ms']:.4f} ms "
+          f"on the device, plain {out['carried_table_plain_ms']:.4f} ms",
           flush=True)
     return out
 
@@ -716,11 +933,14 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
                   flush=True)
         return dt / n, n0, int(bh.state.n_alive())
 
-    sec, n0, n1 = paths.run("bh_engine", run, need=("bh_hier",))
+    sec, n0, n1 = paths.run("bh_engine", run, need=("bh_hier", "merge"))
     counts = paths.counts["bh_engine"]
-    if counts != _only(bh_hier=counts["bh_hier"]):
+    steps = sum(n for _, n in BH_STEPS)
+    if (counts != _only(bh_hier=counts["bh_hier"], merge=counts["merge"])
+            or counts["merge"] < steps):
         raise AssertionError(f"Barnes–Hut steps launched another kernel "
-                             f"than the hier kernel: {counts}")
+                             f"than the hier and merge kernels, or fewer "
+                             f"than {steps} merges: {counts}")
     st = bh.state
     if not all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel,
                                                         st.mass)):
@@ -1134,11 +1354,13 @@ def _render_main(paths, cfg, params, dev, st0, stepped):
 
     final, frames, sec = paths.run("render_movie_pm", movie, need=("band",))
     if paths.counts["render_movie_pm"] != _only(band=64, rescue=64,
-                                                rescue_select=64):
+                                                rescue_select=64, interp=64,
+                                                merge=32):
         raise AssertionError(f"render_movie_pm: launches "
                              f"{paths.counts['render_movie_pm']}, expected "
-                             f"64 band, 64 rescue and 64 rescue_select (two "
-                             f"passes a single step)")
+                             f"64 band, 64 rescue, 64 rescue_select and 64 "
+                             f"interp (two passes a single step) and 32 "
+                             f"merge")
     if not (frames.device.type == dev.type and frames.dtype == torch.uint8
             and tuple(frames.shape) == (8, h, w, 3)
             and int(final.step) == 32 and int(frames[0].sum()) > 0
@@ -1169,6 +1391,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
     import torch
     from tpu_nbody_torch import accuracy, engine
     from tpu_nbody_torch.ops import band, mesh
+    from tpu_nbody_torch.ops import merge as merge_ops
     from tpu_nbody_torch.parallel import mesh as pmesh
     from tpu_nbody_torch.parallel import sharded, sharded_pm
     from tpu_nbody_torch.parallel.collectives import run_spmd
@@ -1191,6 +1414,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         for label in ("warm-up", "timed"):
             b0, r0 = band.LAUNCHES, band.RESCUE_LAUNCHES
             s0 = mesh.SELECT_LAUNCHES
+            i0, m0 = mesh.INTERP_LAUNCHES, merge_ops.LAUNCHES
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
@@ -1203,25 +1427,34 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             launches = band.LAUNCHES - b0
             rescues = band.RESCUE_LAUNCHES - r0
             selects = mesh.SELECT_LAUNCHES - s0
+            interps = mesh.INTERP_LAUNCHES - i0
+            merges = merge_ops.LAUNCHES - m0
             print(f"  step({F_STEPS}) {label}: {host:.3f} s host, "
                   f"{start.elapsed_time(end):.1f} ms device events, "
                   f"{launches} band launches, {rescues} rescue launches, "
-                  f"{selects} rescue_select launches", flush=True)
+                  f"{selects} rescue_select launches, {interps} interp "
+                  f"launches, {merges} merge launch sets", flush=True)
             if label == "timed" and (launches != P * (F_STEPS + 1)
                                      or rescues != 2 * launches
-                                     or selects != 3 * launches):
+                                     or selects != 3 * launches
+                                     or interps != launches
+                                     or merges != 2 * P * F_STEPS):
                 raise AssertionError(
-                    f"sharded pm: {launches} band, {rescues} rescue and "
-                    f"{selects} rescue_select launches in step({F_STEPS}), "
+                    f"sharded pm: {launches} band, {rescues} rescue, "
+                    f"{selects} rescue_select, {interps} interp and "
+                    f"{merges} merge launches in step({F_STEPS}), "
                     f"expected {P} band a force pass x {F_STEPS + 1} "
-                    f"passes, two rescues (local, cross-shard) and three "
+                    f"passes, two rescues (local, cross-shard), three "
                     f"selections (local; the cross-shard export scores "
-                    f"and import picks) a band launch")
+                    f"and import picks) and one interpolation a band "
+                    f"launch, and two merge launch sets (the heavy table, "
+                    f"then the absorb) a rank's step")
             out[label] = (host / F_STEPS, start.elapsed_time(end) / F_STEPS)
         return out, n0
 
     times, n0 = paths.run("sharded_pm", run,
-                          need=("band", "rescue", "rescue_select"))
+                          need=("band", "rescue", "rescue_select", "interp",
+                                "merge"))
     sec, dev_ms = times["timed"]
     st = se.state
     n1 = int(st.n_alive())
@@ -1274,10 +1507,12 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         "sharded_pm_force_error", error,
         need=("band", "rescue", "rescue_select", "allpairs"))
     counts = paths.counts["sharded_pm_force_error"]
-    if counts["band"] != P + 1 or counts["rescue_select"] != 3 * P + 1:
+    if (counts["band"] != P + 1 or counts["rescue_select"] != 3 * P + 1
+            or counts["interp"] != P + 1):
         raise AssertionError(
             f"sharded pm: {counts} launches for a sharded and a one-device "
-            f"pass, expected {P} + 1 band and {3 * P} + 1 rescue_select")
+            f"pass, expected {P} + 1 band, {3 * P} + 1 rescue_select and "
+            f"{P} + 1 interp")
 
     # one pass by phase on rank 0, CUDA events; every rank enqueues on the
     # one stream, so a phase's time holds the other ranks' work enqueued
@@ -1368,7 +1603,8 @@ def _path_f2(paths):
     print(f"path F2: python -m tpu_nbody_torch.examples.merger10m "
           f"{' '.join(args)}", flush=True)
     r = paths.run("merger10m", lambda: merger10m.main(args),
-                  need=("band", "rescue", "rescue_select"))
+                  need=("band", "rescue", "rescue_select", "interp",
+                        "merge"))
     n_total = int(args[args.index("--n") + 1])
     alive = [n for _, n, _ in r["lines"]]
     st = r["engine"].state
@@ -1440,7 +1676,8 @@ def _path_f3(paths, params, dev, grp, n_sm, max_clock_hz, results):
                              f"launches (expected {P}^2), max difference "
                              f"{da:.3e} > 1e-5 x {amax:.3e}")
     del a_ring, a_one
-    paths.run("sharded_allpairs", lambda: se.step(2), need=("allpairs",))
+    paths.run("sharded_allpairs", lambda: se.step(2),
+              need=("allpairs", "merge"))
     paths.run("allpairs_one_device", lambda: one.step(2),
               need=("allpairs",))
     got = paths.counts["sharded_allpairs"]["allpairs"]
@@ -1494,7 +1731,7 @@ def _path_f4(paths, params, dev, grp, g, n_sm, max_clock_hz, results):
     se.reset_default_scene(n1=N_F4 - N_F4 // 5, n2=N_F4 // 5)
     t0 = time.perf_counter()
     paths.run("sharded_bh", lambda: se.step(2),
-              need=("allpairs", "bh_pairs"))
+              need=("allpairs", "bh_pairs", "merge"))
     sec = time.perf_counter() - t0
     print(f"sharded_bh step(2): {sec:.2f} s (retune rounds included), "
           f"{paths.counts['sharded_bh']['allpairs']} all-pairs launches "
@@ -1559,11 +1796,12 @@ def _path_f5(paths, dev):
     paths.run("dryrun_multichip",
               lambda: graft_entry.dryrun_multichip(DRYRUN_RANKS,
                                                    device=DEVICE),
-              need=("band", "rescue", "rescue_select", "allpairs",
-                    "bh_pairs"))
+              need=("band", "rescue", "rescue_select", "interp", "merge",
+                    "allpairs", "bh_pairs"))
     fn, (st, prm) = graft_entry.entry(device=DEVICE)
     t0 = time.perf_counter()
-    out = paths.run("entry", lambda: fn(st, prm), need=("bh_pairs",))
+    out = paths.run("entry", lambda: fn(st, prm), need=("bh_pairs",
+                                                        "merge"))
     card_s = time.perf_counter() - t0
     cpu_fn, _ = graft_entry.entry(device="cpu")
     t0 = time.perf_counter()
@@ -1757,6 +1995,19 @@ def main() -> int:
     results["rescue"] = _rescue_shape(spos, smass, salive, cfg, params, a,
                                       n_sm, max_clock_hz)
 
+    # -- interpolation and merge kernels vs plain --------------------------
+    results["interp"] = _interp_shape(spos, smass, salive, cfg, params,
+                                      origin, side)
+    synthetic = _merge_scene(cap, dev)
+    merge_synthetic = _merge_compare(
+        f"merge synthetic {cap} bodies, chains, {MERGE_HEAVIES} heavies",
+        synthetic, params, 64)
+    if not (merge_synthetic["heavy_need"] > 64
+            and merge_synthetic["victims"] > 0):
+        raise AssertionError("merge synthetic: expected an overflowing "
+                             "table and absorbed bodies")
+    del synthetic
+
     # -- all-pairs kernel vs plain ----------------------------------------
     g = torch.Generator(device=dev).manual_seed(11)
     for dim in (2, 3):
@@ -1828,14 +2079,16 @@ def main() -> int:
     paths.run("force_error_step0",
                      lambda: _force_error("pm_main step 0", st0, cfg, params,
                                           g),
-                     need=("band", "rescue", "rescue_select", "allpairs"))
+                     need=("band", "rescue", "rescue_select", "interp",
+                           "allpairs"))
 
     # -- main path ----------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     sec, n0, n1 = paths.run(
         "pm_main", lambda: _run_steps(eng, 3, [STEPS] * 3, lambda s: s + 1,
-                                      ("band", "rescue", "rescue_select")),
-        need=("band", "rescue", "rescue_select"))
+                                      ("band", "rescue", "rescue_select",
+                                       "interp"), P3M_MERGES),
+        need=("band", "rescue", "rescue_select", "interp", "merge"))
     _report_run("pm_main", eng, sec, n0, n1)
     main_sec = sec
     hud = eng.stats()
@@ -1847,6 +2100,10 @@ def main() -> int:
                                    eng.state, cfg, params, g, ERR_LIMIT),
               need=("allpairs",))
     main_state = eng.state
+    results["merge"] = dict(
+        _merge_compare(f"merge pm_main state at step {int(hud['step'])}",
+                       main_state, params, eng.merge_heavy_cap),
+        synthetic=merge_synthetic)
     del eng
 
     # -- path A: the exact all-pairs engine ---------------------------------
@@ -1856,7 +2113,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     sec, n0, n1 = paths.run(
         "allpairs_engine", lambda: _run_steps(ap, 2, [2, 3], lambda s: s + 1,
-                                              ("allpairs",)),
+                                              ("allpairs",), P3M_MERGES),
         need=("allpairs",))
     _report_run(f"allpairs_engine kdk_reuse N={N}", ap, sec, n0, n1)
     ap_sec = sec
@@ -1868,7 +2125,8 @@ def main() -> int:
         sec, n0, n1 = paths.run(
             f"allpairs_{integrator}",
             lambda: _run_steps(e, 2, [4, 4], lambda s: per_step * s,
-                               ("allpairs",)), need=("allpairs",))
+                               ("allpairs",), P3M_MERGES),
+            need=("allpairs",))
         _report_run(f"allpairs_engine {integrator} N={N_SMALL}", e, sec, n0,
                     n1)
 
@@ -1881,15 +2139,17 @@ def main() -> int:
     sec, n0, n1 = paths.run(
         "pm_subcycled",
         lambda: _run_steps(sub, 3, [STEPS] * 3, lambda s: s + 1,
-                           ("band", "rescue", "rescue_select")),
-        need=("band", "rescue", "rescue_select"))
+                           ("band", "rescue", "rescue_select", "interp"),
+                           P3M_MERGES),
+        need=("band", "rescue", "rescue_select", "interp", "merge"))
     _report_run("pm_subcycled", sub, sec, n0, n1)
     print(f"pm_subcycled against pm_main in this run: "
           f"{1e3 * sec:.2f} against {1e3 * main_sec:.2f} ms/step", flush=True)
     paths.run("pm_subcycled_force_error",
               lambda: _force_error("pm_subcycled fresh pass after the run",
                                    sub.state, cfg_b, params, g, ERR_LIMIT),
-              need=("band", "rescue", "rescue_select", "allpairs"))
+              need=("band", "rescue", "rescue_select", "interp",
+                    "allpairs"))
     del sub
 
     # -- path C: one fresh force pass per remaining knob --------------------
@@ -1910,7 +2170,8 @@ def main() -> int:
         return out
 
     errs = paths.run("pm_knobs", knobs,
-                     need=("band", "rescue", "rescue_select", "allpairs"))
+                     need=("band", "rescue", "rescue_select", "interp",
+                           "allpairs"))
     cic = errs["cic"]["mean"]
     checks = {
         "heavy_direct": errs["heavy_direct"]["mean"] <= 1.05 * cic,
@@ -1931,8 +2192,9 @@ def main() -> int:
     ex = _engine(cfg_x, params, dev, N, solver="pm", integrator="kdk_reuse")
     paths.run("pm_extrapolate",
               lambda: _run_steps(ex, 2, [2, 2], lambda s: s + 1,
-                                 ("band", "rescue", "rescue_select")),
-              need=("band", "rescue", "rescue_select"))
+                                 ("band", "rescue", "rescue_select",
+                                  "interp"), P3M_MERGES),
+              need=("band", "rescue", "rescue_select", "interp", "merge"))
     print("  pm_mesh_extrapolate: two step(2) calls, state finite",
           flush=True)
     del ex
@@ -2003,7 +2265,9 @@ def main() -> int:
                 "rescue_select": paths.counts["pm_main"]["rescue_select"],
                 "allpairs": paths.counts["sphere3d_engine"]["allpairs"],
                 "bh_pairs": paths.counts["bh_small_force_error"]["bh_pairs"],
-                "bh_hier": paths.counts["bh_engine"]["bh_hier"]}
+                "bh_hier": paths.counts["bh_engine"]["bh_hier"],
+                "merge": paths.counts["pm_main"]["merge"],
+                "interp": paths.counts["pm_main"]["interp"]}
     kernels = [
         dict(name="band_short_range", route="cuda",
              source="tpu_nbody_torch/csrc/band.cu",
@@ -2049,6 +2313,25 @@ def main() -> int:
              launches=launches["bh_hier"],
              launches_by_path=paths.of("bh_hier"), library_ms=None,
              **results["bh_hier"]),
+        dict(name="merge", route="cuda",
+             source="tpu_nbody_torch/csrc/merge.cu",
+             replaces="tpu_nbody/ops/merge.py:43",
+             replaces_also="tpu_nbody/parallel/sharded.py",
+             replaces_kind="XLA top_k, distance test, two absorber rounds "
+                           "and segment sum of merge_bodies (no Pallas "
+                           "original)",
+             launches=launches["merge"],
+             launches_by_path=paths.of("merge"), library_ms=None,
+             **results["merge"]),
+        dict(name="interp", route="cuda",
+             source="tpu_nbody_torch/csrc/interp.cu",
+             replaces="tpu_nbody/ops/mesh.py:596",
+             replaces_also="tpu_nbody/ops/mesh.py:550, :577",
+             replaces_kind="XLA packed-table build and row gather of "
+                           "_interp_packed, _interp_table and _interp_rows "
+                           "(no Pallas original)",
+             launches=launches["interp"],
+             launches_by_path=paths.of("interp"), **results["interp"]),
     ]
     print(f"render ms: 3D frame {e['frame3d_ms']:.3f} (splat alone "
           f"{e['splat_ms']:.3f}), pm_main speed {render_ms['speed']:.3f}, "

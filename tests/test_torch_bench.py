@@ -148,6 +148,17 @@ def test_phase_work_counts(small):
     # the merge scales with the heavy slots it tests every body against
     assert bench.phase_work(cfg, n, heavy_cap=128)["merge"]["flops"] == \
         2 * work["merge"]["flops"]
+    # ... and with the heavies the data has, when fewer
+    assert bench.phase_work(cfg, n, heavy_need=16)["merge"]["flops"] == \
+        work["merge"]["flops"] // 4
+    assert bench.phase_work(cfg, n, heavy_need=0)["merge"]["flops"] == 0
+    # the interpolation reads the window cells the bodies touch, when given
+    few = bench.phase_work(cfg, n, interp_cells=1000)["interp"]
+    assert few["flops"] == work["interp"]["flops"]
+    assert few["bytes"] < work["interp"]["bytes"]
+    nw = 1 << cfg.mesh_level
+    windows = 2 * (nw + 1) * ((cfg.mesh_ny or nw) + 1) * 4   # fx and fy
+    assert work["interp"]["bytes"] - few["bytes"] == windows - 8 * 1000
 
 
 class _HostEvent:
@@ -168,9 +179,11 @@ class _HostEvent:
 
 PHASES = {
     "pm": ["hilbert sort (/8 steps)", "CIC cells", "deposit (4 plane "
-           "scatter)", "FFT convolution + FD gradient", "interpolation",
+           "scatter)", "FFT convolution + FD gradient",
+           "interpolation (kernel)",
            "band S=256 (kernel)", "rescue select k=4 (kernel)",
-           "rescue pairs k=4 (kernel)", "merge", "kernel hats (/2 steps)"],
+           "rescue pairs k=4 (kernel)", "merge (kernel)",
+           "kernel hats (/2 steps)"],
     "bh": ["build", "groups", "lists", "evaluate (bh_pairs kernel)",
            "assemble"],
     "allpairs": ["all-pairs kernel (4096 x 4096 slots)"],

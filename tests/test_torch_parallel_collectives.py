@@ -239,18 +239,20 @@ _DIST_SCRIPT = textwrap.dedent("""
     if flags.dtype != torch.bool or flags.tolist() != [[True, True],
                                                        [False, True]]:
         raise SystemExit(f"bool all_gather {flags}")
-    dist.barrier()                  # no rank tears down while one talks
-    dist.destroy_process_group()
+    g.close()                       # a barrier, then destroy
+    if dist.is_initialized():
+        raise SystemExit("close left the process group alive")
+    g.close()                       # a second call does nothing
     print("rank", r, "ok", flush=True)
 """)
 
 
 def test_dist_group_on_gloo_two_processes(tmp_path):
     """The same ops on torch.distributed (gloo), world size 2, each process
-    checking its own results and then leaving the group in order (a
-    barrier, then destroy: a process that exited with the group alive
-    while the other rank still used it could abort in the backend's
-    teardown). The ranks meet through a file in ``tmp_path``: no TCP port
+    checking its own results and then leaving the group in order with
+    ``DistGroup.close`` (a barrier, then destroy: a process that exited
+    with the group alive while the other rank still used it could abort
+    in the backend's teardown), twice, the second call doing nothing. The ranks meet through a file in ``tmp_path``: no TCP port
     to pick and lose to another process between picking and binding it."""
     script = tmp_path / "rank.py"
     script.write_text(_DIST_SCRIPT)

@@ -65,7 +65,7 @@ from tpu_nbody_torch import state as state_lib
 from tpu_nbody_torch.config import Params, SimConfig
 from tpu_nbody_torch.engine import Engine
 from tpu_nbody_torch.ops import band, forces, mesh
-from tpu_nbody_torch.ops.merge import merge_bodies
+from tpu_nbody_torch.ops import merge as merge_ops
 
 # The Kotlin reference's derived interactive throughput (BASELINE.md:
 # N = 12,500 at an assumed 60 FPS on a desktop CPU), the JAX bench's
@@ -80,7 +80,6 @@ PHASE_REPS = 5          # CUDA-event timings a phase, after 2 warm-ups
 _CELL_FLOPS = {1: 6, 2: 16, 3: 35}
 _TAPS = {1: 1, 2: 4, 3: 9}            # cells a body touches
 _PICK_BYTES = 13                      # a rescue partner: int64, score, flag
-_MERGE_FLOPS = 6                      # distance test a (body, heavy) pair
 _F32, _C64 = 4, 8                     # bytes
 
 
@@ -118,7 +117,8 @@ def _fft_flops(points: int, real: bool) -> float:
 
 
 def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
-               select_groups: int = 0) -> dict:
+               select_groups: int = 0, heavy_need: int | None = None,
+               interp_cells: int | None = None) -> dict:
     """Flops and bytes of each P3M phase of the bench at ``cfg`` with ``n``
     alive bodies, counted from the shapes alone (pure Python) but for the
     selection's ``select_groups``, which the caller counts: each input
@@ -135,9 +135,13 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
     kernel: the ``mesh_rescue`` partner blocks of S bodies that each body's
     block evaluates, n·k·S pairs at the band's flops a pair, the rows and
     indices read once and the accelerations written once); the merge, a
-    distance test of every body against each of ``heavy_cap`` heavy
-    slots. The sort counts no arithmetic: it is
-    integer work, bounded by its bytes."""
+    distance test of every body against each of min(``heavy_need``,
+    ``heavy_cap``) heavies (:func:`merge.merge_work`: the tests the data
+    needs; ``heavy_need`` None counts every slot), the bodies read and
+    written once; the interpolation reads fx and fy at the
+    ``interp_cells`` distinct cells the bodies touch
+    (:func:`mesh.interp_work`; None counts the whole windows). The sort
+    counts no arithmetic: it is integer work, bounded by its bytes."""
     nw = 1 << cfg.mesh_level
     ny = cfg.mesh_ny or nw
     grid = 2 * nw
@@ -170,7 +174,9 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
                        bytes=occ * grid * _F32 + grid_y * cols * _C64
                        + fgrid),
         "interp": dict(flops=2 * (2 * K - 1) * n,
-                       bytes=fgrid + weights + acc_out),
+                       bytes=(fgrid if interp_cells is None
+                              else 2 * _F32 * interp_cells)
+                       + weights + acc_out),
         "band": band.pair_work(n, S, cfg.mesh_switch),
         "rescue_select": dict(flops=mesh.select_work(
                                   blocks, blocks, k, select_groups,
@@ -180,8 +186,8 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
                              flops=rescue_pairs * pair_flops,
                              bytes=n * 3 * _F32 + blocks * k * _PICK_BYTES
                              + acc_out),
-        "merge": dict(flops=_MERGE_FLOPS * n * heavy_cap,
-                      bytes=body_in + n * (_F32 + 1)),
+        "merge": merge_ops.merge_work(
+            n, heavy_cap if heavy_need is None else heavy_need, heavy_cap),
         "kernel_hats": dict(flops=hats, bytes=3 * grid_y * cols * _C64),
     }
 
@@ -375,8 +381,13 @@ def _pm_phases(eng: Engine, steps: int) -> list:
     tid = torch.arange(sel.rows.shape[0], device=dev)
     pvalid = sel.mval > 0
     K = max(1, cfg.pm_resort_every)
+    _, heavy_need = merge_ops.merge_bodies(st, params,
+                                           heavy_cap=eng.merge_heavy_cap)
     work = phase_work(cfg, int(st.n_alive()), eng.merge_heavy_cap,
-                      select_groups=int(sel.groups))
+                      select_groups=int(sel.groups),
+                      heavy_need=int(heavy_need),
+                      interp_cells=mesh.interp_work(
+                          base, w.shape[1], nw, fx.shape[1])["cells"])
     phases = [
         (f"hilbert sort (/{K} steps)", "sort", 1.0 / K,
          lambda: mesh._hilbert_sort(st.pos, st.mass, st.alive, origin,
@@ -387,9 +398,8 @@ def _pm_phases(eng: Engine, steps: int) -> list:
          lambda: mesh._deposit_packed(smass, base, w, nw, grid, ny=ny,
                                       grid_y=grid_y)),
         ("FFT convolution + FD gradient", "fft_fd", 1.0, fft_fd),
-        ("interpolation", "interp", 1.0,
-         lambda: mesh._interp_rows(
-             mesh._interp_table(fx, fy, nw, order, ny=ny), base, w)),
+        ("interpolation (kernel)", "interp", 1.0,
+         lambda: mesh._interp_packed(fx, fy, base, w, nw, ny=ny)),
         (f"band S={S} (kernel)", "band", 1.0,
          lambda: band.band_short_range(spos, smass, params.soft2, a,
                                        band=S, chunk=chunk,
@@ -402,8 +412,9 @@ def _pm_phases(eng: Engine, steps: int) -> list:
          lambda: band.rescue_pair_sum(
              sel.rows, tid, sel.rows, sel.midx, pvalid, params.soft2, a,
              cfg.mesh_switch, chunk=sel.cb)),
-        ("merge", "merge", 1.0,
-         lambda: merge_bodies(st, params, heavy_cap=eng.merge_heavy_cap)),
+        ("merge (kernel)", "merge", 1.0,
+         lambda: merge_ops.merge_bodies(st, params,
+                                        heavy_cap=eng.merge_heavy_cap)),
         (f"kernel hats (/{steps} steps)", "kernel_hats", 1.0 / steps,
          lambda: engine._kernel_hats(cfg, params, dev)),
     ]

@@ -99,6 +99,7 @@ def main(argv=None):
         from tpu_nbody_torch.viewer import write_gif
         write_gif(args.out, frames, fps=8)
         print(f"wrote {args.out} ({len(frames)} frames)", flush=True)
+    mesh.close()        # --backend dist: leave the process group in order
     return dict(seconds=dt, updates_per_s=ups, lines=lines, engine=eng)
 
 

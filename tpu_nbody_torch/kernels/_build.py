@@ -61,6 +61,21 @@ SIGNATURES = {
     # groups (or null), tgid0, M, C, kh, kthr, rcut2, warps, tile, bufcap,
     # stream
     "tnt_rescue_select": [_P] * 9 + [_L] + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    # pos, mass, alive, n, dim, max_mass, md2, H, scratch, scratch_bytes,
+    # mass_out, alive_out, need_out, stream
+    "tnt_merge": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _L, _P, _P, _P, _P],
+    # pos, mass, alive, n, dim, max_mass, H, gid0, scratch, scratch_bytes,
+    # tpos, tgid, tvalid, stream
+    "tnt_merge_heavies": [_P, _P, _P, _I, _I, _F, _I, _I, _P, _L, _P, _P,
+                          _P, _P],
+    # pos, mass, alive, n, dim, gid0, md2, tpos, tgid, tvalid, nT, scratch,
+    # scratch_bytes, mass_out, alive_out, gained, stream
+    "tnt_merge_apply": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _P, _L,
+                        _P, _P, _P, _P],
+    # fx, fy, base, is64, w, out, n, K, nw, ld, stream
+    "tnt_interp_windows": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # T, L, base, is64, w, out, n, K, has_frac, frac, stream
+    "tnt_interp_table": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _P],
 }
 
 _lib = None

@@ -10,18 +10,46 @@ near it, and a second round drops absorbers that are themselves victims of
 a lower-index heavy. ``heavy_need`` counts the qualifying heavies so the
 engine can grow ``heavy_cap`` when it overflows. Deviations from the
 sequential reference are those documented in ``tpu_nbody/ops/merge.py``.
+
+:func:`merge_bodies` launches the hand-written ``csrc/merge.cu`` for CUDA
+tensors (one launch set a call, no host sync) and runs
+:func:`_merge_bodies_ref` for CPU tensors; the sharded merge
+(``parallel/sharded.py``) goes through :func:`heavy_table` and
+:func:`absorb`, the same kernel's two halves (plain versions
+:func:`_heavy_table_ref`, :func:`_absorb_ref`). Any other device raises.
+:data:`LAUNCHES` counts the launch sets: one a :func:`merge_bodies` call,
+one each a :func:`heavy_table` and an :func:`absorb` call.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from tpu_nbody_torch.kernels import _build
+from tpu_nbody_torch.ops import band as band_ops
+from tpu_nbody_torch.ops.mesh import _topk_lowest_index
 from tpu_nbody_torch.state import SimState
 
+LAUNCHES = 0                            # csrc/merge.cu launch sets
+BIG = torch.iinfo(torch.int32).max      # id of an empty heavy slot
+FLOPS_PER_TEST = 6                      # a 2D distance test: 2 -, 2 *, +, <
 
-def merge_bodies(state: SimState, params,
-                 heavy_cap: int = 64) -> tuple[SimState, torch.Tensor]:
-    """Apply the absorb rule. Returns (state, heavy_need).
+
+def _r2(a, b):
+    """(len a, len b) squared distances a_i - b_j, each difference, square
+    and sum rounded alone in index order (the kernel's order)."""
+    out = None
+    for k in range(a.shape[1]):
+        d = a[:, k, None] - b[None, :, k]
+        out = d * d if out is None else out + d * d
+    return out
+
+
+def _merge_bodies_ref(state: SimState, params,
+                      heavy_cap: int = 64) -> tuple[SimState, torch.Tensor]:
+    """The plain torch rule: the (capacity x H) form of the JAX package.
 
     Runs without a host sync: whether merging applies this step (at least
     two bodies alive) is decided on the device with ``torch.where``.
@@ -34,16 +62,16 @@ def merge_bodies(state: SimState, params,
         return state, torch.zeros_like(heavy_need)
 
     md2 = params.merge_min_dist * params.merge_min_dist
-    # Compress heavies to heavy_cap slots, keeping the heaviest. Which slot
-    # a heavy lands in does not matter: absorbers resolve by body index.
+    # Compress heavies to heavy_cap slots, keeping the heaviest, ties to the
+    # lower index (jax.lax.top_k's choice). Which slot a heavy lands in
+    # does not matter: absorbers resolve by body index.
     key = torch.where(heavy, state.mass, float("-inf"))
-    _, hidx = torch.topk(key, heavy_cap)
+    _, hidx = _topk_lowest_index(key, heavy_cap)
     hvalid = heavy[hidx]
     hidx = torch.where(hvalid, hidx, cap)    # park invalid at sentinel
     hpos = state.pos[torch.clamp(hidx, 0, cap - 1)]
 
-    d = state.pos[:, None, :] - hpos[None, :, :]          # (cap, H, dim)
-    close = torch.sum(d * d, dim=-1) < md2
+    close = _r2(state.pos, hpos) < md2                    # (cap, H)
     body_idx = torch.arange(cap, device=state.pos.device)
     eligible = (close & hvalid[None, :] & state.alive[:, None]
                 & (body_idx[:, None] != hidx[None, :]))
@@ -72,3 +100,176 @@ def merge_bodies(state: SimState, params,
                          alive=torch.where(enabled, merged.alive,
                                            state.alive))
     return out, torch.where(enabled, heavy_need, 0)
+
+
+def merge_bodies(state: SimState, params,
+                 heavy_cap: int = 64) -> tuple[SimState, torch.Tensor]:
+    """Apply the absorb rule. Returns (state, heavy_need), ``heavy_need`` a
+    0-dim int32 tensor on the state's device (0 where the rule is off).
+
+    CPU tensors take :func:`_merge_bodies_ref`; CUDA tensors launch
+    ``csrc/merge.cu``: the same absorbers, alive flags and heavy_need, the
+    gained masses summed with atomics (their last bits may differ). Neither
+    syncs with the host.
+    """
+    if state.pos.device.type == "cpu":
+        return _merge_bodies_ref(state, params, heavy_cap)
+    cap, dim = state.pos.shape
+    dev = state.pos.device
+    H = min(heavy_cap, cap)
+    if params.merge_min_dist <= 0 or cap == 0:
+        return state, torch.zeros((), dtype=torch.int32, device=dev)
+    _check_bodies(state.pos, state.mass, state.alive)
+    md2 = params.merge_min_dist * params.merge_min_dist
+    scratch = torch.empty((_scratch_bytes(cap, H, dim),), dtype=torch.uint8,
+                          device=dev)
+    mass = torch.empty_like(state.mass)
+    alive = torch.empty_like(state.alive)
+    need = torch.empty((), dtype=torch.int32, device=dev)
+    rc = _build.library().tnt_merge(
+        state.pos.data_ptr(), state.mass.data_ptr(), state.alive.data_ptr(),
+        cap, dim, ctypes.c_float(params.merge_max_mass), ctypes.c_float(md2),
+        H, scratch.data_ptr(), scratch.numel(), mass.data_ptr(),
+        alive.data_ptr(), need.data_ptr(), _stream(dev))
+    _build.check_launch("merge", rc)
+    _count()
+    return state._replace(mass=mass, alive=alive), need
+
+
+# -- the two halves, for the sharded merge ----------------------------------
+
+def _heavy_table_ref(pos, mass, alive, max_mass, H, gid0=0):
+    """Plain version of :func:`heavy_table`: the top ``H`` heavies by
+    :func:`_topk_lowest_index`."""
+    n = pos.shape[0]
+    gid = gid0 + torch.arange(n, dtype=torch.int32, device=pos.device)
+    heavy = alive & (mass > max_mass)
+    need = heavy.sum(dtype=torch.int32)
+    key = torch.where(heavy, mass, float("-inf"))
+    _, hloc = _topk_lowest_index(key, H)
+    hvalid = heavy[hloc]
+    return need, pos[hloc], torch.where(hvalid, gid[hloc], BIG), hvalid
+
+
+def heavy_table(pos, mass, alive, max_mass, H, gid0=0):
+    """This rank's heavy table: ``(need, hpos (H, dim), hgid (H,) int32,
+    hvalid (H,) bool)``, ``need`` the count of alive bodies with mass above
+    ``max_mass`` (0-dim int32), the table the ``H`` heaviest of them (all
+    of them when they fit; ties to the lower index), ids ``gid0 + index``
+    and :data:`BIG` in empty slots. The slot order is free (CPU: by mass;
+    the kernel: as collected). ``H`` is at most the body count."""
+    if pos.device.type == "cpu":
+        return _heavy_table_ref(pos, mass, alive, max_mass, H, gid0)
+    n, dim = pos.shape
+    dev = pos.device
+    _check_bodies(pos, mass, alive)
+    if not 0 <= H <= n:
+        raise ValueError(f"heavy_table: {H} slots for {n} bodies")
+    scratch = torch.empty((_scratch_bytes(n, H, dim),), dtype=torch.uint8,
+                          device=dev)
+    hpos = torch.empty((H, dim), dtype=pos.dtype, device=dev)
+    hgid = torch.empty((H,), dtype=torch.int32, device=dev)
+    hvalid = torch.empty((H,), dtype=torch.bool, device=dev)
+    rc = _build.library().tnt_merge_heavies(
+        pos.data_ptr(), mass.data_ptr(), alive.data_ptr(), n, dim,
+        ctypes.c_float(max_mass), H, gid0, scratch.data_ptr(),
+        scratch.numel(), hpos.data_ptr(), hgid.data_ptr(), hvalid.data_ptr(),
+        _stream(dev))
+    _build.check_launch("merge_heavies", rc)
+    _count()
+    return scratch[:4].view(torch.int32)[0], hpos, hgid, hvalid
+
+
+def _absorb_ref(pos, mass, alive, hpos, hgid, hvalid, md2, gid0=0):
+    """Plain version of :func:`absorb`: the (n x nH) masks."""
+    n = pos.shape[0]
+    nH = hgid.shape[0]
+    gid = gid0 + torch.arange(n, dtype=torch.int32, device=pos.device)
+    # round 2 from the table alone: a heavy near a valid heavy of lower id
+    # was absorbed by it and never scans
+    lower = ((_r2(hpos, hpos) < md2) & hvalid[None, :]
+             & (hgid[None, :] < hgid[:, None]))
+    still = hvalid & ~lower.any(dim=1)
+    eligible = ((_r2(pos, hpos) < md2) & still[None, :] & alive[:, None]
+                & (gid[:, None] != hgid[None, :]))
+    absorber, slot = torch.where(eligible, hgid[None, :], BIG).min(dim=1)
+    is_victim = absorber < BIG
+    gained = torch.zeros((nH + 1,), dtype=mass.dtype, device=mass.device)
+    gained.index_add_(0, torch.where(is_victim, slot, nH),
+                      torch.where(is_victim, mass, 0.0))
+    return (torch.where(is_victim, 0.0, mass), alive & ~is_victim,
+            gained[:nH])
+
+
+def absorb(pos, mass, alive, hpos, hgid, hvalid, md2, gid0=0):
+    """The rule for these bodies (ids ``gid0 + index``) against a heavy
+    table of ``nH`` slots (:func:`heavy_table`'s, possibly gathered from
+    every rank): ``(mass, alive, gained)``, victims at mass 0 and alive
+    false, ``gained`` (nH,) the victims' masses summed by absorber slot
+    (the kernel: with atomics). The absorbers' own masses are not raised
+    here: their owners add the gains."""
+    if pos.device.type == "cpu":
+        return _absorb_ref(pos, mass, alive, hpos, hgid, hvalid, md2, gid0)
+    n, dim = pos.shape
+    dev = pos.device
+    nH = hgid.shape[0]
+    _check_bodies(pos, mass, alive)
+    _build.check_tensor("hpos", hpos, (nH, dim), device=dev)
+    _build.check_tensor("hgid", hgid, (nH,), device=dev, dtype=torch.int32)
+    _build.check_tensor("hvalid", hvalid, (nH,), device=dev, align=1,
+                        dtype=torch.bool)
+    scratch = torch.empty((_scratch_bytes(0, nH, dim),), dtype=torch.uint8,
+                          device=dev)
+    mass_out = torch.empty_like(mass)
+    alive_out = torch.empty_like(alive)
+    gained = torch.zeros((nH,), dtype=mass.dtype, device=dev)
+    rc = _build.library().tnt_merge_apply(
+        pos.data_ptr(), mass.data_ptr(), alive.data_ptr(), n, dim, gid0,
+        ctypes.c_float(md2), hpos.data_ptr(), hgid.data_ptr(),
+        hvalid.data_ptr(), nH, scratch.data_ptr(), scratch.numel(),
+        mass_out.data_ptr(), alive_out.data_ptr(), gained.data_ptr(),
+        _stream(dev))
+    _build.check_launch("merge_apply", rc)
+    _count()
+    return mass_out, alive_out, gained
+
+
+# -- launch helpers ----------------------------------------------------------
+
+def _scratch_bytes(n_list: int, nT: int, dim: int) -> int:
+    """Bytes of the kernel's scratch buffer (``carve`` in csrc/merge.cu,
+    part for part, each rounded up to 16): the counters, the gains, the
+    heavy list, the table and the compacted absorbers."""
+    parts = (16, 4 * nT, 4 * n_list, 4 * nT * dim, 4 * nT, nT,
+             4 * nT * dim, 4 * nT, 4 * nT)
+    return sum((p + 15) & ~15 for p in parts)
+
+
+def merge_work(n: int, heavy_need: int, heavy_cap: int, dim: int = 2):
+    """Flops and bytes of one merge of ``n`` alive bodies: the distance
+    tests the data needs (each body against min(heavy_need, heavy_cap)
+    heavies) and the bodies read once (positions, masses, flags) and
+    written once (masses, flags)."""
+    tests = n * min(heavy_need, heavy_cap)
+    return dict(tests=tests, flops=(FLOPS_PER_TEST + 3 * (dim - 2)) * tests,
+                bytes=n * (4 * dim + 4 + 1) + n * (4 + 1))
+
+
+def _check_bodies(pos, mass, alive):
+    n, dim = pos.shape
+    if dim not in (2, 3):
+        raise ValueError(f"merge: dim {dim}, expected 2 or 3")
+    _build.check_tensor("pos", pos, (n, dim))
+    _build.check_tensor("mass", mass, (n,), device=pos.device)
+    _build.check_tensor("alive", alive, (n,), device=pos.device, align=1,
+                        dtype=torch.bool)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _count():
+    global LAUNCHES
+    with band_ops._COUNT_LOCK:
+        LAUNCHES += 1

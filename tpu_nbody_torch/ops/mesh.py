@@ -22,14 +22,17 @@ The long-range grids can also be carried across steps
 off the mesh and summed directly (:func:`_heavy_direct`) and the stale
 self-image cancelled (:func:`_self_term`).
 
-The FFTs go to the device's FFT library through ``torch.fft``; deposit,
-interpolation, the heavy-direct sum and the self-term are plain torch in
-this port so far (hand kernels for them are listed in ROADMAP.md, queue
-2b). :func:`rescue_select` launches ``csrc/rescue_select.cu`` for CUDA
-tensors and runs :func:`_rescue_select_ref` for CPU tensors;
+The FFTs go to the device's FFT library through ``torch.fft``; the
+deposit, the heavy-direct sum and the self-term are plain torch in this
+port so far (hand kernels for them are listed in ROADMAP.md, queue 2b).
+:func:`rescue_select` launches ``csrc/rescue_select.cu`` for CUDA tensors
+and runs :func:`_rescue_select_ref` for CPU tensors;
 :data:`SELECT_LAUNCHES` counts its launches, :func:`_select_plan` chooses
 its launch shape and :func:`select_work` counts the work a run's data
-needs of it.
+needs of it. The interpolation, :func:`_interp_packed` from the force-grid
+windows and :func:`_interp_rows` from a carried table, launches
+``csrc/interp.cu`` for CUDA tensors (:data:`INTERP_LAUNCHES`) and runs
+:func:`_interp_packed_ref` and :func:`_interp_rows_ref` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ from tpu_nbody_torch.ops.band import (  # noqa: F401
 
 ORDERS = (1, 2, 3)          # NGP, CIC, TSC
 SELECT_LAUNCHES = 0         # csrc/rescue_select.cu
+INTERP_LAUNCHES = 0         # csrc/interp.cu
+INTERP_TAPS = {1: 0, 4: 1, 9: 2}   # cells a body -> its reach past the base
 _SELECT_WARPS = 16          # warps a selection CTA, one target each; the
                             # most csrc/rescue_select.cu takes
 _SELECT_GROUP = 32          # candidates behind one union box of the kernel
@@ -633,8 +638,9 @@ def _interp_table(fx, fy, nw, order, ny=None):
     return T.reshape(ny * nw, 2 * len(offsets))
 
 
-def _interp_rows(T, base, w, frac=None):
-    """One row gather per body from :func:`_interp_table`, weighted.
+def _interp_rows_ref(T, base, w, frac=None):
+    """One row gather per body from :func:`_interp_table`, weighted: the
+    plain version of :func:`_interp_rows`.
 
     A table with 4K lanes carries ``[T | ΔT]`` (:func:`pm_mesh_state`):
     the gathered rows are extrapolated ``T + frac·ΔT`` (``frac`` None
@@ -652,12 +658,97 @@ def _interp_rows(T, base, w, frac=None):
     return torch.stack([ax, ay], dim=-1)
 
 
-def _interp_packed(fx, fy, base, w, nw, ny=None):
-    """Force interpolation with one row gather per body; mirrors
-    :func:`_deposit_packed`'s assignment so the odd kernel's self-force
-    cancels."""
+def _interp_rows(T, base, w, frac=None):
+    """Interpolation from a packed table (:func:`_interp_rows_ref`'s
+    semantics): CPU tensors take the plain version, CUDA tensors launch
+    ``csrc/interp.cu`` (its table entry), the same bits."""
+    if T.device.type == "cpu":
+        return _interp_rows_ref(T, base, w, frac)
+    n, K = w.shape
+    L = T.shape[1] if T.dim() == 2 else -1
+    if L not in (2 * K, 4 * K):
+        raise ValueError(f"_interp_rows: a table of {tuple(T.shape)} for "
+                         f"K={K} cells a body (2K or 4K lanes a row)")
+    _build.check_tensor("T", T, (T.shape[0], L), align=8)
+    has_frac = frac is not None and L == 4 * K
+    return _interp_launch(
+        "tnt_interp_table", T, base, w,
+        lambda out, b, is64: (T.data_ptr(), L, b, is64, w.data_ptr(), out,
+                              n, K, int(has_frac),
+                              ctypes.c_float(float(frac) if has_frac
+                                             else 0.0)))
+
+
+def _interp_packed_ref(fx, fy, base, w, nw, ny=None):
+    """Plain version of :func:`_interp_packed`: the packed table, then one
+    row gather per body."""
     order = {1: 1, 4: 2, 9: 3}[w.shape[1]]
-    return _interp_rows(_interp_table(fx, fy, nw, order, ny=ny), base, w)
+    return _interp_rows_ref(_interp_table(fx, fy, nw, order, ny=ny), base, w)
+
+
+def _interp_packed(fx, fy, base, w, nw, ny=None):
+    """Force interpolation from the force-grid windows; mirrors
+    :func:`_deposit_packed`'s assignment so the odd kernel's self-force
+    cancels. CPU tensors take :func:`_interp_packed_ref`; CUDA tensors
+    launch ``csrc/interp.cu``, which reads each body's cells straight from
+    the windows (no table), the same bits."""
+    if fx.device.type == "cpu":
+        return _interp_packed_ref(fx, fy, base, w, nw, ny=ny)
+    n, K = w.shape
+    if K not in INTERP_TAPS:
+        raise ValueError(f"_interp_packed: {K} weights a body, expected "
+                         f"1, 4 or 9")
+    ny = nw if ny is None else ny
+    reach = INTERP_TAPS[K]
+    rows, ld = fx.shape
+    if rows < ny + reach or ld < nw + reach:
+        raise ValueError(f"_interp_packed: windows {tuple(fx.shape)} too "
+                         f"small for a ({ny}, {nw}) mesh at K={K}")
+    _build.check_tensor("fx", fx, (rows, ld))
+    _build.check_tensor("fy", fy, (rows, ld), device=fx.device)
+    return _interp_launch(
+        "tnt_interp_windows", fx, base, w,
+        lambda out, b, is64: (fx.data_ptr(), fy.data_ptr(), b, is64,
+                              w.data_ptr(), out, n, K, nw, ld))
+
+
+def interp_work(base, K: int, nw: int, ld: int) -> dict:
+    """Flops and bytes of one interpolation of the bodies with base cells
+    ``base`` and ``K`` taps from force-grid windows of row stride ``ld``,
+    counted for what the data needs: fx and fy read once at each distinct
+    window cell the taps touch (``cells``, counted here with a device
+    sort; the kernel reads no other cell), the base cells and weights read
+    once, the (n, 2) accelerations written once."""
+    n = base.shape[0]
+    reach = INTERP_TAPS[K]
+    b = base.to(torch.int64)
+    c0 = (b // nw) * ld + b % nw
+    offs = torch.tensor([oy * ld + ox for oy in range(reach + 1)
+                         for ox in range(reach + 1)], device=base.device)
+    cells = int(torch.unique(c0[:, None] + offs[None, :]).numel())
+    return dict(cells=cells, flops=2 * (2 * K - 1) * n,
+                bytes=2 * 4 * cells + n * (base.element_size() + 4 * K)
+                + n * 2 * 4)
+
+
+def _interp_launch(fn, grid, base, w, args):
+    """Check the bodies' arguments, launch ``fn`` of the kernel library
+    with ``args(out, base, is64)`` and the stream; count the launch."""
+    global INTERP_LAUNCHES
+    n, K = w.shape
+    dev = grid.device
+    if base.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"base: expected int32 or int64, got {base.dtype}")
+    _build.check_tensor("w", w, (n, K), device=dev)
+    _build.check_tensor("base", base, (n,), device=dev, dtype=base.dtype)
+    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    rc = getattr(_build.library(), fn)(
+        *args(out.data_ptr(), base.data_ptr(), int(base.dtype == torch.int64)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(fn, rc)
+    with band_ops._COUNT_LOCK:
+        INTERP_LAUNCHES += 1
+    return out
 
 
 def _conv_potential(rho, phi_hat, ny, grid, grid_y, extra=0):

@@ -87,6 +87,9 @@ class Group:
     def rank(self) -> int:
         raise NotImplementedError
 
+    def close(self):
+        """Leave the group; nothing to do but for a :class:`DistGroup`."""
+
     def ppermute(self, x, perm):
         """``jax.lax.ppermute``: rank d receives ``x`` of the rank s with
         (s, d) in ``perm``; a rank that no pair names receives zeros."""
@@ -310,9 +313,12 @@ class ThreadGroup(Group):
 class DistGroup(Group):
     """This process as one rank of ``torch.distributed``'s default group
     (initialised by the caller or by :func:`~tpu_nbody_torch.parallel.mesh.
-    make_mesh`). CUDA tensors need the NCCL backend and CPU tensors gloo."""
+    make_mesh`). CUDA tensors need the NCCL backend and CPU tensors gloo.
+    ``owns`` says that the group was initialised for this object, which
+    :meth:`close` then tears down."""
 
-    def __init__(self, device, timeout: float = DEFAULT_TIMEOUT):
+    def __init__(self, device, timeout: float = DEFAULT_TIMEOUT,
+                 owns: bool = False):
         if not dist.is_initialized():
             raise RuntimeError("DistGroup needs torch.distributed."
                                "init_process_group first")
@@ -327,6 +333,7 @@ class DistGroup(Group):
         self._rank = dist.get_rank()
         self.local_ranks = [self._rank]
         self.timeout = float(timeout)   # as given to init_process_group
+        self._owns = owns
         if self.backend == "nccl" and self.size > 1:
             # NCCL sets up point-to-point links in the first send/receive
             # batch, which every rank must join: a ring shift does that
@@ -336,6 +343,16 @@ class DistGroup(Group):
     @property
     def rank(self) -> int:
         return self._rank
+
+    def close(self):
+        """A barrier, so that no rank leaves while another still talks to
+        it, then ``destroy_process_group``, when the group was initialised
+        for this object; a second call does nothing. A process that exits
+        with the group alive can abort in the backend's teardown."""
+        if self._owns and dist.is_initialized():
+            dist.barrier()
+            dist.destroy_process_group()
+        self._owns = False
 
     def _wire(self, x):
         """``x`` as a contiguous tensor the backend carries: bool as uint8,

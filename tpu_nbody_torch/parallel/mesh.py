@@ -11,6 +11,7 @@ this process's one for a DistGroup).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from tpu_nbody_torch.parallel.collectives import (DEFAULT_TIMEOUT, DistGroup,
                                                   Group, ThreadGroup,
@@ -39,7 +40,9 @@ def make_mesh(n_devices: int | None = None, *, device="cuda",
     if backend == "thread":
         return ThreadGroup(n_devices or 1, dev, timeout)
     if backend == "dist":
-        group = DistGroup(init_dist(dev, timeout, init_method), timeout)
+        owns = not dist.is_initialized()
+        group = DistGroup(init_dist(dev, timeout, init_method), timeout,
+                          owns=owns)
         if n_devices and n_devices != group.size:
             raise ValueError(f"{n_devices} ranks asked for, the process "
                              f"group has {group.size}")

@@ -19,12 +19,11 @@ import torch
 
 from tpu_nbody_torch.config import Params
 from tpu_nbody_torch.ops import forces
-from tpu_nbody_torch.ops.mesh import _topk_lowest_index
+from tpu_nbody_torch.ops import merge as merge_ops
 from tpu_nbody_torch.parallel.collectives import Group, run_spmd
 from tpu_nbody_torch.state import SimState
 
 INTEGRATORS = ("kdk", "euler")
-_BIG = torch.iinfo(torch.int32).max
 
 
 def _accel_vs_tile(pos, tile_pos, tile_mass, soft2, chunk=1024):
@@ -57,67 +56,43 @@ def _merge_sharded(state: SimState, params: Params, *, group: Group,
                    heavy_cap_local: int):
     """Sharded absorb rule (semantics: :mod:`tpu_nbody_torch.ops.merge`).
 
+    Each rank builds its heavy table (:func:`merge.heavy_table`, global ids
+    ``rank * nl + index``), the tables are gathered into one, and each rank
+    resolves its own bodies against it (:func:`merge.absorb`, round 2 from
+    the table alone); the gains, summed by table slot over the ranks, land
+    on the heavies their owners hold. On the card both halves are
+    ``csrc/merge.cu``.
+
     Returns ``(state, heavy_need)``: the largest count of qualifying heavies
     on any rank (the same on every rank). Above ``heavy_cap_local`` the
     lightest local heavies were left out as absorbers; the caller grows the
     cap and redoes the step.
     """
     nl, dim = state.pos.shape
-    dev = state.pos.device
     shard = group.rank
-    # global ids, int32 as in the JAX rule: the (nl, P * heavy_cap_local)
-    # id table below is the rule's largest temporary
-    gidx_local = shard * nl + torch.arange(nl, dtype=torch.int32,
-                                           device=dev)
-
-    heavy = state.alive & (state.mass > params.merge_max_mass)
-    heavy_need = group.pmax(heavy.sum(dtype=torch.int32))
+    need, hpos, hgidx, hvalid = merge_ops.heavy_table(
+        state.pos, state.mass, state.alive, params.merge_max_mass,
+        min(heavy_cap_local, nl), gid0=shard * nl)
+    heavy_need = group.pmax(need)
     if params.merge_min_dist <= 0:        # disabled (BarnesHutAlg.kt:465)
         return state, torch.zeros_like(heavy_need)
     md2 = params.merge_min_dist * params.merge_min_dist
-    key = torch.where(heavy, state.mass, float("-inf"))
-    _, hloc = _topk_lowest_index(key, min(heavy_cap_local, nl))
-    hvalid = heavy[hloc]
-    hpos = state.pos[hloc]
-    hgidx = torch.where(hvalid, gidx_local[hloc], _BIG)
 
     # the global heavy table: (P * heavy_cap_local, ...)
     all_hpos = group.all_gather(hpos).reshape(-1, dim)
     all_hgidx = group.all_gather(hgidx).reshape(-1)
     all_hvalid = group.all_gather(hvalid).reshape(-1)
-
-    r2 = sum((state.pos[:, k, None] - all_hpos[None, :, k]) ** 2
-             for k in range(dim))
-    eligible = ((r2 < md2) & all_hvalid[None, :] & state.alive[:, None]
-                & (gidx_local[:, None] != all_hgidx[None, :]))
-    nH = all_hgidx.shape[0]
-
-    def lowest(elig):
-        """(absorber global id, heavy-table slot) of the lowest-id heavy."""
-        return torch.where(elig, all_hgidx[None, :], _BIG).min(dim=1)
-
-    absorber, _ = lowest(eligible)
-    is_victim = absorber < _BIG
-    # heavies absorbed by a lower-id heavy never absorb (round 2)
-    h_is_victim_local = is_victim[hloc] & (absorber[hloc] < gidx_local[hloc])
-    all_h_absorbed = group.all_gather(h_is_victim_local).reshape(-1)
-    absorber, slot = lowest(eligible & ~all_h_absorbed[None, :])
-    is_victim = absorber < _BIG
-
-    # mass transfer: victims summed per heavy-table slot, then over ranks
-    gained = torch.zeros((nH + 1,), dtype=state.mass.dtype, device=dev)
-    gained.index_add_(0, torch.where(is_victim, slot, nH),
-                      torch.where(is_victim, state.mass, 0.0))
-    gained = group.psum(gained[:nH])
+    mass, alive, gained = merge_ops.absorb(
+        state.pos, state.mass, state.alive, all_hpos, all_hgidx, all_hvalid,
+        md2, gid0=shard * nl)
+    gained = group.psum(gained)
 
     # gains land on the heavies this rank owns; the rest go to a dump slot
-    mine = (all_hgidx // nl) == shard
+    mine = all_hvalid & ((all_hgidx // nl) == shard)
     local_slot = torch.where(mine, all_hgidx % nl, nl)
-    mass = torch.cat([state.mass, state.mass.new_zeros(1)])
+    mass = torch.cat([mass, mass.new_zeros(1)])
     mass.index_add_(0, local_slot, torch.where(mine, gained, 0.0))
-    mass = torch.where(is_victim, 0.0, mass[:nl])
-    return state._replace(mass=mass, alive=state.alive & ~is_victim), \
-        heavy_need
+    return state._replace(mass=mass[:nl], alive=alive), heavy_need
 
 
 def make_sharded_step(group: Group, *, integrator: str = "kdk",
