@@ -74,7 +74,8 @@ n2 = 200,000):
   tests/test_torch_package.py tests/test_torch_rescue_kernel.py
   tests/test_torch_rescue_select.py tests/test_torch_bh_pairs.py
   tests/test_torch_bh_hier.py tests/test_torch_merge_kernel.py
-  tests/test_torch_interp_kernel.py -q`` in a child process, which must
+  tests/test_torch_interp_kernel.py tests/test_torch_deposit_kernel.py
+  tests/test_torch_fd_kernel.py -q`` in a child process, which must
   pass.
 
 On the way it
@@ -121,11 +122,21 @@ On the way it
    kernel against its plain version (the same alive flags and heavy_need,
    masses within MERGE_RTOL) on a synthetic scene of 2^20 bodies with
    chains of heavies and more heavies than the cap of 64, and on the main
-   path's state after its steps, timed there;
+   path's state after its steps, timed there; the deposit kernel against
+   its plain versions on the sorted scene in CIC, NGP and TSC (the cells
+   of both cell entries bit for bit, rho of every entry within RHO_RTOL a
+   cell and MASS_RTOL of the total, from int32 and int64 cells), the CIC
+   entries timed beside the grid's zeroing and ``index_add_`` as a
+   yardstick, and on a clustered scene against a float64 sum within
+   CLUSTER_RHO_RTOL a cell; the FD-gradient kernel bit for bit on the
+   potential rows of each order's deposit, timed beside ``conv2d`` as a
+   yardstick; in path C the deposit in each ``run_compress`` mode against
+   the plain one;
 5. sets every launch count to 0 just before each path and reads it just
    after, checking the launches each path must make (one band, one
-   rescue, one rescue selection and one interpolation launch per P3M
-   force pass, one merge launch set a step of an engine that merges, two
+   rescue, one rescue selection, one interpolation, one deposit and one
+   FD-gradient launch per P3M force pass, one merge launch set a step of
+   an engine that merges, two
    rescues and three selections a rank's pass on the sharded P3M and two
    merge launch sets a rank's step, one all-pairs launch per all-pairs
    force pass, hier and merge kernel launches and no other in the
@@ -135,8 +146,8 @@ On the way it
    is over its limit.
 
 The kernels line gives, per kernel, ``launches`` (for the band, rescue,
-selection, interpolation and merge kernels the main path's three
-step(20) calls; for the
+selection, interpolation, deposit, FD-gradient and merge kernels the main
+path's three step(20) calls; for the
 all-pairs kernel path E's run at 2^20 bodies, the path it carries: the
 P3M main path launches it only in the force error after its steps; for
 the hier kernel path D's steps; for the pair kernel the dense force
@@ -144,10 +155,12 @@ error at N = 65,536, the Barnes–Hut main path being hier) and
 ``launches_by_path``, which holds path G's runs as ``bench_pm``,
 ``bench_allpairs`` and ``bench_bh`` (warm-up, timed repeats, force error
 and phase table). The two rescue kernels, both Barnes–Hut kernels, the
-merge and the interpolation have no Pallas original: ``replaces`` names
-the XLA code they stand for. The interpolation's ``library_ms`` is
-``grid_sample``'s time on the same windows and positions, a yardstick the
-port never calls; the merge's is null (no PyTorch call computes it).
+merge, the interpolation, the deposit and the FD gradient have no Pallas
+original: ``replaces`` names the XLA code they stand for. The
+interpolation's ``library_ms`` is ``grid_sample``'s time on the same
+windows and positions, the deposit's one ``index_add_`` into the zeroed
+grid, the FD gradient's one ``conv2d``: yardsticks the port never calls;
+the merge's is null (no PyTorch call computes it).
 Each kernel's bound_ms is the larger of its flops over the float32 peak and its
 bytes over the memory rate (``pair_work``, ``rescue_pair_work`` in its
 module, ``hier_pair_work`` in traverse, ``select_work`` in mesh),
@@ -157,7 +170,9 @@ their accepted nodes and direct bodies, the selection's union box of each
 target and group of 32 blocks and the members of the near groups, from
 the kernels' counters, the merge's distance tests of every alive body
 against min(heavy_need, cap) heavies, ``merge.merge_work``; the
-interpolation's window cells its bodies touch, ``mesh.interp_work``);
+interpolation's window cells its bodies touch, ``mesh.interp_work``; the
+deposit's bodies, cells and grid, ``mesh.deposit_work``; the FD
+gradient's source rows and windows, ``mesh.fd_work``);
 rsqrt_floor_ms is its
 pairs over the rsqrt unit's rate (16 a clock per SM at the card's highest
 SM clock), a second floor beside it.
@@ -186,6 +201,17 @@ N = 1_000_000       # bodies of the two-disk scene
 N_SMALL = 65_536    # bodies of the kdk and euler all-pairs runs
 STEPS = 20          # steps per Engine.step call of the P3M paths
 TOL = 1e-5          # kernel vs plain: max |diff| <= TOL * max |plain|
+# deposit kernel vs plain: each cell and the total mass within these
+# relative differences (sums of positive terms, the kernel's atomics in
+# another order)
+RHO_RTOL = 1e-5
+MASS_RTOL = 1e-6
+# the deposit kernel on the clustered scene (up to ~37,000 products a cell)
+# against a float64 sum of the same float32 products: each cell within this
+# relative difference. The kernel's own float32 rounding read 1.0e-5 there
+# against the plain float32 sum; a warp's pre-sum of 32 bodies lost from
+# such a cell is 8.6e-4 of it.
+CLUSTER_RHO_RTOL = 1e-4
 # merge kernel vs plain: the same alive flags and heavy_need, masses within
 # this relative difference (the kernel sums the gains with atomics)
 MERGE_RTOL = 1e-6
@@ -224,17 +250,17 @@ BH_STEPS = (("warm-up", 1), ("timed", 1))
 # path G: the bench's command lines; the kernels each run must launch; the
 # limit of its mean force error (all-pairs: the kernel against itself)
 BENCH_RUNS = {
-    "pm": ([], ("band", "rescue", "rescue_select", "interp", "merge",
-                "allpairs"), ERR_LIMIT),
+    "pm": ([], ("band", "rescue", "rescue_select", "interp", "deposit", "fd",
+                "merge", "allpairs"), ERR_LIMIT),
     "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
     "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
            ("allpairs", "bh_hier"), BH_ERR_LIMIT),
 }
 # the first words of each per-phase row the bench must print
 BENCH_PHASES = {
-    "pm": ("hilbert sort", "CIC cells", "deposit", "FFT convolution",
-           "interpolation", "band", "rescue select", "rescue pairs", "merge",
-           "kernel hats"),
+    "pm": ("hilbert sort", "cells + deposit", "FFT convolution",
+           "FD gradient", "interpolation", "band", "rescue select",
+           "rescue pairs", "merge", "kernel hats"),
     "allpairs": ("all-pairs kernel",),
     "bh": ("build", "groups", "lists", "evaluate (bh_hier kernel)",
            "assemble"),
@@ -245,7 +271,9 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_rescue_select.py",
               "tests/test_torch_bh_pairs.py", "tests/test_torch_bh_hier.py",
               "tests/test_torch_merge_kernel.py",
-              "tests/test_torch_interp_kernel.py", "-q"]
+              "tests/test_torch_interp_kernel.py",
+              "tests/test_torch_deposit_kernel.py",
+              "tests/test_torch_fd_kernel.py", "-q"]
 # the launch counter of each kernel: (module of tpu_nbody_torch.ops,
 # attribute)
 COUNTERS = {"band": ("band", "LAUNCHES"),
@@ -255,9 +283,13 @@ COUNTERS = {"band": ("band", "LAUNCHES"),
             "bh_pairs": ("traverse", "LAUNCHES"),
             "bh_hier": ("traverse", "HIER_LAUNCHES"),
             "merge": ("merge", "LAUNCHES"),
-            "interp": ("mesh", "INTERP_LAUNCHES")}
+            "interp": ("mesh", "INTERP_LAUNCHES"),
+            "deposit": ("mesh", "DEPOSIT_LAUNCHES"),
+            "fd": ("mesh", "FD_LAUNCHES")}
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
+# the kernels every fresh P3M force pass launches once
+P3M_PASS = ("band", "rescue", "rescue_select", "interp", "deposit", "fd")
 # merge launch sets an Engine.step(s) of the one-device engines: one a step
 P3M_MERGES = {"merge": lambda s: s}
 # the bench configuration (bench.py:244-294)
@@ -731,6 +763,263 @@ def _interp_shape(spos, smass, salive, cfg, params, origin, side):
     print(f"interp carried table: kernel {out['carried_table_ms']:.4f} ms "
           f"on the device, plain {out['carried_table_plain_ms']:.4f} ms",
           flush=True)
+    return out
+
+
+def _rho_check(name, got, want, rtol=RHO_RTOL):
+    """A deposit against a reference: each cell within ``rtol`` of it
+    (zero where it is zero), the total within MASS_RTOL, finite. Returns
+    (max relative difference of a cell, of the total)."""
+    import torch
+    torch.cuda.synchronize()
+    g, w = got.double(), want.double()
+    diff = (g - w).abs()
+    bad = int((diff > rtol * w.abs()).sum())
+    cell = float((diff / w.abs().clamp(min=1e-300)).max())
+    total = abs(float(g.sum()) - float(w.sum())) / float(w.sum())
+    if bad or not total <= MASS_RTOL or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: {bad} cells differ from the "
+                             f"reference by more than {rtol} of the cell "
+                             f"(max {cell:.3e}) or the total by {total:.3e} "
+                             f"> {MASS_RTOL}")
+    return cell, total
+
+
+def _same_bits(name, got, want):
+    import torch
+    torch.cuda.synchronize()
+    if not (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(got.view(torch.int32), want.view(torch.int32))):
+        raise AssertionError(f"{name}: the kernel's bits differ from the "
+                             f"plain version's")
+
+
+def _deposit_shape(spos, smass, cfg, origin, side):
+    """The deposit kernel against its plain versions at the main path's
+    shape, on the Hilbert-sorted scene, in CIC (the main path), NGP and
+    TSC: the cells of the fused entry and of the cells-only entry bit for
+    bit with ``_cic_cells_ref``; rho of the fused entry and of the entry
+    from given cells (int32 and int64 base) within RHO_RTOL a cell and
+    MASS_RTOL of the total. In CIC each entry timed (``device_ms``, a
+    call's device time), the grid's zeroing alone, the plain versions
+    (cells and deposit), and, as a yardstick only, one ``index_add_`` of
+    the 4n (cell, m w) pairs into the zeroed flattened grid; the bound
+    both over the whole grid the kernel writes and over the rows the FFT
+    reads of it. Then a clustered scene, the same bodies drawn 20 times
+    closer to the window's centre: the fused entry timed and held to a
+    float64 sum of the same float32 products within CLUSTER_RHO_RTOL a
+    cell and MASS_RTOL of the total, beside the plain float32 version's
+    difference from that sum (read, not held). Also counts the
+    coordinates where torch's division by h as a Python scalar differs on
+    the card from the IEEE division the cells use (``_cic_cells_ref``
+    divides by a 0-dim tensor for that reason)."""
+    import torch
+    from tpu_nbody_torch.ops import mesh
+    nw, ny, grid, grid_y, h, _, mo = mesh._pm_geometry(
+        origin, side, cfg.mesh_level, cfg.mesh_ny, cfg.mesh_split)
+    kw = dict(ny=ny, grid_y=grid_y)
+    n = spos.shape[0]
+    shifted = spos - torch.tensor(mo, device=spos.device)
+    scalar_differs = int((shifted / h != shifted / torch.tensor(
+        h, device=spos.device)).sum())
+    print(f"cells: torch's division by the Python scalar h differs from "
+          f"the IEEE division in {scalar_differs} of {shifted.numel()} "
+          f"coordinates on the card", flush=True)
+    del shifted
+
+    def fused(p=spos, order=2):
+        return mesh.deposit_cells(p, smass, mo, h, nw, grid, order, **kw)
+
+    out = {}
+    for order in (2, 1, 3):
+        name = {1: "NGP", 2: "CIC", 3: "TSC"}[order]
+        base_p, w_p = mesh._cic_cells_ref(spos, mo, h, nw, order, ny=ny)
+        rho_p = mesh._deposit_packed_ref(smass, base_p, w_p, nw, grid, **kw)
+        rho, base, w = fused(order=order)
+        _same_bits(f"deposit {name} cells (fused)", base, base_p)
+        _same_bits(f"deposit {name} weights (fused)", w, w_p)
+        cell_err, total_err = _rho_check(f"deposit {name} rho (fused)", rho,
+                                         rho_p)
+        base_c, w_c = mesh._cic_cells(spos, mo, h, nw, order, ny=ny)
+        _same_bits(f"deposit {name} cells (cells only)", base_c, base_p)
+        _same_bits(f"deposit {name} weights (cells only)", w_c, w_p)
+        for dtype in (torch.int32, torch.int64):
+            _rho_check(f"deposit {name} rho (from {dtype} cells)",
+                       mesh._deposit_packed(smass, base_p.to(dtype), w_p,
+                                            nw, grid, **kw), rho_p)
+        print(f"deposit {name}: cells and weights the plain version's bits "
+              f"(both entries); rho within {RHO_RTOL} a cell (max "
+              f"{cell_err:.3e}) and {MASS_RTOL} of the total "
+              f"({total_err:.3e}) in every entry", flush=True)
+        if order != 2:
+            continue
+        K = w_p.shape[1]
+        ms = device_ms(fused)
+        cells_ms = device_ms(lambda: mesh._cic_cells(spos, mo, h, nw, order,
+                                                     ny=ny))
+        given_ms = device_ms(lambda: mesh._deposit_packed(
+            smass, base_p, w_p, nw, grid, **kw))
+        zero_ms = device_ms(lambda: torch.zeros((grid_y, grid),
+                                                device=spos.device))
+        plain_ms = timed_ms(lambda: mesh._deposit_packed_ref(
+            smass, *mesh._cic_cells_ref(spos, mo, h, nw, order, ny=ny), nw,
+            grid, **kw))
+        offs = torch.tensor([oy * grid + ox for oy in (0, 1)
+                             for ox in (0, 1)], device=spos.device)
+        b64 = base_p.to(torch.int64)
+        idx = ((b64 // nw) * grid + b64 % nw)[:, None] + offs[None, :]
+        idx = idx.reshape(-1)
+        vals = (smass[:, None] * w_p).reshape(-1)
+
+        def library():
+            return torch.zeros((grid_y * grid,), device=spos.device
+                               ).index_add_(0, idx, vals)
+
+        lib_rho = library().reshape(grid_y, grid)
+        lib_diff = float((lib_rho - rho_p).abs().max())
+        library_ms = device_ms(library)
+        mult = torch.bincount(b64[smass > 0])
+        # the rows _conv_potential reads of the grid: the mesh's and the
+        # CIC reach's
+        read_rows = ny + 2
+        out.update(max_abs_err=float((fused()[0] - rho_p).abs().max()),
+                   max_rel_err_cell=cell_err, rel_err_total=total_err,
+                   ms=ms, scalar_divisor_differs=scalar_differs,
+                   cells_ms=cells_ms, given_ms=given_ms, zero_ms=zero_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library="torch.Tensor.index_add_ of the 4n (cell, m w) "
+                           "pairs into the zeroed flattened grid",
+                   library_max_abs_diff=lib_diff, bodies=n, taps=K,
+                   grid=[grid_y, grid], cells_occupied=int((mult > 0).sum()),
+                   max_bodies_a_cell=int(mult.max()),
+                   **bounds(mesh.deposit_work(n, K, grid_y * grid), ms))
+        out["read_rows"] = dict(rows=read_rows, **bounds(
+            mesh.deposit_work(n, K, read_rows * grid), ms))
+        print(f"deposit CIC {n} bodies, fused: kernel {ms:.4f} ms on the "
+              f"device; cells only {cells_ms:.4f}, from given cells "
+              f"{given_ms:.4f}; the {grid_y} x {grid} grid's zeroing alone "
+              f"{zero_ms:.4f}; plain {plain_ms:.4f} ms; index_add_ "
+              f"{library_ms:.4f} ms (max |diff| from the plain version "
+              f"{lib_diff:.3e}); bound {out['bound_ms']:.5f} ms "
+              f"({out['bound_by']}, {out['pct_of_bound']:.2f}%) over the "
+              f"whole grid, {out['read_rows']['bound_ms']:.5f} ms "
+              f"({out['read_rows']['pct_of_bound']:.2f}%) over the "
+              f"{read_rows} rows the FFT reads; {out['cells_occupied']} base "
+              f"cells hold bodies, at most {out['max_bodies_a_cell']} a "
+              f"cell", flush=True)
+    # a clustered scene: the same bodies 20 times closer to the centre
+    centre = torch.tensor([mo[0] + 0.5 * nw * h, mo[1] + 0.5 * ny * h],
+                          device=spos.device)
+    tight = (centre + (spos - centre) / 20.0).contiguous()
+    base_t, w_t = mesh._cic_cells_ref(tight, mo, h, nw, 2, ny=ny)
+    prods = smass[:, None] * w_t                      # the float32 products
+    rho64 = mesh._deposit_packed_ref(
+        torch.ones_like(smass, dtype=torch.float64), base_t, prods.double(),
+        nw, grid, **kw)
+    b64 = base_t.to(torch.int64)
+    idx = ((b64 // nw) * grid + b64 % nw)[:, None] + offs[None, :]
+    terms = torch.zeros((grid_y * grid,), device=spos.device).index_add_(
+        0, idx.reshape(-1), (prods != 0).float().reshape(-1))
+    cell_err, total_err = _rho_check("deposit CIC clustered",
+                                     fused(tight)[0], rho64,
+                                     rtol=CLUSTER_RHO_RTOL)
+    g64 = mesh._deposit_packed_ref(smass, base_t, w_t, nw, grid,
+                                   **kw).double()
+    plain_cell = float(((g64 - rho64).abs()
+                        / rho64.abs().clamp(min=1e-300)).max())
+    plain_total = abs(float(g64.sum() - rho64.sum())) / float(rho64.sum())
+    mult = torch.bincount(b64[smass > 0])
+    clustered = dict(ms=device_ms(lambda: fused(tight)),
+                     max_rel_err_cell=cell_err, rel_err_total=total_err,
+                     plain_max_rel_err_cell=plain_cell,
+                     plain_rel_err_total=plain_total,
+                     cells_occupied=int((mult > 0).sum()),
+                     max_bodies_a_cell=int(mult.max()),
+                     max_terms_a_cell=int(terms.max()))
+    out["clustered"] = clustered
+    print(f"deposit CIC clustered (20x closer): kernel {clustered['ms']:.4f}"
+          f" ms; {clustered['cells_occupied']} base cells hold bodies, at "
+          f"most {clustered['max_bodies_a_cell']} a cell and "
+          f"{clustered['max_terms_a_cell']} products; against the float64 "
+          f"sum of the same products, rho within {CLUSTER_RHO_RTOL} a cell "
+          f"(max {cell_err:.3e}) and {MASS_RTOL} of the total "
+          f"({total_err:.3e}); the plain float32 version reads "
+          f"{plain_cell:.3e} a cell, {plain_total:.3e} of the total",
+          flush=True)
+    return out
+
+
+def _fd_shape(spos, smass, cfg, params, origin, side):
+    """The FD-gradient kernel against its plain version at the main path's
+    shapes, on the potential rows of the Hilbert-sorted scene's deposit,
+    bit for bit, in CIC (the main path), NGP and TSC (one more row and
+    column); in CIC timed (``device_ms``) beside the plain version and,
+    as a yardstick only, one ``torch.nn.functional.conv2d`` of the rolled
+    rows with the (2, 1, 7, 7) stencil weight (TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+    from tpu_nbody_torch.ops import mesh
+    nw, ny, grid, grid_y, h, a, mo = mesh._pm_geometry(
+        origin, side, cfg.mesh_level, cfg.mesh_ny, cfg.mesh_split)
+    out = {}
+    for order in (2, 1, 3):
+        name = {1: "NGP", 2: "CIC", 3: "TSC"}[order]
+        reach = 1 if order == 3 else 0
+        kernel = mesh._kernel_hats(grid, h, params.soft2, a, spos.dtype,
+                                   spos.device, grid_y=grid_y,
+                                   deconv_order=order,
+                                   switch=cfg.mesh_switch)
+        rho, _, _ = mesh.deposit_cells(spos, smass, mo, h, nw, grid, order,
+                                       ny=ny, grid_y=grid_y)
+        pw = mesh._conv_potential(rho, kernel[2], ny, grid, grid_y,
+                                  extra=reach)
+        del rho, kernel
+
+        def run(pw=pw, reach=reach):
+            return mesh._fd_gradient(pw, h, nw, ny, reach)
+
+        def plain(pw=pw, reach=reach):
+            return mesh._fd_window_ref(pw, h, ny + 1 + reach, nw + 1 + reach)
+
+        got, want = run(), plain()
+        for axis, g_, w_ in zip("xy", got, want):
+            _same_bits(f"fd {name} f{axis} {tuple(w_.shape)}", g_, w_)
+        print(f"fd {name}: fx and fy {tuple(want[0].shape)} the plain "
+              f"version's bits", flush=True)
+        if order != 2:
+            continue
+        ms = device_ms(run)
+        call_ms = timed_ms(run)
+        plain_ms = timed_ms(plain)
+        c1, c2, c3 = mesh._fd_coefficients(h)
+        wt = torch.zeros((2, 1, 7, 7), device=spos.device)
+        for k, c in ((1, c1), (2, -c2), (3, c3)):
+            wt[0, 0, 3, 3 + k], wt[0, 0, 3, 3 - k] = c, -c
+            wt[1, 0, 3 + k, 3], wt[1, 0, 3 - k, 3] = c, -c
+        rolled = torch.roll(pw, 3, dims=1)[:, :nw + 7 + reach]
+        rolled = rolled[None, None].contiguous()
+
+        def library():
+            return F.conv2d(rolled, wt)
+
+        lib = library()[0]
+        lib_diff = max(float((lib[i] - got[i]).abs().max()) for i in (0, 1))
+        library_ms = device_ms(library)
+        rows, cols = got[0].shape
+        work = mesh.fd_work(rows, cols)
+        out.update(max_abs_err=max(float((g_ - w_).abs().max())
+                                   for g_, w_ in zip(got, want)),
+                   ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   library="torch.nn.functional.conv2d of the rolled rows, "
+                           "a (2, 1, 7, 7) stencil weight, TF32 off",
+                   library_max_abs_diff=lib_diff, windows=[rows, cols],
+                   potential_rows=list(pw.shape), **bounds(work, ms))
+        print(f"fd CIC: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms "
+              f"a call on an idle card), plain {plain_ms:.4f} ms, conv2d "
+              f"{library_ms:.4f} ms (max |diff| from the kernel "
+              f"{lib_diff:.3e}), bound {out['bound_ms']:.5f} ms "
+              f"({out['bound_by']}, {out['pct_of_bound']:.2f}%)", flush=True)
     return out
 
 
@@ -1353,14 +1642,12 @@ def _render_main(paths, cfg, params, dev, st0, stepped):
         return final, frames, time.perf_counter() - t0
 
     final, frames, sec = paths.run("render_movie_pm", movie, need=("band",))
-    if paths.counts["render_movie_pm"] != _only(band=64, rescue=64,
-                                                rescue_select=64, interp=64,
-                                                merge=32):
+    if paths.counts["render_movie_pm"] != _only(merge=32,
+                                                **dict.fromkeys(P3M_PASS, 64)):
         raise AssertionError(f"render_movie_pm: launches "
                              f"{paths.counts['render_movie_pm']}, expected "
-                             f"64 band, 64 rescue, 64 rescue_select and 64 "
-                             f"interp (two passes a single step) and 32 "
-                             f"merge")
+                             f"64 of each of {P3M_PASS} (two passes a single "
+                             f"step) and 32 merge")
     if not (frames.device.type == dev.type and frames.dtype == torch.uint8
             and tuple(frames.shape) == (8, h, w, 3)
             and int(final.step) == 32 and int(frames[0].sum()) > 0
@@ -1415,6 +1702,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             b0, r0 = band.LAUNCHES, band.RESCUE_LAUNCHES
             s0 = mesh.SELECT_LAUNCHES
             i0, m0 = mesh.INTERP_LAUNCHES, merge_ops.LAUNCHES
+            d0, f0 = mesh.DEPOSIT_LAUNCHES, mesh.FD_LAUNCHES
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
@@ -1429,32 +1717,37 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             selects = mesh.SELECT_LAUNCHES - s0
             interps = mesh.INTERP_LAUNCHES - i0
             merges = merge_ops.LAUNCHES - m0
+            deposits = mesh.DEPOSIT_LAUNCHES - d0
+            fds = mesh.FD_LAUNCHES - f0
             print(f"  step({F_STEPS}) {label}: {host:.3f} s host, "
                   f"{start.elapsed_time(end):.1f} ms device events, "
                   f"{launches} band launches, {rescues} rescue launches, "
                   f"{selects} rescue_select launches, {interps} interp "
+                  f"launches, {deposits} deposit launches, {fds} fd "
                   f"launches, {merges} merge launch sets", flush=True)
             if label == "timed" and (launches != P * (F_STEPS + 1)
                                      or rescues != 2 * launches
                                      or selects != 3 * launches
                                      or interps != launches
+                                     or deposits != launches
+                                     or fds != launches
                                      or merges != 2 * P * F_STEPS):
                 raise AssertionError(
                     f"sharded pm: {launches} band, {rescues} rescue, "
-                    f"{selects} rescue_select, {interps} interp and "
+                    f"{selects} rescue_select, {interps} interp, "
+                    f"{deposits} deposit, {fds} fd and "
                     f"{merges} merge launches in step({F_STEPS}), "
                     f"expected {P} band a force pass x {F_STEPS + 1} "
                     f"passes, two rescues (local, cross-shard), three "
                     f"selections (local; the cross-shard export scores "
-                    f"and import picks) and one interpolation a band "
-                    f"launch, and two merge launch sets (the heavy table, "
-                    f"then the absorb) a rank's step")
+                    f"and import picks) and one interpolation, one "
+                    f"deposit and one FD gradient a band launch, and two "
+                    f"merge launch sets (the heavy table, then the "
+                    f"absorb) a rank's step")
             out[label] = (host / F_STEPS, start.elapsed_time(end) / F_STEPS)
         return out, n0
 
-    times, n0 = paths.run("sharded_pm", run,
-                          need=("band", "rescue", "rescue_select", "interp",
-                                "merge"))
+    times, n0 = paths.run("sharded_pm", run, need=P3M_PASS + ("merge",))
     sec, dev_ms = times["timed"]
     st = se.state
     n1 = int(st.n_alive())
@@ -1508,11 +1801,11 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         need=("band", "rescue", "rescue_select", "allpairs"))
     counts = paths.counts["sharded_pm_force_error"]
     if (counts["band"] != P + 1 or counts["rescue_select"] != 3 * P + 1
-            or counts["interp"] != P + 1):
+            or any(counts[k] != P + 1 for k in ("interp", "deposit", "fd"))):
         raise AssertionError(
             f"sharded pm: {counts} launches for a sharded and a one-device "
             f"pass, expected {P} + 1 band, {3 * P} + 1 rescue_select and "
-            f"{P} + 1 interp")
+            f"{P} + 1 each of interp, deposit and fd")
 
     # one pass by phase on rank 0, CUDA events; every rank enqueues on the
     # one stream, so a phase's time holds the other ranks' work enqueued
@@ -1603,8 +1896,7 @@ def _path_f2(paths):
     print(f"path F2: python -m tpu_nbody_torch.examples.merger10m "
           f"{' '.join(args)}", flush=True)
     r = paths.run("merger10m", lambda: merger10m.main(args),
-                  need=("band", "rescue", "rescue_select", "interp",
-                        "merge"))
+                  need=P3M_PASS + ("merge",))
     n_total = int(args[args.index("--n") + 1])
     alive = [n for _, n, _ in r["lines"]]
     st = r["engine"].state
@@ -1796,8 +2088,7 @@ def _path_f5(paths, dev):
     paths.run("dryrun_multichip",
               lambda: graft_entry.dryrun_multichip(DRYRUN_RANKS,
                                                    device=DEVICE),
-              need=("band", "rescue", "rescue_select", "interp", "merge",
-                    "allpairs", "bh_pairs"))
+              need=P3M_PASS + ("merge", "allpairs", "bh_pairs"))
     fn, (st, prm) = graft_entry.entry(device=DEVICE)
     t0 = time.perf_counter()
     out = paths.run("entry", lambda: fn(st, prm), need=("bh_pairs",
@@ -1998,6 +2289,8 @@ def main() -> int:
     # -- interpolation and merge kernels vs plain --------------------------
     results["interp"] = _interp_shape(spos, smass, salive, cfg, params,
                                       origin, side)
+    results["deposit"] = _deposit_shape(spos, smass, cfg, origin, side)
+    results["fd"] = _fd_shape(spos, smass, cfg, params, origin, side)
     synthetic = _merge_scene(cap, dev)
     merge_synthetic = _merge_compare(
         f"merge synthetic {cap} bodies, chains, {MERGE_HEAVIES} heavies",
@@ -2079,16 +2372,14 @@ def main() -> int:
     paths.run("force_error_step0",
                      lambda: _force_error("pm_main step 0", st0, cfg, params,
                                           g),
-                     need=("band", "rescue", "rescue_select", "interp",
-                           "allpairs"))
+                     need=P3M_PASS + ("allpairs",))
 
     # -- main path ----------------------------------------------------------
     torch.cuda.reset_peak_memory_stats()
     sec, n0, n1 = paths.run(
         "pm_main", lambda: _run_steps(eng, 3, [STEPS] * 3, lambda s: s + 1,
-                                      ("band", "rescue", "rescue_select",
-                                       "interp"), P3M_MERGES),
-        need=("band", "rescue", "rescue_select", "interp", "merge"))
+                                      P3M_PASS, P3M_MERGES),
+        need=P3M_PASS + ("merge",))
     _report_run("pm_main", eng, sec, n0, n1)
     main_sec = sec
     hud = eng.stats()
@@ -2141,15 +2432,14 @@ def main() -> int:
         lambda: _run_steps(sub, 3, [STEPS] * 3, lambda s: s + 1,
                            ("band", "rescue", "rescue_select", "interp"),
                            P3M_MERGES),
-        need=("band", "rescue", "rescue_select", "interp", "merge"))
+        need=P3M_PASS + ("merge",))
     _report_run("pm_subcycled", sub, sec, n0, n1)
     print(f"pm_subcycled against pm_main in this run: "
           f"{1e3 * sec:.2f} against {1e3 * main_sec:.2f} ms/step", flush=True)
     paths.run("pm_subcycled_force_error",
               lambda: _force_error("pm_subcycled fresh pass after the run",
                                    sub.state, cfg_b, params, g, ERR_LIMIT),
-              need=("band", "rescue", "rescue_select", "interp",
-                    "allpairs"))
+              need=P3M_PASS + ("allpairs",))
     del sub
 
     # -- path C: one fresh force pass per remaining knob --------------------
@@ -2169,9 +2459,7 @@ def main() -> int:
             out[name] = e
         return out
 
-    errs = paths.run("pm_knobs", knobs,
-                     need=("band", "rescue", "rescue_select", "interp",
-                           "allpairs"))
+    errs = paths.run("pm_knobs", knobs, need=P3M_PASS + ("allpairs",))
     cic = errs["cic"]["mean"]
     checks = {
         "heavy_direct": errs["heavy_direct"]["mean"] <= 1.05 * cic,
@@ -2194,26 +2482,30 @@ def main() -> int:
               lambda: _run_steps(ex, 2, [2, 2], lambda s: s + 1,
                                  ("band", "rescue", "rescue_select",
                                   "interp"), P3M_MERGES),
-              need=("band", "rescue", "rescue_select", "interp", "merge"))
+              need=P3M_PASS + ("merge",))
     print("  pm_mesh_extrapolate: two step(2) calls, state finite",
           flush=True)
     del ex
 
-    # the deposit modes on the Hilbert-sorted scene, as the engine deposits
-    base, w = mesh._cic_cells(spos, morigin, h, nw, 2, ny=ny)
+    # the deposit's run_compress modes on the Hilbert-sorted scene, as the
+    # engine deposits: the kernel in each mode against the plain deposit
+    base, w = mesh._cic_cells_ref(spos, morigin, h, nw, 2, ny=ny)
 
-    def deposit(mode=False):
-        return mesh._deposit_packed(smass, base, w, nw, grid,
-                                    run_compress=mode, ny=ny, grid_y=grid_y)
+    def deposit(mode=False, fn=mesh._deposit_packed):
+        return fn(smass, base, w, nw, grid, run_compress=mode, ny=ny,
+                  grid_y=grid_y)
 
-    plain = deposit()
-    dep = {"plain": timed_ms(deposit)}
-    for mode in (True, 8):
-        _check_close(f"deposit run_compress={mode}", deposit(mode), plain)
-        dep[str(mode)] = timed_ms(lambda: deposit(mode))
-    print(f"  deposit (Hilbert-sorted bodies): plain {dep['plain']:.3f} ms, "
-          f"run_compress=True {dep['True']:.3f} ms, run_compress=8 "
-          f"{dep['8']:.3f} ms; both within {TOL} of max rho", flush=True)
+    plain = deposit(fn=mesh._deposit_packed_ref)
+    dep = {}
+    for mode in (False, True, 8):
+        _rho_check(f"deposit run_compress={mode}", deposit(mode), plain)
+        dep[mode] = (timed_ms(lambda: deposit(mode)),
+                     timed_ms(lambda: deposit(mode, mesh._deposit_packed_ref)))
+    print("  deposit (Hilbert-sorted bodies), kernel against plain: "
+          + ", ".join(f"run_compress={m} {k:.3f} ms against {p:.3f} ms"
+                      for m, (k, p) in dep.items())
+          + f"; every mode within {RHO_RTOL} of each cell", flush=True)
+    del plain
 
     # -- path D: Barnes–Hut -------------------------------------------------
     bh_sec = _path_d(paths, SimConfig(capacity=cap, **CFG, **BH_CFG), params,
@@ -2267,7 +2559,9 @@ def main() -> int:
                 "bh_pairs": paths.counts["bh_small_force_error"]["bh_pairs"],
                 "bh_hier": paths.counts["bh_engine"]["bh_hier"],
                 "merge": paths.counts["pm_main"]["merge"],
-                "interp": paths.counts["pm_main"]["interp"]}
+                "interp": paths.counts["pm_main"]["interp"],
+                "deposit": paths.counts["pm_main"]["deposit"],
+                "fd": paths.counts["pm_main"]["fd"]}
     kernels = [
         dict(name="band_short_range", route="cuda",
              source="tpu_nbody_torch/csrc/band.cu",
@@ -2332,6 +2626,24 @@ def main() -> int:
                            "(no Pallas original)",
              launches=launches["interp"],
              launches_by_path=paths.of("interp"), **results["interp"]),
+        dict(name="deposit", route="cuda",
+             source="tpu_nbody_torch/csrc/deposit.cu",
+             replaces="tpu_nbody/ops/mesh.py:471",
+             replaces_also="tpu_nbody/ops/mesh.py:399; "
+                           "tpu_nbody/parallel/sharded_pm.py:352",
+             replaces_kind="XLA assignment cells (_cic_cells) and plane "
+                           "scatter-adds with the pad-shift combine "
+                           "(_deposit_packed) (no Pallas original)",
+             launches=launches["deposit"],
+             launches_by_path=paths.of("deposit"), **results["deposit"]),
+        dict(name="fd_gradient", route="cuda",
+             source="tpu_nbody_torch/csrc/fd.cu",
+             replaces="tpu_nbody/ops/mesh.py:648",
+             replaces_also="tpu_nbody/parallel/sharded_pm.py:124",
+             replaces_kind="XLA 6th-order FD stencil of _mesh_grids_one "
+                           "and _fd_force_window (no Pallas original)",
+             launches=launches["fd"],
+             launches_by_path=paths.of("fd"), **results["fd"]),
     ]
     print(f"render ms: 3D frame {e['frame3d_ms']:.3f} (splat alone "
           f"{e['splat_ms']:.3f}), pm_main speed {render_ms['speed']:.3f}, "

@@ -126,7 +126,7 @@ def test_phase_work_counts(small):
     cfg = bench.bench_config(1_000_000 if not small else 20_000, "pm", small)
     n = 1_000_000 if not small else 20_000
     work = bench.phase_work(cfg, n)
-    assert set(work) == {"sort", "cic", "deposit", "fft_fd", "interp",
+    assert set(work) == {"sort", "deposit", "fft", "fd", "interp",
                          "band", "rescue_select", "rescue_pairs", "merge",
                          "kernel_hats"}
     assert work["band"] == band.pair_work(n, cfg.mesh_band, cfg.mesh_switch)
@@ -159,6 +159,14 @@ def test_phase_work_counts(small):
     nw = 1 << cfg.mesh_level
     windows = 2 * (nw + 1) * ((cfg.mesh_ny or nw) + 1) * 4   # fx and fy
     assert work["interp"]["bytes"] - few["bytes"] == windows - 8 * 1000
+    # the FD stencil: 16 flops a window cell, its 7 + ny kept potential
+    # rows read at the nw + 7 columns it touches, the windows written
+    ny = cfg.mesh_ny or nw
+    assert work["fd"] == dict(flops=16 * (nw + 1) * (ny + 1),
+                              bytes=(ny + 7) * (nw + 7) * 4 + windows)
+    # the fresh pass's one deposit launch: the cells, then 4 products and
+    # adds a body
+    assert work["deposit"]["flops"] == (16 + 2 * 4) * n
 
 
 class _HostEvent:
@@ -178,9 +186,9 @@ class _HostEvent:
 
 
 PHASES = {
-    "pm": ["hilbert sort (/8 steps)", "CIC cells", "deposit (4 plane "
-           "scatter)", "FFT convolution + FD gradient",
-           "interpolation (kernel)",
+    "pm": ["hilbert sort (/8 steps)", "cells + deposit 4 taps (kernel)",
+           "FFT convolution",
+           "FD gradient (kernel)", "interpolation (kernel)",
            "band S=256 (kernel)", "rescue select k=4 (kernel)",
            "rescue pairs k=4 (kernel)", "merge (kernel)",
            "kernel hats (/2 steps)"],

@@ -75,9 +75,6 @@ SEED = 3
 SAMPLES = 4096          # bodies sampled for the force error
 SAMPLES_SMALL = 256     # the same with --small
 PHASE_REPS = 5          # CUDA-event timings a phase, after 2 warm-ups
-# flops a body of the assignment weights (order 1 NGP, 2 CIC, 3 TSC),
-# counted from mesh._cic_cells: scale 4, floor 2, then the weights
-_CELL_FLOPS = {1: 6, 2: 16, 3: 35}
 _TAPS = {1: 1, 2: 4, 3: 9}            # cells a body touches
 _PICK_BYTES = 13                      # a rescue partner: int64, score, flag
 _F32, _C64 = 4, 8                     # bytes
@@ -140,8 +137,15 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
     needs; ``heavy_need`` None counts every slot), the bodies read and
     written once; the interpolation reads fx and fy at the
     ``interp_cells`` distinct cells the bodies touch
-    (:func:`mesh.interp_work`; None counts the whole windows). The sort
-    counts no arithmetic: it is integer work, bounded by its bytes."""
+    (:func:`mesh.interp_work`; None counts the whole windows). The
+    deposit is the fresh pass's one launch (:func:`mesh.deposit_work`):
+    each body's cells and K products and adds into the padded grid,
+    written once (its zeros included); the FFT convolution reads the
+    occupied density rows and the potential kernel and writes the
+    potential rows the stencil keeps; the FD gradient reads those rows at
+    the nw + 7 + reach columns the stencil touches and writes fx and fy.
+    The sort counts no arithmetic: it is integer work, bounded by its
+    bytes."""
     nw = 1 << cfg.mesh_level
     ny = cfg.mesh_ny or nw
     grid = 2 * nw
@@ -166,13 +170,11 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
             + 26 * grid_y * cols)
     return {
         "sort": dict(flops=0, bytes=body_in + body_in + n * 8),
-        "cic": dict(flops=n * _CELL_FLOPS[cfg.mesh_order],
-                    bytes=n * 2 * _F32 + weights),
-        "deposit": dict(flops=2 * K * n + K * ny * nw,
-                        bytes=n * _F32 + weights + grid_y * grid * _F32),
-        "fft_fd": dict(flops=conv + 16 * mx * my,
-                       bytes=occ * grid * _F32 + grid_y * cols * _C64
-                       + fgrid),
+        "deposit": mesh.deposit_work(n, K, grid_y * grid),
+        "fft": dict(flops=conv,
+                    bytes=occ * grid * _F32 + grid_y * cols * _C64
+                    + kept * grid * _F32),
+        "fd": mesh.fd_work(my, mx),
         "interp": dict(flops=2 * (2 * K - 1) * n,
                        bytes=(fgrid if interp_cells is None
                               else 2 * _F32 * interp_cells)
@@ -363,16 +365,15 @@ def _pm_phases(eng: Engine, steps: int) -> list:
     spos, smass, salive, _ = mesh._hilbert_sort(st.pos, st.mass, st.alive,
                                                 origin, side)
     kernel = engine._kernel_hats(cfg, params, dev)
-    base, w = mesh._cic_cells(spos, morigin, h, nw, order, ny=ny)
-    rho = mesh._deposit_packed(smass, base, w, nw, grid, ny=ny,
-                               grid_y=grid_y)
+    rho, base, w = mesh.deposit_cells(spos, smass, morigin, h, nw, grid,
+                                      order, ny=ny, grid_y=grid_y)
 
-    def fft_fd():
-        pw = mesh._conv_potential(rho, kernel[2], ny, grid, grid_y,
-                                  extra=reach)
-        return mesh._fd_gradient(pw, h, nw, ny, reach)
+    def fft():
+        return mesh._conv_potential(rho, kernel[2], ny, grid, grid_y,
+                                    extra=reach)
 
-    fx, fy = fft_fd()
+    pw = fft()
+    fx, fy = mesh._fd_gradient(pw, h, nw, ny, reach)
     # the rescue's two halves, on the masses the pass gives it (dead at 0)
     live_mass = torch.where(salive, smass, 0.0)
     sel = mesh._rescue_select(spos, live_mass, salive, a, band=S,
@@ -392,12 +393,12 @@ def _pm_phases(eng: Engine, steps: int) -> list:
         (f"hilbert sort (/{K} steps)", "sort", 1.0 / K,
          lambda: mesh._hilbert_sort(st.pos, st.mass, st.alive, origin,
                                     side)),
-        ("CIC cells", "cic", 1.0,
-         lambda: mesh._cic_cells(spos, morigin, h, nw, order, ny=ny)),
-        (f"deposit ({_TAPS[order]} plane scatter)", "deposit", 1.0,
-         lambda: mesh._deposit_packed(smass, base, w, nw, grid, ny=ny,
-                                      grid_y=grid_y)),
-        ("FFT convolution + FD gradient", "fft_fd", 1.0, fft_fd),
+        (f"cells + deposit {_TAPS[order]} taps (kernel)", "deposit", 1.0,
+         lambda: mesh.deposit_cells(spos, smass, morigin, h, nw, grid,
+                                    order, ny=ny, grid_y=grid_y)),
+        ("FFT convolution", "fft", 1.0, fft),
+        ("FD gradient (kernel)", "fd", 1.0,
+         lambda: mesh._fd_gradient(pw, h, nw, ny, reach)),
         ("interpolation (kernel)", "interp", 1.0,
          lambda: mesh._interp_packed(fx, fy, base, w, nw, ny=ny)),
         (f"band S={S} (kernel)", "band", 1.0,

@@ -76,6 +76,13 @@ SIGNATURES = {
     "tnt_interp_windows": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     # T, L, base, is64, w, out, n, K, has_frac, frac, stream
     "tnt_interp_table": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _P],
+    # pos, mass (or null: cells only), base, w, rho (or null), n, order,
+    # ox, oy, h, nw, ny, ld, stream
+    "tnt_deposit_cells": [_P] * 5 + [_I, _I, _F, _F, _F, _I, _I, _I, _P],
+    # mass, base, is64, w, rho, n, K, nw, ld, stream
+    "tnt_deposit_given": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # src, R, W, rows, cols, c1, c2, c3, fx, fy, stream
+    "tnt_fd_gradient": [_P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
 }
 
 _lib = None

@@ -23,8 +23,15 @@ off the mesh and summed directly (:func:`_heavy_direct`) and the stale
 self-image cancelled (:func:`_self_term`).
 
 The FFTs go to the device's FFT library through ``torch.fft``; the
-deposit, the heavy-direct sum and the self-term are plain torch in this
-port so far (hand kernels for them are listed in ROADMAP.md, queue 2b).
+heavy-direct sum and the self-term are plain torch in this port so far.
+The assignment cells and the deposit, :func:`_cic_cells`,
+:func:`_deposit_packed` and both at once (:func:`deposit_cells`, the
+fresh pass, whose cells the interpolation reuses), launch
+``csrc/deposit.cu`` for CUDA tensors (:data:`DEPOSIT_LAUNCHES`) and run
+:func:`_cic_cells_ref` and :func:`_deposit_packed_ref` for CPU tensors;
+the FD gradient, :func:`_fd_gradient` and the general
+:func:`fd_window`, launches ``csrc/fd.cu`` (:data:`FD_LAUNCHES`) and runs
+:func:`_fd_window_ref` for CPU tensors.
 :func:`rescue_select` launches ``csrc/rescue_select.cu`` for CUDA tensors
 and runs :func:`_rescue_select_ref` for CPU tensors;
 :data:`SELECT_LAUNCHES` counts its launches, :func:`_select_plan` chooses
@@ -56,7 +63,12 @@ from tpu_nbody_torch.ops.band import (  # noqa: F401
 ORDERS = (1, 2, 3)          # NGP, CIC, TSC
 SELECT_LAUNCHES = 0         # csrc/rescue_select.cu
 INTERP_LAUNCHES = 0         # csrc/interp.cu
+DEPOSIT_LAUNCHES = 0        # csrc/deposit.cu, every entry
+FD_LAUNCHES = 0             # csrc/fd.cu
 INTERP_TAPS = {1: 0, 4: 1, 9: 2}   # cells a body -> its reach past the base
+# flops a body of the cells (by taps: NGP, CIC, TSC), counted from
+# _cic_cells_ref: scale 4, floor 2, then the weights
+CELL_FLOPS = {1: 6, 4: 16, 9: 35}
 _SELECT_WARPS = 16          # warps a selection CTA, one target each; the
                             # most csrc/rescue_select.cu takes
 _SELECT_GROUP = 32          # candidates behind one union box of the kernel
@@ -494,6 +506,17 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
 
 
 def _cic_cells(spos, origin, h, nw, order, ny=None):
+    """Base world cell (row-major, clipped, int32) and the per-offset
+    weights of :func:`_cic_cells_ref`. CPU tensors take the plain version;
+    CUDA tensors launch ``csrc/deposit.cu``'s cells entry, the same
+    bits."""
+    if spos.device.type == "cpu":
+        return _cic_cells_ref(spos, origin, h, nw, order, ny=ny)
+    _, base, w = _deposit_launch(spos, None, origin, h, nw, order, ny)
+    return base, w
+
+
+def _cic_cells_ref(spos, origin, h, nw, order, ny=None):
     """Base world cell (row-major, clipped) and the per-offset weights.
 
     Order 2 (CIC): weights (n, 4) for offsets [(0,0), (+x,0), (0,+y),
@@ -505,13 +528,16 @@ def _cic_cells(spos, origin, h, nw, order, ny=None):
 
     The base is clipped to [0, n-1] per axis (nw columns, ``ny`` or nw
     rows); positive offsets reach row/column n (n+1 for TSC), the first
-    padded rows/columns of the FFT domain.
+    padded rows/columns of the FFT domain. ``h`` divides as a 0-dim
+    tensor on the bodies' device: torch on the card multiplies by the
+    reciprocal of a Python-scalar divisor, which can differ from the
+    division in the last bit.
     """
     _check_order(order)
     dtype = spos.dtype
     ny = nw if ny is None else ny
     org = torch.as_tensor(origin, dtype=dtype, device=spos.device)
-    scaled = (spos - org) / h
+    scaled = (spos - org) / torch.tensor(h, dtype=dtype, device=spos.device)
     if order == 1:
         c = torch.floor(scaled).to(torch.int32)
         cx = torch.clamp(c[:, 0], 0, nw - 1)
@@ -553,6 +579,121 @@ def _compressed_planes(base, first, contrib, cells):
 
 def _deposit_packed(smass, base, w, nw, grid, run_compress=False,
                     ny=None, grid_y=None):
+    """Mass deposit into the padded (grid_y, grid) FFT grid from the base
+    cells and weights (:func:`_deposit_packed_ref`). CPU tensors take the
+    plain version; CUDA tensors launch ``csrc/deposit.cu``'s entry from
+    given cells in every ``run_compress`` mode (the modes differ only in
+    the order of the sums, which the kernel's atomics choose anyway; a
+    window must still divide the bodies)."""
+    if smass.device.type == "cpu":
+        return _deposit_packed_ref(smass, base, w, nw, grid,
+                                   run_compress=run_compress, ny=ny,
+                                   grid_y=grid_y)
+    global DEPOSIT_LAUNCHES
+    n, K = w.shape
+    dev = smass.device
+    if int(run_compress) > 1 and n % int(run_compress):
+        raise ValueError(f"run_compress window {int(run_compress)} does "
+                         f"not divide the {n} bodies")
+    if K not in INTERP_TAPS:
+        raise ValueError(f"_deposit_packed: {K} weights a body, expected "
+                         f"1, 4 or 9")
+    if base.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"base: expected int32 or int64, got {base.dtype}")
+    _build.check_tensor("smass", smass, (n,))
+    _build.check_tensor("base", base, (n,), device=dev, dtype=base.dtype)
+    _build.check_tensor("w", w, (n, K), device=dev)
+    rho = _zero_grid(nw, grid, ny, grid_y, INTERP_TAPS[K], smass.dtype, dev)
+    rc = _build.library().tnt_deposit_given(
+        smass.data_ptr(), base.data_ptr(), int(base.dtype == torch.int64),
+        w.data_ptr(), rho.data_ptr(), n, K, nw, grid,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("deposit_given", rc)
+    with band_ops._COUNT_LOCK:
+        DEPOSIT_LAUNCHES += 1
+    return rho
+
+
+def deposit_cells(spos, smass, origin, h, nw, grid, order, ny=None,
+                  grid_y=None):
+    """The fresh pass's assignment and deposit at once: ``(rho, base,
+    w)``, the padded grid of :func:`_deposit_packed` and the cells of
+    :func:`_cic_cells`, which the interpolation reuses. CPU tensors take
+    the two plain versions; CUDA tensors launch ``csrc/deposit.cu`` once,
+    which writes the cells and adds each body's K products into the grid
+    in one pass, a warp's bodies of one cell summed before their atomics."""
+    if spos.device.type == "cpu":
+        base, w = _cic_cells_ref(spos, origin, h, nw, order, ny=ny)
+        return (_deposit_packed_ref(smass, base, w, nw, grid, ny=ny,
+                                    grid_y=grid_y), base, w)
+    return _deposit_launch(spos, smass, origin, h, nw, order, ny, grid,
+                           grid_y)
+
+
+def _zero_grid(nw, grid, ny, grid_y, reach, dtype, dev):
+    """The zeroed padded (grid_y, grid) grid, checked to hold the (ny +
+    reach + 1, nw + reach + 1) cells a deposit reaches."""
+    ny = nw if ny is None else ny
+    grid_y = grid if grid_y is None else grid_y
+    if grid_y < ny + reach + 1 or grid < nw + reach + 1:
+        raise ValueError(f"a ({grid_y}, {grid}) grid is too small for a "
+                         f"({ny}, {nw}) mesh at reach {reach}")
+    return torch.zeros((grid_y, grid), dtype=dtype, device=dev)
+
+
+def _deposit_launch(spos, smass, origin, h, nw, order, ny, grid=None,
+                    grid_y=None):
+    """Launch ``csrc/deposit.cu``'s cells entry: ``(rho, base, w)``, rho
+    None without ``smass`` (cells only)."""
+    global DEPOSIT_LAUNCHES
+    _check_order(order)
+    n = spos.shape[0]
+    dev = spos.device
+    K = {1: 1, 2: 4, 3: 9}[order]
+    ny = nw if ny is None else ny
+    _build.check_tensor("spos", spos, (n, 2), align=8)
+    rho = None
+    if smass is not None:
+        _build.check_tensor("smass", smass, (n,), device=dev)
+        rho = _zero_grid(nw, grid, ny, grid_y, INTERP_TAPS[K], spos.dtype,
+                         dev)
+    base = torch.empty((n,), dtype=torch.int32, device=dev)
+    w = torch.empty((n, K), dtype=spos.dtype, device=dev)
+    ox, oy = (float(o) for o in origin)
+    rc = _build.library().tnt_deposit_cells(
+        spos.data_ptr(), None if rho is None else smass.data_ptr(),
+        base.data_ptr(), w.data_ptr(), None if rho is None else rho.data_ptr(),
+        n, order, ctypes.c_float(ox), ctypes.c_float(oy),
+        ctypes.c_float(float(h)), nw, ny, 0 if grid is None else grid,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("deposit_cells", rc)
+    with band_ops._COUNT_LOCK:
+        DEPOSIT_LAUNCHES += 1
+    return rho, base, w
+
+
+def deposit_work(n: int, K: int, grid_cells: int) -> dict:
+    """Flops and bytes of ``n`` bodies through the cells-and-deposit
+    entry of ``csrc/deposit.cu`` (:func:`deposit_cells`) with ``K`` taps:
+    positions and masses read, the base cell and K weights written,
+    :data:`CELL_FLOPS` and K products and adds a body, and the
+    ``grid_cells`` floats of the padded grid written once, its zeros
+    included."""
+    return dict(flops=(CELL_FLOPS[K] + 2 * K) * n,
+                bytes=n * (8 + 4) + n * (4 + 4 * K) + 4 * grid_cells)
+
+
+def fd_work(rows: int, cols: int) -> dict:
+    """Flops and bytes of one FD gradient into (rows, cols) windows
+    (:func:`fd_window`): 16 flops a cell, the rows + 6 source rows read
+    once at the cols + 6 columns the stencil touches, fx and fy written
+    once."""
+    return dict(flops=16 * rows * cols,
+                bytes=4 * (rows + 6) * (cols + 6) + 2 * 4 * rows * cols)
+
+
+def _deposit_packed_ref(smass, base, w, nw, grid, run_compress=False,
+                        ny=None, grid_y=None):
     """Mass deposit: K independent plane scatter-adds (one per assignment
     offset, all at the shared base cell; K = 1, 4 or 9), then a pad-shift
     combine into the padded (grid_y, grid) FFT grid.
@@ -779,33 +920,89 @@ def _mesh_grids_one(spos, smass, origin, h, nw, grid, order, kernel,
     the far padded edge (the ``sp[-3:]`` rows and the column roll), as in
     the JAX version.
     """
+    return _mesh_grids_cells(spos, smass, origin, h, nw, grid, order,
+                             kernel, ny=ny)[:2]
+
+
+def _mesh_grids_cells(spos, smass, origin, h, nw, grid, order, kernel,
+                      ny=None):
+    """:func:`_mesh_grids_one` that also returns the cells of its
+    deposit: ``(fx, fy, base, w)``, so a fresh pass computes them once
+    (:func:`deposit_cells`)."""
     ny = nw if ny is None else ny
     grid_y = grid if ny == nw else 2 * ny
     reach = 1 if order == 3 else 0  # TSC reads one more row/col of (fx, fy)
-    base, w = _cic_cells(spos, origin, h, nw, order, ny=ny)
-    rho = _deposit_packed(smass, base, w, nw, grid, ny=ny, grid_y=grid_y)
+    rho, base, w = deposit_cells(spos, smass, origin, h, nw, grid, order,
+                                 ny=ny, grid_y=grid_y)
     _, _, phi_hat = kernel
     pw = _conv_potential(rho, phi_hat, ny, grid, grid_y, extra=reach)
-    return _fd_gradient(pw, h, nw, ny, reach)
+    fx, fy = _fd_gradient(pw, h, nw, ny, reach)
+    return fx, fy, base, w
+
+
+def _fd_coefficients(h):
+    """(c1, c2, c3) of the 6th-order central difference, Python floats
+    that torch rounds to float32 as it multiplies."""
+    return 45.0 / (60.0 * h), 9.0 / (60.0 * h), 1.0 / (60.0 * h)
 
 
 def _fd_gradient(pw, h, nw, ny, reach):
     """6th-order finite-difference gradient of the potential rows
     :func:`_conv_potential` returns: the force-grid windows ``(fx, fy)``
-    of :func:`_mesh_grids_one`."""
-    win = nw + 7 + reach
-    pw = torch.roll(pw, 3, dims=1)[:, :win]
-    c1 = 45.0 / (60.0 * h)
-    c2 = 9.0 / (60.0 * h)
-    c3 = 1.0 / (60.0 * h)
-    mx = nw + 1 + reach
-    my = ny + 1 + reach
-    fx = (c1 * (pw[3:3 + my, 4:4 + mx] - pw[3:3 + my, 2:2 + mx])
-          - c2 * (pw[3:3 + my, 5:5 + mx] - pw[3:3 + my, 1:1 + mx])
-          + c3 * (pw[3:3 + my, 6:6 + mx] - pw[3:3 + my, 0:0 + mx]))
-    fy = (c1 * (pw[4:4 + my, 3:3 + mx] - pw[2:2 + my, 3:3 + mx])
-          - c2 * (pw[5:5 + my, 3:3 + mx] - pw[1:1 + my, 3:3 + mx])
-          + c3 * (pw[6:6 + my, 3:3 + mx] - pw[0:0 + my, 3:3 + mx]))
+    of :func:`_mesh_grids_one`, :func:`fd_window` at its (ny + 1 + reach,
+    nw + 1 + reach) windows."""
+    return fd_window(pw, h, ny + 1 + reach, nw + 1 + reach)
+
+
+def fd_window(src, h, rows, cols):
+    """The 6th-order FD gradient of potential rows ``src`` (R, W), R >=
+    rows + 6: ``(fx, fy)`` of shape (rows, cols), output row i from
+    source row i + 3 and its three neighbours each side, output column j
+    from source columns j ± 1..3 taken mod W (the negative taps wrap to
+    the far padded edge). :func:`_fd_gradient` is this at rows ny + 1 +
+    reach, cols nw + 1 + reach; the sharded P3M runs it on a rank's
+    halo-extended slab; cols + 3 <= W, so no tap wraps twice. CPU tensors
+    take :func:`_fd_window_ref`; CUDA tensors launch ``csrc/fd.cu``."""
+    if src.device.type == "cpu":
+        return _fd_window_ref(src, h, rows, cols)
+    global FD_LAUNCHES
+    R, W = src.shape
+    if R < rows + 6 or not 1 <= cols <= W - 3:
+        raise ValueError(f"fd_window: ({rows}, {cols}) windows from "
+                         f"{tuple(src.shape)} potential rows (needs rows + "
+                         f"6 rows and 1 <= cols <= W - 3)")
+    _build.check_tensor("src", src, (R, W))
+    fx = torch.empty((rows, cols), dtype=src.dtype, device=src.device)
+    fy = torch.empty_like(fx)
+    c1, c2, c3 = _fd_coefficients(h)
+    rc = _build.library().tnt_fd_gradient(
+        src.data_ptr(), R, W, rows, cols, ctypes.c_float(c1),
+        ctypes.c_float(c2), ctypes.c_float(c3), fx.data_ptr(), fy.data_ptr(),
+        torch.cuda.current_stream(src.device).cuda_stream)
+    _build.check_launch("fd_gradient", rc)
+    with band_ops._COUNT_LOCK:
+        FD_LAUNCHES += 1
+    return fx, fy
+
+
+def _fd_window_ref(src, h, rows, cols):
+    """The plain version of :func:`fd_window`: the wrapped columns -3 ..
+    cols + 2 of the rows, then the stencil on slices, each difference,
+    product and sum in the JAX version's order."""
+    c1, c2, c3 = _fd_coefficients(h)
+    core = src[3:3 + rows]
+    cw = torch.cat([core[:, -3:], core[:, :cols + 3]], dim=1)
+
+    def sh(k):
+        return cw[:, 3 + k:3 + k + cols]
+
+    def dy(k):
+        return src[3 + k:3 + k + rows, :cols]
+
+    fx = (c1 * (sh(1) - sh(-1)) - c2 * (sh(2) - sh(-2))
+          + c3 * (sh(3) - sh(-3)))
+    fy = (c1 * (dy(1) - dy(-1)) - c2 * (dy(2) - dy(-2))
+          + c3 * (dy(3) - dy(-3)))
     return fx, fy
 
 
@@ -813,10 +1010,10 @@ def _mesh_force(spos, smass, origin, h, nw, grid, soft2, a, order, kernel,
                 ny=None):
     """Deposit -> FFT convolution -> interpolate, one grid registration.
     Deposit and interpolation use the same assignment, so a body's own
-    image exerts no force on it."""
-    fx, fy = _mesh_grids_one(spos, smass, origin, h, nw, grid, order, kernel,
-                             ny=ny)
-    base, w = _cic_cells(spos, origin, h, nw, order, ny=ny)
+    image exerts no force on it; the interpolation reuses the deposit's
+    cells."""
+    fx, fy, base, w = _mesh_grids_cells(spos, smass, origin, h, nw, grid,
+                                        order, kernel, ny=ny)
     return _interp_packed(fx, fy, base, w, nw, ny=ny)
 
 

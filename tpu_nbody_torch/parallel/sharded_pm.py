@@ -6,7 +6,9 @@
   orders them along the Hilbert curve, so rank r owns the r-th contiguous
   curve segment, a compact region of the world. Within a step each rank
   re-sorts its own bodies.
-* Deposit: each rank deposits its bodies into a local density grid.
+* Deposit: each rank deposits its bodies into a local density grid
+  (:func:`mesh_ops.deposit_cells`, ``csrc/deposit.cu`` on the card), whose
+  cells its interpolation reuses.
 * Potential: a slab-decomposed FFT convolution (:func:`_slab_fft_phi`):
   ``psum_scatter`` of the occupied density rows, row FFTs, an
   ``all_to_all`` transpose, column FFTs against the rank's column slice of
@@ -103,7 +105,9 @@ def _fd_force_window(phi_slab, h, *, group: Group, nw, ny):
     Column taps wrap as the padded grid does (the single-device trimmed
     path's roll); the ±3 row taps come from the ring neighbours' slabs.
     Ring-wrap and padding rows reach only outputs that the final world
-    slice drops. Needs at least 3 window rows a rank (one-hop halos).
+    slice drops. Needs at least 3 window rows a rank (one-hop halos). The
+    stencil is :func:`mesh_ops.fd_window` on the halo-extended slab
+    (``csrc/fd.cu`` on the card).
     """
     rows_local = phi_slab.shape[0]
     if rows_local < 3:
@@ -115,24 +119,7 @@ def _fd_force_window(phi_slab, h, *, group: Group, nw, ny):
     halo_dn = group.ppermute(phi_slab[:3], [(i, (i - 1) % P)
                                             for i in range(P)])
     ext = torch.cat([halo_up, phi_slab, halo_dn])            # (rows+6, grid)
-    c1 = 45.0 / (60.0 * h)
-    c2 = 9.0 / (60.0 * h)
-    c3 = 1.0 / (60.0 * h)
-    m = nw + 1
-    core = ext[3:3 + rows_local]
-    # columns -3..m+2 of the wrapped grid: sh(k) is roll(core, -k)[:, :m]
-    cw = torch.cat([core[:, -3:], core[:, :m + 3]], dim=1)
-
-    def sh(k):
-        return cw[:, 3 + k:3 + k + m]
-
-    def dy(k):
-        return ext[3 + k:3 + k + rows_local, :m]
-
-    fx = (c1 * (sh(1) - sh(-1)) - c2 * (sh(2) - sh(-2))
-          + c3 * (sh(3) - sh(-3)))
-    fy = (c1 * (dy(1) - dy(-1)) - c2 * (dy(2) - dy(-2))
-          + c3 * (dy(3) - dy(-3)))
+    fx, fy = mesh_ops.fd_window(ext, h, rows_local, nw + 1)
     fx_full = group.all_gather(fx, tiled=True)               # (win_p, m)
     fy_full = group.all_gather(fy, tiled=True)
     return fx_full[3:4 + ny], fy_full[3:4 + ny]              # (ny+1, m)
@@ -242,9 +229,8 @@ def _pm_accel_local_sorted(spos, smass, salive, G, soft2, origin, root_side,
             deconv_order=order if deconvolve else 0, switch=switch)
 
     def mesh_pass(mo):
-        base, w = mesh_ops._cic_cells(spos, mo, h, nw, order, ny=ny)
-        rho_local = mesh_ops._deposit_packed(smass, base, w, nw, grid, ny=ny,
-                                             grid_y=grid_y)
+        rho_local, base, w = mesh_ops.deposit_cells(
+            spos, smass, mo, h, nw, grid, order, ny=ny, grid_y=grid_y)
         probe("deposit")
         phi_slab = _slab_fft_phi(rho_local, kernel[2], group=group,
                                  grid=grid, grid_y=grid_y, ny=ny)
