@@ -72,7 +72,8 @@ n2 = 200,000):
   per-phase table with a bound and a share of it on every row;
 * cuda_tests: ``python -m pytest --noconftest -m cuda
   tests/test_torch_package.py tests/test_torch_rescue_kernel.py
-  tests/test_torch_rescue_select.py tests/test_torch_bh_pairs.py
+  tests/test_torch_rescue_select.py tests/test_torch_rescue_cull.py
+  tests/test_torch_bh_pairs.py
   tests/test_torch_bh_hier.py tests/test_torch_merge_kernel.py
   tests/test_torch_interp_kernel.py tests/test_torch_deposit_kernel.py
   tests/test_torch_fd_kernel.py -q`` in a child process, which must
@@ -101,9 +102,12 @@ On the way it
    the rescue selection kernel against its plain version on the sorted
    scene (every block against every block at the main path's S and k,
    bit for bit: counts, needs, scores, the valid partners), timed beside
-   the whole selection's device and host-enqueue times; the rescue kernel
-   against its plain version on the same scene (the main path's partner
-   choice, every block in one launch); the
+   the whole selection's device and host-enqueue times; the block rows and
+   boxes kernel bit for bit on the same scene and on a ragged tail; the
+   rescue kernel against its plain version on the same scene (the main
+   path's partner choice, every block in one launch), and against itself
+   without its sub-tile skip and on a repeat bit for bit, its walked
+   counter against the plain count, its other launch shapes timed; the
    Barnes–Hut pair kernel against its plain version on one group of a
    dense pass at N = 65,536 (its two launches, accepted nodes and direct
    partners, cut to the group with the most nonzero masses; the kernel
@@ -134,10 +138,10 @@ On the way it
    the plain one;
 5. sets every launch count to 0 just before each path and reads it just
    after, checking the launches each path must make (one band, one
-   rescue, one rescue selection, one interpolation, one deposit and one
-   FD-gradient launch per P3M force pass, one merge launch set a step of
-   an engine that merges, two
-   rescues and three selections a rank's pass on the sharded P3M and two
+   rescue, one rescue selection, one block-box build, one interpolation,
+   one deposit and one FD-gradient launch per P3M force pass, one merge
+   launch set a step of an engine that merges, two rescues, two block-box
+   builds and three selections a rank's pass on the sharded P3M and two
    merge launch sets a rank's step, one all-pairs launch per all-pairs
    force pass, hier and merge kernel launches and no other in the
    Barnes–Hut steps), finite state and no growth of n_alive;
@@ -146,15 +150,15 @@ On the way it
    is over its limit.
 
 The kernels line gives, per kernel, ``launches`` (for the band, rescue,
-selection, interpolation, deposit, FD-gradient and merge kernels the main
-path's three step(20) calls; for the
+selection, block-box, interpolation, deposit, FD-gradient and merge
+kernels the main path's three step(20) calls; for the
 all-pairs kernel path E's run at 2^20 bodies, the path it carries: the
 P3M main path launches it only in the force error after its steps; for
 the hier kernel path D's steps; for the pair kernel the dense force
 error at N = 65,536, the Barnes–Hut main path being hier) and
 ``launches_by_path``, which holds path G's runs as ``bench_pm``,
 ``bench_allpairs`` and ``bench_bh`` (warm-up, timed repeats, force error
-and phase table). The two rescue kernels, both Barnes–Hut kernels, the
+and phase table). The three rescue kernels, both Barnes–Hut kernels, the
 merge, the interpolation, the deposit and the FD gradient have no Pallas
 original: ``replaces`` names the XLA code they stand for. The
 interpolation's ``library_ms`` is ``grid_sample``'s time on the same
@@ -163,9 +167,10 @@ grid, the FD gradient's one ``conv2d``: yardsticks the port never calls;
 the merge's is null (no PyTorch call computes it).
 Each kernel's bound_ms is the larger of its flops over the float32 peak and its
 bytes over the memory rate (``pair_work``, ``rescue_pair_work`` in its
-module, ``hier_pair_work`` in traverse, ``select_work`` in mesh),
-counted for the pairs this run's data needs (the rescue's valid partner
-blocks, the pair kernel's nonzero masses, the hier groups' members times
+module, ``hier_pair_work`` in traverse, ``select_work`` and
+``block_boxes_work`` in mesh), counted for the pairs this run's data
+needs (the rescue's pairs within 2a of its valid partner blocks,
+``band.rescue_cutoff_pairs``, the pair kernel's nonzero masses, the hier groups' members times
 their accepted nodes and direct bodies, the selection's union box of each
 target and group of 32 blocks and the members of the near groups, from
 the kernels' counters, the merge's distance tests of every alive body
@@ -250,8 +255,8 @@ BH_STEPS = (("warm-up", 1), ("timed", 1))
 # path G: the bench's command lines; the kernels each run must launch; the
 # limit of its mean force error (all-pairs: the kernel against itself)
 BENCH_RUNS = {
-    "pm": ([], ("band", "rescue", "rescue_select", "interp", "deposit", "fd",
-                "merge", "allpairs"), ERR_LIMIT),
+    "pm": ([], ("band", "rescue", "rescue_select", "boxes", "interp",
+                "deposit", "fd", "merge", "allpairs"), ERR_LIMIT),
     "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
     "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
            ("allpairs", "bh_hier"), BH_ERR_LIMIT),
@@ -269,6 +274,7 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_package.py",
               "tests/test_torch_rescue_kernel.py",
               "tests/test_torch_rescue_select.py",
+              "tests/test_torch_rescue_cull.py",
               "tests/test_torch_bh_pairs.py", "tests/test_torch_bh_hier.py",
               "tests/test_torch_merge_kernel.py",
               "tests/test_torch_interp_kernel.py",
@@ -279,6 +285,7 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
 COUNTERS = {"band": ("band", "LAUNCHES"),
             "rescue": ("band", "RESCUE_LAUNCHES"),
             "rescue_select": ("mesh", "SELECT_LAUNCHES"),
+            "boxes": ("mesh", "BOXES_LAUNCHES"),
             "allpairs": ("forces", "LAUNCHES"),
             "bh_pairs": ("traverse", "LAUNCHES"),
             "bh_hier": ("traverse", "HIER_LAUNCHES"),
@@ -289,7 +296,8 @@ COUNTERS = {"band": ("band", "LAUNCHES"),
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
 # the kernels every fresh P3M force pass launches once
-P3M_PASS = ("band", "rescue", "rescue_select", "interp", "deposit", "fd")
+P3M_PASS = ("band", "rescue", "rescue_select", "boxes", "interp", "deposit",
+            "fd")
 # merge launch sets an Engine.step(s) of the one-device engines: one a step
 P3M_MERGES = {"merge": lambda s: s}
 # the bench configuration (bench.py:244-294)
@@ -302,6 +310,8 @@ BH_CFG = dict(max_depth=14, group_chunk=64, approx_cap=1024,
               direct_body_cap=16384, frontier_cap=1024, leaf_list_cap=2048,
               bh_hier_cand_caps=(131072, 32768, 4096), group_cap=2080,
               node_capacity=1 << 20)
+# the rescue kernel's target rows a lane (T), each timed at the main shape
+RESCUE_SHAPES = (1, 2, 4)
 # path C: SimConfig overrides of the main path's configuration, one fresh
 # force pass each
 KNOBS = {"heavy_direct": dict(pm_heavy_cap=16), "tsc": dict(mesh_order=3),
@@ -551,33 +561,107 @@ def _rescue_shape(spos, smass, salive, cfg, params, a, n_sm, max_clock_hz):
     """The rescue kernel against its plain version at the main path's
     shape: the partner choice of the sorted scene (``mesh._rescue_select``,
     the main path's S and k) and one launch over every block, as
-    ``_block_rescue`` makes it."""
+    ``_block_rescue`` makes it. Under poly4 also: the same bits without the
+    sub-tile skip and on a repeat; its walked counter against
+    ``band.rescue_near_tiles``; the pairs walked against the pairs within
+    2a (``band.rescue_cutoff_pairs``), which the bound counts; and the
+    times of the other launch shapes (RESCUE_SHAPES) and of the kernel with
+    the skip off, beside the plan's."""
     import torch
     from tpu_nbody_torch.ops import band, mesh
-    S = cfg.mesh_band
+    S, switch = cfg.mesh_band, cfg.mesh_switch
     live = torch.where(salive, smass, 0.0)
     sel = mesh._rescue_select(spos, live, salive, a, band=S,
                               k=cfg.mesh_rescue, chunk=cfg.mesh_chunk)
     m = sel.rows.shape[0]
     pvalid = sel.mval > 0
     midx = sel.midx.contiguous()
-    args = (sel.rows, torch.arange(m, device=spos.device), sel.rows,
-            midx, pvalid, params.soft2, a, cfg.mesh_switch)
-    r = _compare(f"rescue {cfg.mesh_switch} S={S} k={sel.k} blocks={m}",
+    rows = (sel.rows, torch.arange(m, device=spos.device), sel.rows, midx,
+            pvalid)
+    args = rows + (params.soft2, a, switch)
+    r = _compare(f"rescue {switch} S={S} k={sel.k} blocks={m}",
                  lambda: band.rescue_pair_sum(*args),
                  lambda: band.rescue_pair_sum_ref(*args, chunk=sel.cb))
-    valid = int(pvalid.sum())
     plan = band._rescue_plan(S, sel.k)
+    walked = torch.zeros((), dtype=torch.int64, device=spos.device)
+    got = band.rescue_pair_sum(*args, walked=walked)
+    again = band.rescue_pair_sum(*args)
+    full = band._rescue_launch(*args, plan, cull=False)
+    near = band.rescue_near_tiles(*args)
+    needed = band.rescue_cutoff_pairs(*rows, a, switch)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(got, full)):
+        raise AssertionError("rescue: a repeat, or the kernel without the "
+                             "sub-tile skip, gave other bits")
+    if int(walked) != near.tiles:
+        raise AssertionError(f"rescue: the kernel walked {int(walked)} "
+                             f"sub-tile pairs, the plain count is "
+                             f"{near.tiles}")
+    valid = int(pvalid.sum())
+    every_tile = valid * plan.G * plan.G
+    if switch == "poly4" and not near.tiles < every_tile:
+        raise AssertionError(f"rescue: the kernel skipped no sub-tile "
+                             f"({near.tiles} of {every_tile})")
+    shapes = {}
+    for T in RESCUE_SHAPES:
+        shape = band._rescue_plan(S, sel.k, T=T)
+        shapes[f"T={T}"] = timed_ms(lambda: band._rescue_launch(*args, shape))
+    nocull_ms = timed_ms(lambda: band._rescue_launch(*args, plan,
+                                                     cull=False))
+    work = band.rescue_pair_work(m, sel.k, S, valid, m, switch,
+                                 near_pairs=needed, walked_pairs=near.pairs)
     out = dict(r, blocks=m, k=sel.k, valid_partner_blocks=valid,
-               need=int(sel.need),
-               **bounds(band.rescue_pair_work(m, sel.k, S, valid, m,
-                                              cfg.mesh_switch),
-                        r["ms"], n_sm, max_clock_hz),
-               plan=dict(T=plan.T, PL=plan.PL, threads=plan.threads,
+               need=int(sel.need), pairs_needed=work["pairs"],
+               pairs_walked=near.pairs, pairs_valid=valid * S * S,
+               walked_over_needed=near.pairs / max(1, work["pairs"]),
+               tiles_walked=near.tiles, tiles_valid=every_tile,
+               nocull_ms=nocull_ms, shapes=shapes,
+               **bounds(work, r["ms"], n_sm, max_clock_hz),
+               plan=dict(T=plan.T, G=plan.G, R=plan.R, threads=plan.threads,
                          smem=plan.smem))
-    print(f"  rescue: {valid} of {m * sel.k} partner slots valid, bound "
-          f"{out['bound_ms']:.4f} ms ({out['pct_of_bound']:.1f}%)",
+    print(f"  rescue: {valid} of {m * sel.k} partner slots valid; "
+          f"{near.pairs} pairs walked ({near.tiles} of {every_tile} "
+          f"sub-tile pairs, the kernel's counter) against {work['pairs']} "
+          f"needed within 2a ({out['walked_over_needed']:.3f}x) and "
+          f"{valid * S * S} in the valid blocks; the same bits without the "
+          f"skip ({nocull_ms:.4f} ms) and on a repeat; bound "
+          f"{out['bound_ms']:.4f} ms ({out['pct_of_bound']:.1f}%); shapes "
+          + ", ".join(f"{k_} {v:.4f} ms" for k_, v in shapes.items()),
           flush=True)
+    return out
+
+
+def _boxes_shape(spos, smass, salive, cfg):
+    """The block rows and boxes kernel against its plain version bit for
+    bit at the main path's shape (the selection's live masses; the dead
+    bodies sort to the end, so the last blocks hold none) and on a ragged
+    tail (every slot but the last), timed on the device with the host's enqueue hidden and as a
+    call on an idle card; bound from ``mesh.block_boxes_work``."""
+    import torch
+    from tpu_nbody_torch.ops import mesh
+    S = cfg.mesh_band
+    live = torch.where(salive, smass, 0.0)
+    cap = spos.shape[0]
+    for name, inputs in (("main", (spos, live, salive)),
+                         ("ragged", (spos[:cap - 1], live[:cap - 1],
+                                     salive[:cap - 1]))):
+        got = mesh._block_boxes(*inputs, S)
+        want = mesh._block_boxes_ref(*inputs, S)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"block_boxes ({name}): the kernel's rows "
+                                 f"or boxes differ from the plain version's")
+    ms = device_ms(lambda: mesh._block_boxes(spos, live, salive, S))
+    call_ms = timed_ms(lambda: mesh._block_boxes(spos, live, salive, S))
+    plain_ms = timed_ms(lambda: mesh._block_boxes_ref(spos, live, salive, S))
+    out = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               **bounds(mesh.block_boxes_work(cap, S), ms))
+    print(f"block_boxes S={S} cap={cap}: the same bits as the plain version "
+          f"(and on a ragged tail of {cap - 1}); kernel {ms:.4f} ms on the "
+          f"device ({call_ms:.4f} ms a call on an idle card), plain "
+          f"{plain_ms:.4f} ms, bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_by']}, {out['pct_of_bound']:.1f}%)", flush=True)
     return out
 
 
@@ -1700,7 +1784,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         out = {}
         for label in ("warm-up", "timed"):
             b0, r0 = band.LAUNCHES, band.RESCUE_LAUNCHES
-            s0 = mesh.SELECT_LAUNCHES
+            s0, x0 = mesh.SELECT_LAUNCHES, mesh.BOXES_LAUNCHES
             i0, m0 = mesh.INTERP_LAUNCHES, merge_ops.LAUNCHES
             d0, f0 = mesh.DEPOSIT_LAUNCHES, mesh.FD_LAUNCHES
             start = torch.cuda.Event(enable_timing=True)
@@ -1715,6 +1799,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             launches = band.LAUNCHES - b0
             rescues = band.RESCUE_LAUNCHES - r0
             selects = mesh.SELECT_LAUNCHES - s0
+            boxes = mesh.BOXES_LAUNCHES - x0
             interps = mesh.INTERP_LAUNCHES - i0
             merges = merge_ops.LAUNCHES - m0
             deposits = mesh.DEPOSIT_LAUNCHES - d0
@@ -1722,25 +1807,28 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             print(f"  step({F_STEPS}) {label}: {host:.3f} s host, "
                   f"{start.elapsed_time(end):.1f} ms device events, "
                   f"{launches} band launches, {rescues} rescue launches, "
-                  f"{selects} rescue_select launches, {interps} interp "
+                  f"{selects} rescue_select launches, {boxes} boxes "
+                  f"launches, {interps} interp "
                   f"launches, {deposits} deposit launches, {fds} fd "
                   f"launches, {merges} merge launch sets", flush=True)
             if label == "timed" and (launches != P * (F_STEPS + 1)
                                      or rescues != 2 * launches
                                      or selects != 3 * launches
+                                     or boxes != 2 * launches
                                      or interps != launches
                                      or deposits != launches
                                      or fds != launches
                                      or merges != 2 * P * F_STEPS):
                 raise AssertionError(
                     f"sharded pm: {launches} band, {rescues} rescue, "
-                    f"{selects} rescue_select, {interps} interp, "
-                    f"{deposits} deposit, {fds} fd and "
+                    f"{selects} rescue_select, {boxes} boxes, "
+                    f"{interps} interp, {deposits} deposit, {fds} fd and "
                     f"{merges} merge launches in step({F_STEPS}), "
                     f"expected {P} band a force pass x {F_STEPS + 1} "
-                    f"passes, two rescues (local, cross-shard), three "
-                    f"selections (local; the cross-shard export scores "
-                    f"and import picks) and one interpolation, one "
+                    f"passes, two rescues and two block-box builds (local, "
+                    f"cross-shard), three selections (local; the "
+                    f"cross-shard export scores and import picks) and one "
+                    f"interpolation, one "
                     f"deposit and one FD gradient a band launch, and two "
                     f"merge launch sets (the heavy table, then the "
                     f"absorb) a rank's step")
@@ -1798,14 +1886,15 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
 
     gst, local, rel_mean = paths.run(
         "sharded_pm_force_error", error,
-        need=("band", "rescue", "rescue_select", "allpairs"))
+        need=("band", "rescue", "rescue_select", "boxes", "allpairs"))
     counts = paths.counts["sharded_pm_force_error"]
     if (counts["band"] != P + 1 or counts["rescue_select"] != 3 * P + 1
+            or counts["boxes"] != 2 * P + 1
             or any(counts[k] != P + 1 for k in ("interp", "deposit", "fd"))):
         raise AssertionError(
             f"sharded pm: {counts} launches for a sharded and a one-device "
-            f"pass, expected {P} + 1 band, {3 * P} + 1 rescue_select and "
-            f"{P} + 1 each of interp, deposit and fd")
+            f"pass, expected {P} + 1 band, {3 * P} + 1 rescue_select, "
+            f"{2 * P} + 1 boxes and {P} + 1 each of interp, deposit and fd")
 
     # one pass by phase on rank 0, CUDA events; every rank enqueues on the
     # one stream, so a phase's time holds the other ranks' work enqueued
@@ -2274,17 +2363,31 @@ def main() -> int:
                                               switch=switch))
         if (switch, S, n) == (cfg.mesh_switch, cfg.mesh_band, cap):
             plan = band._band_plan(cap, S)
+            work = band.pair_work(cap, S, switch)
+            # the window pairs poly4 weighs, beside every window pair
+            near = band.band_cutoff_pairs(spos, smass, a, band=S,
+                                          chunk=cfg.mesh_chunk)
+            recount = bounds(dict(work, pairs=near,
+                                  flops=near * band._PAIR_FLOPS[switch]),
+                             r["ms"])
             results["band"] = dict(
-                r, **bounds(band.pair_work(cap, S, switch), r["ms"], n_sm,
-                            max_clock_hz),
+                r, **bounds(work, r["ms"], n_sm, max_clock_hz),
+                pairs_within_cutoff=near, pairs_window=work["pairs"],
+                cutoff_bound_ms=recount["bound_ms"],
+                cutoff_pct_of_bound=recount["pct_of_bound"],
                 plan=dict(T=plan.T, B=plan.B, threads=plan.threads,
                           smem=plan.smem))
+            print(f"  band: {near} of its {work['pairs']} window pairs "
+                  f"within 2a with partner mass; bound over those "
+                  f"{recount['bound_ms']:.4f} ms "
+                  f"({recount['pct_of_bound']:.1f}%)", flush=True)
 
     # -- rescue selection and pair kernels vs plain, the same scene -------
     results["rescue_select"] = _rescue_select_shape(spos, smass, salive,
                                                     cfg, a)
     results["rescue"] = _rescue_shape(spos, smass, salive, cfg, params, a,
                                       n_sm, max_clock_hz)
+    results["boxes"] = _boxes_shape(spos, smass, salive, cfg)
 
     # -- interpolation and merge kernels vs plain --------------------------
     results["interp"] = _interp_shape(spos, smass, salive, cfg, params,
@@ -2430,8 +2533,8 @@ def main() -> int:
     sec, n0, n1 = paths.run(
         "pm_subcycled",
         lambda: _run_steps(sub, 3, [STEPS] * 3, lambda s: s + 1,
-                           ("band", "rescue", "rescue_select", "interp"),
-                           P3M_MERGES),
+                           ("band", "rescue", "rescue_select", "boxes",
+                            "interp"), P3M_MERGES),
         need=P3M_PASS + ("merge",))
     _report_run("pm_subcycled", sub, sec, n0, n1)
     print(f"pm_subcycled against pm_main in this run: "
@@ -2481,7 +2584,7 @@ def main() -> int:
     paths.run("pm_extrapolate",
               lambda: _run_steps(ex, 2, [2, 2], lambda s: s + 1,
                                  ("band", "rescue", "rescue_select",
-                                  "interp"), P3M_MERGES),
+                                  "boxes", "interp"), P3M_MERGES),
               need=P3M_PASS + ("merge",))
     print("  pm_mesh_extrapolate: two step(2) calls, state finite",
           flush=True)
@@ -2555,6 +2658,7 @@ def main() -> int:
     launches = {"band": paths.counts["pm_main"]["band"],
                 "rescue": paths.counts["pm_main"]["rescue"],
                 "rescue_select": paths.counts["pm_main"]["rescue_select"],
+                "boxes": paths.counts["pm_main"]["boxes"],
                 "allpairs": paths.counts["sphere3d_engine"]["allpairs"],
                 "bh_pairs": paths.counts["bh_small_force_error"]["bh_pairs"],
                 "bh_hier": paths.counts["bh_engine"]["bh_hier"],
@@ -2592,6 +2696,15 @@ def main() -> int:
              launches=launches["rescue_select"],
              launches_by_path=paths.of("rescue_select"), library_ms=None,
              **results["rescue_select"]),
+        dict(name="block_boxes", route="cuda",
+             source="tpu_nbody_torch/csrc/block_boxes.cu",
+             replaces="tpu_nbody/ops/mesh.py:286",
+             replaces_also="tpu_nbody/parallel/sharded_pm.py:197",
+             replaces_kind="XLA block rows and alive-only boxes of the "
+                           "rescue (mesh.py:286-300; no Pallas original)",
+             launches=launches["boxes"],
+             launches_by_path=paths.of("boxes"), library_ms=None,
+             **results["boxes"]),
         dict(name="bh_pairs", route="cuda",
              source="tpu_nbody_torch/csrc/bh_pairs.cu",
              replaces="tpu_nbody/ops/traverse.py:589",

@@ -219,8 +219,27 @@ def test_phase_table_rows(monkeypatch, capsys, solver):
     assert "sum of phases" in err and "useful flops" in err
     if solver == "bh":
         assert "pairs evaluated" in err
+    if solver == "pm":
+        assert "walked by the rescue kernel" in err
     assert bench.print_phases(eng, 100.0, 2) is None     # not on the CPU
     assert "not measured without a card" in capsys.readouterr().err
+
+
+def test_phase_work_takes_the_rescue_pairs():
+    """The rescue pair row counts the pairs the caller says the data needs
+    (``band.rescue_cutoff_pairs``), the selection row the rows and boxes
+    it writes."""
+    cfg = bench.bench_config(1_000_000, "pm", False)
+    n = 1_000_000
+    work = bench.phase_work(cfg, n)
+    near = bench.phase_work(cfg, n, rescue_pairs=274_947_802)["rescue_pairs"]
+    assert near["pairs"] == 274_947_802
+    assert near["flops"] == 21 * 274_947_802
+    assert near["bytes"] == work["rescue_pairs"]["bytes"]
+    blocks = -(-n // cfg.mesh_band)
+    assert work["rescue_select"]["bytes"] == (
+        n * 13 + blocks * (cfg.mesh_band * 3 + 4) * 4
+        + blocks * cfg.mesh_rescue * 13)
 
 
 @pytest.mark.parametrize("traversal,kernel", [("dense", "bh_pairs"),

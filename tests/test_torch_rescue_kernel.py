@@ -155,17 +155,19 @@ def test_block_rescue_matches_jax(cap, k, k_hot, hot_cap):
 
 
 @pytest.mark.parametrize("S,k,want", [
-    (128, 8, (4, 8, 32, 256, 16384)), (128, 20, (4, 8, 32, 256, 16384)),
-    (128, 2, (4, 2, 32, 64, 4096)), (1024, 8, (4, 1, 256, 256, 16384)),
-    (256, 4, (4, 4, 64, 256, 16384)), (3, 5, (2, 5, 2, 10, 240)),
-    (1, 1, (1, 1, 1, 1, 16)), (100, 8, (4, 8, 25, 200, 12800))])
+    (128, 8, (4, 4, 8, 128, 16896)), (128, 20, (4, 4, 20, 128, 42240)),
+    (128, 2, (4, 4, 2, 128, 4224)), (1024, 8, (4, 32, 2, 1024, 33792)),
+    (256, 4, (4, 8, 4, 256, 16896)), (3, 5, (4, 1, 5, 32, 2640)),
+    (1, 1, (4, 1, 1, 32, 528)), (100, 8, (4, 4, 8, 128, 16896))])
 def test_rescue_plan(S, k, want):
-    """T, PL, tps, threads, shared bytes: whole warps a lane at S = 128,
-    staging within the default 48 KB, PL never above k."""
+    """T, G, R, threads, shared bytes: a warp a run of 32 target rows,
+    staging (padded to whole sub-tiles) and sub-tile boxes within the
+    default 48 KB, R never above k."""
     plan = tband._rescue_plan(S, k)
     assert tuple(plan) == want
     assert plan.smem <= 48 * 1024 and plan.threads <= 1024
-    assert plan.PL <= k and plan.tps * plan.T >= S
+    assert plan.R <= k and plan.G * 32 >= S
+    assert plan.threads == 32 * plan.G
 
 
 @pytest.mark.parametrize("bad", [dict(S=0, k=1), dict(S=1025, k=1),
@@ -263,13 +265,13 @@ def test_rescue_kernel_all_invalid_and_empty_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,PL", [(1, 1), (2, 3), (4, 8), (8, 2), (8, 8)])
-def test_rescue_kernel_plans_on_card(cuda_device, T, PL):
+@pytest.mark.parametrize("T,R", [(1, 1), (2, 3), (4, 8), (1, 8), (4, 2)])
+def test_rescue_kernel_plans_on_card(cuda_device, T, R):
     """Every launch shape computes the same sum."""
     spos, smass, salive = _scene(10_000, 10_077, device=cuda_device)
     forms, _ = _forms(spos, smass, salive, 128, 8, 12.0)
     args = forms["base"]
-    plan = tband._rescue_plan(128, 8, T=T)._replace(PL=PL)
+    plan = tband._rescue_plan(128, 8, T=T, R=R)
     got = tband._rescue_launch(*args, SOFT2, 12.0, "poly4", plan)
     want = tband.rescue_pair_sum_ref(*args, SOFT2, 12.0, "poly4", chunk=64)
     torch.cuda.synchronize()

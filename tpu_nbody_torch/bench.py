@@ -115,23 +115,27 @@ def _fft_flops(points: int, real: bool) -> float:
 
 def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
                select_groups: int = 0, heavy_need: int | None = None,
-               interp_cells: int | None = None) -> dict:
+               interp_cells: int | None = None,
+               rescue_pairs: int | None = None) -> dict:
     """Flops and bytes of each P3M phase of the bench at ``cfg`` with ``n``
     alive bodies, counted from the shapes alone (pure Python) but for the
-    selection's ``select_groups``, which the caller counts: each input
+    selection's ``select_groups`` and the rescue's ``rescue_pairs``, which
+    the caller counts: each input
     byte read once and each output byte written once, whatever the code
     reads again. Per call of the phase: the table scales the re-sort by
     1/``pm_resort_every`` and the kernel hats by 1/steps. Dead bodies sort
     behind the alive ones and carry no work. The band row is
     :func:`band.pair_work` of the ``n`` sorted bodies; the rescue is two
-    rows: its selection (``rescue_select``: the box tests the selection
-    kernel needs, :func:`mesh.select_work` of every block against every
-    block with ``select_groups`` near groups of 32 blocks, the kernel's
-    counter; the block rows read once and the k partner indices, flags
-    and scores written once) and its pair sum (``rescue_pairs``, the rescue
-    kernel: the ``mesh_rescue`` partner blocks of S bodies that each body's
-    block evaluates, n·k·S pairs at the band's flops a pair, the rows and
-    indices read once and the accelerations written once); the merge, a
+    rows: its selection (``rescue_select``: the block rows and boxes, then
+    the box tests the selection kernel needs, :func:`mesh.select_work` of
+    every block against every block with ``select_groups`` near groups of
+    32 blocks, the kernel's counter; the bodies read once, the rows, boxes
+    and the k partner indices, flags and scores written once) and its pair
+    sum (``rescue_pairs``, the rescue kernel: the pairs the data needs,
+    ``rescue_pairs`` from :func:`band.rescue_cutoff_pairs`, or, where None,
+    the n·k·S of the ``mesh_rescue`` partner blocks of S bodies that each
+    body's block holds, at the band's flops a pair, the rows and indices
+    read once and the accelerations written once); the merge, a
     distance test of every body against each of min(``heavy_need``,
     ``heavy_cap``) heavies (:func:`merge.merge_work`: the tests the data
     needs; ``heavy_need`` None counts every slot), the bodies read and
@@ -163,7 +167,8 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
     acc_out = n * 2 * _F32
     weights = n * (_F32 + K * _F32)          # base cell and K weights
     fgrid = 2 * mx * my * _F32               # fx and fy
-    rescue_pairs = n * k * S
+    if rescue_pairs is None:
+        rescue_pairs = n * k * S
     conv = (occ * _fft_flops(grid, True) + kept * _fft_flops(grid, True)
             + 2 * cols * _fft_flops(grid_y, False) + 6 * grid_y * cols)
     hats = (2 * _fft_flops(grid_y * grid, True) + 20 * grid_y * grid
@@ -183,7 +188,8 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
         "rescue_select": dict(flops=mesh.select_work(
                                   blocks, blocks, k, select_groups,
                                   boxes=blocks)["flops"],
-                              bytes=body_in + blocks * k * _PICK_BYTES),
+                              bytes=body_in + blocks * (S * 3 + 4) * _F32
+                              + blocks * k * _PICK_BYTES),
         "rescue_pairs": dict(pairs=rescue_pairs,
                              flops=rescue_pairs * pair_flops,
                              bytes=n * 3 * _F32 + blocks * k * _PICK_BYTES
@@ -349,12 +355,17 @@ class _PairClock(profiling.EventClock):
         self.needed.append(needed)
 
 
-def _pm_phases(eng: Engine, steps: int) -> list:
-    """(name, ms, work, scale) of each P3M phase, each run alone on the
-    Hilbert-sorted state. The rescue is its selection (the block boxes and
-    the selection kernel) and its base tier's pair kernel; a two-tier
-    rescue's hot tier (``mesh_rescue_hot``, off in the bench's
-    configuration) adds no selection and has no pair row."""
+def _pm_phases(eng: Engine, steps: int) -> tuple:
+    """(rows, note) of the P3M phases: (name, ms, work, scale) of each, run
+    alone on the Hilbert-sorted state, and a line on the rescue's pairs.
+    The rescue is its selection (the block rows and boxes and the
+    selection kernel) and its base tier's pair kernel; a two-tier rescue's
+    hot tier (``mesh_rescue_hot``, off in the bench's configuration) adds
+    no selection and has no pair row. The pair row's bound counts the
+    pairs within 2a (:func:`band.rescue_cutoff_pairs`); the note sets them
+    beside the pairs of the sub-tiles the kernel walks
+    (:func:`band.rescue_near_tiles`, its counter) and gives the plain
+    version's time."""
     cfg, params, st, dev = eng.cfg, eng.params, eng.state, eng.device
     origin, side = engine._root(cfg)
     nw, ny, grid, grid_y, h, a, morigin = mesh._pm_geometry(
@@ -381,6 +392,20 @@ def _pm_phases(eng: Engine, steps: int) -> list:
                               count_groups=True)
     tid = torch.arange(sel.rows.shape[0], device=dev)
     pvalid = sel.mval > 0
+    rescue_args = (sel.rows, tid, sel.rows, sel.midx, pvalid)
+    needed = band.rescue_cutoff_pairs(*rescue_args, a, cfg.mesh_switch)
+    near = band.rescue_near_tiles(*rescue_args, params.soft2, a,
+                                  cfg.mesh_switch)
+    every = int(pvalid.sum()) * S * S
+    plain_ms = profiling.timed_ms(lambda: band.rescue_pair_sum_ref(
+        *rescue_args, params.soft2, a, cfg.mesh_switch, chunk=sel.cb),
+        reps=1, warmup=0)
+    note = (f"# rescue pairs: {near.pairs:.4e} walked by the rescue kernel "
+            f"({near.tiles} sub-tile pairs) against {needed:.4e} needed "
+            f"within 2a"
+            + (f" ({near.pairs / needed:.3f}x)" if needed else "")
+            + f"; {every:.4e} in the valid partner blocks; the plain "
+            f"version {plain_ms:.4f} ms (one call)")
     K = max(1, cfg.pm_resort_every)
     _, heavy_need = merge_ops.merge_bodies(st, params,
                                            heavy_cap=eng.merge_heavy_cap)
@@ -388,7 +413,8 @@ def _pm_phases(eng: Engine, steps: int) -> list:
                       select_groups=int(sel.groups),
                       heavy_need=int(heavy_need),
                       interp_cells=mesh.interp_work(
-                          base, w.shape[1], nw, fx.shape[1])["cells"])
+                          base, w.shape[1], nw, fx.shape[1])["cells"],
+                      rescue_pairs=needed)
     phases = [
         (f"hilbert sort (/{K} steps)", "sort", 1.0 / K,
          lambda: mesh._hilbert_sort(st.pos, st.mass, st.alive, origin,
@@ -410,9 +436,8 @@ def _pm_phases(eng: Engine, steps: int) -> list:
          lambda: mesh._rescue_select(spos, live_mass, salive, a, band=S,
                                      k=cfg.mesh_rescue, chunk=chunk)),
         (f"rescue pairs k={cfg.mesh_rescue} (kernel)", "rescue_pairs", 1.0,
-         lambda: band.rescue_pair_sum(
-             sel.rows, tid, sel.rows, sel.midx, pvalid, params.soft2, a,
-             cfg.mesh_switch, chunk=sel.cb)),
+         lambda: band.rescue_pair_sum(*rescue_args, params.soft2, a,
+                                      cfg.mesh_switch, chunk=sel.cb)),
         ("merge (kernel)", "merge", 1.0,
          lambda: merge_ops.merge_bodies(st, params,
                                         heavy_cap=eng.merge_heavy_cap)),
@@ -420,7 +445,7 @@ def _pm_phases(eng: Engine, steps: int) -> list:
          lambda: engine._kernel_hats(cfg, params, dev)),
     ]
     return [(name, profiling.timed_ms(fn, reps=PHASE_REPS), work[key], scale)
-            for name, key, scale, fn in phases]
+            for name, key, scale, fn in phases], note
 
 
 def bh_kernel(cfg) -> str:
@@ -497,7 +522,7 @@ def _phase_table(eng: Engine, step_ms: float, steps: int, file,
     """The table of :func:`print_phases` on the engine's device."""
     extra = ""
     if eng.solver == "pm":
-        rows = _pm_phases(eng, steps)
+        rows, extra = _pm_phases(eng, steps)
         what = ("each P3M phase alone on the Hilbert-sorted final state, "
                 f"median of {PHASE_REPS} after 2 warm-ups")
     elif eng.solver == "bh":

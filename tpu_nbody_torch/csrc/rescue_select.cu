@@ -77,6 +77,8 @@
 
 #include <cuda_runtime.h>
 
+#include "box_gap.cuh"
+
 namespace {
 
 typedef unsigned long long u64;
@@ -101,20 +103,6 @@ struct Args {
   int M, C, kh, kthr, tile, bufcap;
   float rcut2;
 };
-
-// torch.maximum: NaN if either side is NaN
-__device__ __forceinline__ float tmax(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-// the squared box gap, rounded as torch's separate elementwise ops round it
-__device__ __forceinline__ float gap2(float4 t, float4 c) {
-  const float gx =
-      tmax(tmax(__fsub_rn(t.x, c.y), __fsub_rn(c.x, t.y)), 0.0f);
-  const float gy =
-      tmax(tmax(__fsub_rn(t.z, c.w), __fsub_rn(c.z, t.w)), 0.0f);
-  return __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
-}
 
 // positive scores order like their bits; the low word favours the lower j
 __device__ __forceinline__ u64 make_key(float score, int j) {

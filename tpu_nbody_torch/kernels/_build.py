@@ -46,10 +46,11 @@ SIGNATURES = {
     "tnt_allpairs": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # dim -> blocks of that kernel one SM holds at once (0 on error)
     "tnt_allpairs_blocks_per_sm": [_I],
-    # trows, tid, prows, pidx, pvalid, out, m, k, band, soft2, inv_scale,
-    # switch, T, PL, stream
-    "tnt_rescue_pairs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _I,
-                         _I, _P],
+    # trows, tid, prows, pidx, pvalid, out, walked (or null), m, k, band,
+    # soft2, inv_scale, cut (NaN: no skip), switch, T, R, stream
+    "tnt_rescue_pairs": [_P] * 7 + [_I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
+    # pos, mass, alive, X, box, cap, band, stream
+    "tnt_block_boxes": [_P] * 5 + [_I, _I, _P],
     # targets, sources, masses, out, M, C, NT, S, soft2, T, tpg, lanes,
     # stream
     "tnt_bh_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],

@@ -32,6 +32,9 @@ fresh pass, whose cells the interpolation reuses), launch
 the FD gradient, :func:`_fd_gradient` and the general
 :func:`fd_window`, launches ``csrc/fd.cu`` (:data:`FD_LAUNCHES`) and runs
 :func:`_fd_window_ref` for CPU tensors.
+The rescue's block rows and boxes, :func:`_block_boxes`, launch
+``csrc/block_boxes.cu`` for CUDA tensors (:data:`BOXES_LAUNCHES`) and run
+:func:`_block_boxes_ref` for CPU tensors;
 :func:`rescue_select` launches ``csrc/rescue_select.cu`` for CUDA tensors
 and runs :func:`_rescue_select_ref` for CPU tensors;
 :data:`SELECT_LAUNCHES` counts its launches, :func:`_select_plan` chooses
@@ -65,6 +68,7 @@ SELECT_LAUNCHES = 0         # csrc/rescue_select.cu
 INTERP_LAUNCHES = 0         # csrc/interp.cu
 DEPOSIT_LAUNCHES = 0        # csrc/deposit.cu, every entry
 FD_LAUNCHES = 0             # csrc/fd.cu
+BOXES_LAUNCHES = 0          # csrc/block_boxes.cu
 INTERP_TAPS = {1: 0, 4: 1, 9: 2}   # cells a body -> its reach past the base
 # flops a body of the cells (by taps: NGP, CIC, TSC), counted from
 # _cic_cells_ref: scale 4, floor 2, then the weights
@@ -198,7 +202,7 @@ def _box_gaps(bb, bminx, bmaxx, bminy, bmaxy):
     return gx * gx + gy * gy
 
 
-def _block_boxes(spos, smass, salive, band):
+def _block_boxes_ref(spos, smass, salive, band):
     """Block rows and alive-only bounding boxes of sorted bodies.
 
     Returns (X (B, S, 3) packed pos+mass rows, bbox (B, 4) as [minx, maxx,
@@ -216,6 +220,46 @@ def _block_boxes(spos, smass, salive, band):
     lo = torch.where(lv, X[..., :2], big).amin(dim=1)          # (B, 2)
     hi = torch.where(lv, X[..., :2], -big).amax(dim=1)
     return X, torch.stack([lo, hi], dim=2).reshape(B, 4)
+
+
+def _block_boxes(spos, smass, salive, band):
+    """Block rows and boxes (:func:`_block_boxes_ref`). CPU tensors take
+    the plain version; CUDA tensors launch ``csrc/block_boxes.cu`` once
+    (:data:`BOXES_LAUNCHES`), which reads the bodies once and writes the
+    same bits."""
+    global BOXES_LAUNCHES
+    if all(t.device.type == "cpu" for t in (spos, smass, salive)):
+        return _block_boxes_ref(spos, smass, salive, band)
+    cap = spos.shape[0]
+    S = band
+    if not 1 <= S <= band_ops.MAX_BAND:
+        raise ValueError(f"band {S} outside [1, {band_ops.MAX_BAND}]")
+    spos, smass, salive = (t.contiguous() for t in (spos, smass, salive))
+    dev = spos.device
+    _build.check_tensor("spos", spos, (cap, 2), align=8)
+    _build.check_tensor("smass", smass, (cap,), device=dev)
+    _build.check_tensor("salive", salive, (cap,), device=dev,
+                        dtype=torch.bool)
+    B = -(-cap // S)
+    X = torch.empty((B, S, 3), dtype=spos.dtype, device=dev)
+    bbox = torch.empty((B, 4), dtype=spos.dtype, device=dev)
+    if B == 0:
+        return X, bbox
+    rc = _build.library().tnt_block_boxes(
+        spos.data_ptr(), smass.data_ptr(), salive.data_ptr(), X.data_ptr(),
+        bbox.data_ptr(), cap, S, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("block_boxes", rc)
+    with band_ops._COUNT_LOCK:
+        BOXES_LAUNCHES += 1
+    return X, bbox
+
+
+def block_boxes_work(cap: int, S: int) -> dict:
+    """Bytes of one :func:`_block_boxes`: positions, masses and alive
+    flags read once, the zero-padded (B, S, 3) rows and (B, 4) boxes
+    written once; no arithmetic but compares."""
+    B = -(-cap // S)
+    return dict(flops=0, bytes=cap * 13 + B * S * 12 + B * 16)
 
 
 def _rcut2(a):
