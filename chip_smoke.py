@@ -69,7 +69,10 @@ n2 = 200,000):
   steps), ``--solver allpairs`` and ``--solver bh --steps 2 --repeats 3``;
   each prints one JSON line with the four keys, a mean force error within
   its limit, no retune inside a timed repeat (the bench raises) and a
-  per-phase table with a bound and a share of it on every row;
+  per-phase table with a bound and a share of it on every row; then one
+  step(20) of the pm bench's engine under ``profiling.trace``: the
+  device's busy and idle shares of the step, and the host's enqueue time
+  a step;
 * cuda_tests: ``python -m pytest --noconftest -m cuda
   tests/test_torch_package.py tests/test_torch_rescue_kernel.py
   tests/test_torch_rescue_select.py tests/test_torch_rescue_cull.py
@@ -101,9 +104,12 @@ On the way it
    the all-pairs kernel gives the same bits on a second call (2D and 3D);
    the rescue selection kernel against its plain version on the sorted
    scene (every block against every block at the main path's S and k,
-   bit for bit: counts, needs, scores, the valid partners), timed beside
-   the whole selection's device and host-enqueue times; the block rows and
-   boxes kernel bit for bit on the same scene and on a ragged tail; the
+   bit for bit: counts, needs, scores, the valid partners, near groups),
+   with the union table of the block-box kernel and with the union
+   kernel's, timed beside the whole selection's device, idle-card and
+   host-enqueue times and its device operations; the block rows, boxes and union table kernel bit for bit
+   on the same scene and on a ragged tail; the union kernel bit for bit
+   against its plain version on the block boxes; the
    rescue kernel against its plain version on the same scene (the main
    path's partner choice, every block in one launch), and against itself
    without its sub-tile skip and on a repeat bit for bit, its walked
@@ -126,7 +132,8 @@ On the way it
    kernel against its plain version (the same alive flags and heavy_need,
    masses within MERGE_RTOL) on a synthetic scene of 2^20 bodies with
    chains of heavies and more heavies than the cap of 64, and on the main
-   path's state after its steps, timed there; the deposit kernel against
+   path's state after its steps, each call one device operation, timed
+   there; the deposit kernel against
    its plain versions on the sorted scene in CIC, NGP and TSC (the cells
    of both cell entries bit for bit, rho of every entry within RHO_RTOL a
    cell and MASS_RTOL of the total, from int32 and int64 cells), the CIC
@@ -155,7 +162,9 @@ kernels the main path's three step(20) calls; for the
 all-pairs kernel path E's run at 2^20 bodies, the path it carries: the
 P3M main path launches it only in the force error after its steps; for
 the hier kernel path D's steps; for the pair kernel the dense force
-error at N = 65,536, the Barnes–Hut main path being hier) and
+error at N = 65,536, the Barnes–Hut main path being hier; for the union
+kernel path F1, whose export and import selections take their tables
+from it, the main path's from the block-box kernel) and
 ``launches_by_path``, which holds path G's runs as ``bench_pm``,
 ``bench_allpairs`` and ``bench_bh`` (warm-up, timed repeats, force error
 and phase table). The three rescue kernels, both Barnes–Hut kernels, the
@@ -200,7 +209,7 @@ import tempfile
 import time
 
 from tpu_nbody_torch.profiling import (EventClock, bounds, card_info,
-                                       device_ms, timed_ms)
+                                       device_ms, device_ops, timed_ms)
 
 N = 1_000_000       # bodies of the two-disk scene
 N_SMALL = 65_536    # bodies of the kdk and euler all-pairs runs
@@ -285,6 +294,7 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
 COUNTERS = {"band": ("band", "LAUNCHES"),
             "rescue": ("band", "RESCUE_LAUNCHES"),
             "rescue_select": ("mesh", "SELECT_LAUNCHES"),
+            "select_unions": ("mesh", "UNION_LAUNCHES"),
             "boxes": ("mesh", "BOXES_LAUNCHES"),
             "allpairs": ("forces", "LAUNCHES"),
             "bh_pairs": ("traverse", "LAUNCHES"),
@@ -312,6 +322,15 @@ BH_CFG = dict(max_depth=14, group_chunk=64, approx_cap=1024,
               node_capacity=1 << 20)
 # the rescue kernel's target rows a lane (T), each timed at the main shape
 RESCUE_SHAPES = (1, 2, 4)
+# the numbers of the selection and merge designs these kernels replaced, at
+# the main path's shape (PERF.md, section 6: their last final run, NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's: device ms, ms a call
+# on an idle card, host enqueue ms; device launches read from their code
+BEFORE_SELECT = dict(kernel_ms=0.0371, with_boxes=(
+    "0.0473 ms on the device, 0.0957 a call, 0.1160 to enqueue, 3 device "
+    "launches: boxes, a stats fill, the selection"))
+BEFORE_MERGE = ("0.0287 ms on the device, 0.0566 a call, 6 device "
+              "launches: a memset and five kernels")
 # path C: SimConfig overrides of the main path's configuration, one fresh
 # force pass each
 KNOBS = {"heavy_direct": dict(pm_heavy_cap=16), "tsc": dict(mesh_order=3),
@@ -475,49 +494,119 @@ def _rel_err(got, want):
     return (got - want).norm(dim=1) / (want.norm(dim=1) + 1e-9)
 
 
+# calls whose device operations are counted after the bench (``_per_call``,
+# ``_count_device_ops``): (name, fn, its result dict, the launches it must
+# make)
+DEFERRED_OPS = []
+
+
+def _per_call(name, fn, expect):
+    """One call of ``fn`` as the card sees it: device ms with the host's
+    enqueue hidden (``device_ms``), ms a call on an idle card
+    (``timed_ms``) and the host's ms to enqueue it (host clock around the
+    call, the card idle, median of 5). The device operations it enqueues
+    (a profiler trace) are counted by ``_count_device_ops`` after the
+    bench, into the same dict, and must be ``expect``: a profiler session
+    leaves the host's later launches slower in this process."""
+    import torch
+    out = dict(device_ms=device_ms(fn), call_ms=timed_ms(fn))
+    enq = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        enq.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    out["host_enqueue_ms"] = sorted(enq)[2]
+    DEFERRED_OPS.append((name, fn, out, expect))
+    return out
+
+
+def _per_call_text(c, old):
+    return (f"{c['device_ms']:.4f} ms on the device, {c['call_ms']:.4f} ms "
+            f"a call on an idle card, {c['host_enqueue_ms']:.4f} ms to "
+            f"enqueue (before the redesign: {old})")
+
+
+def _count_device_ops():
+    """The device operations of each ``_per_call`` call, from a profiler
+    trace of one more call, after every timing of the run; fails where a
+    call enqueued other than its expected count."""
+    for name, fn, out, expect in DEFERRED_OPS:
+        ops = device_ops(fn)
+        out.update(device_launches=len(ops), device_ops=ops)
+        print(f"{name}: {len(ops)} device launches a call: "
+              + ", ".join(o[:60] for o in ops), flush=True)
+        if len(ops) != expect:
+            raise AssertionError(f"{name}: {len(ops)} device operations a "
+                                 f"call, expected {expect}: {ops}")
+
+
+def _fresh_tables(table, n=16):
+    """``n`` union tables with the boxes of ``table``, each with stats of
+    its own, zeroed by one fill before they are handed out: a selection
+    takes a table once (the timing helpers call a function 12 times)."""
+    import torch
+    from tpu_nbody_torch.ops import mesh
+    stats = torch.zeros((n, 4), dtype=torch.int32, device=table.stats.device)
+    return iter([mesh.UnionTable(table.boxes, s) for s in stats])
+
+
 def _rescue_select_shape(spos, smass, salive, cfg, a):
     """The selection kernel against its plain version at the main path's
     shape: every block of the sorted scene against every block, the main
     path's k, bit for bit (counts, needs, scores on every slot, indices on
-    the valid slots), both timed (CUDA events, median of 10), bound from
-    ``mesh.select_work`` of the near groups the kernel's counter reads
-    (the plain version's count beside it); then the whole selection as
-    ``_block_rescue`` calls it (the block boxes and the kernel): its device
-    time and the host's time to enqueue it. The kernel's ``ms`` is its
-    device time with the host's enqueue hidden (``device_ms``): one call
-    on an idle card (``call_ms``, the other kernels' method) is shorter
-    than the wrapper's enqueue and reads the host."""
+    the valid slots), with the union table the block-box kernel builds
+    (the main path's) and with the wrapper's own (the union kernel, the
+    sharded callers'); its near-group counter against the plain count;
+    the kernel timed (CUDA events, median of 10; ``device_ms``, the
+    host's enqueue hidden, since one call on an idle card is shorter than
+    the wrapper's enqueue) at the plan's shape, a fresh union table a
+    call, bound from ``mesh.select_work`` of the near groups the kernel's
+    counter reads; then the whole selection as ``_block_rescue`` calls it
+    (the boxes with their unions, then the kernel): per call its device
+    ms, ms on an idle card, the host's enqueue ms and its device
+    operations, beside those of the design it replaced (BEFORE_SELECT)."""
     import torch
     from tpu_nbody_torch.ops import mesh
     S, k = cfg.mesh_band, cfg.mesh_rescue
     live = torch.where(salive, smass, 0.0)
-    _, bbox = mesh._block_boxes(spos, live, salive, S)
+    _, bbox, table = mesh._block_boxes(spos, live, salive, S, unions=True)
     B, cb, _ = mesh._block_bounds(spos.shape[0], S, cfg.mesh_chunk)
     rcut2 = mesh._rcut2(a)
     k = min(k, B)
-    got = mesh.rescue_select(bbox, bbox, rcut2, k)
-    want = mesh._rescue_select_ref(bbox, bbox, rcut2, k, chunk=cb)
-    torch.cuda.synchronize()
+    want = mesh._rescue_select_ref(bbox, bbox, rcut2, k, chunk=cb,
+                                   count_groups=True)
     valid = want.mval > 0
-    same = (torch.equal(got.cnt, want.cnt)
-            and int(got.need) == int(want.need)
-            and int(got.hot) == int(want.hot)
-            and torch.equal(got.mval.view(torch.int32),
-                            want.mval.view(torch.int32))
-            and torch.equal(got.midx[valid], want.midx[valid]))
-    if not same:
-        raise AssertionError("rescue_select: the kernel's selection differs "
-                             "from the plain version's")
-    groups = int(mesh.rescue_select(bbox, bbox, rcut2, k,
-                                    count_groups=True).groups)
-    plain_groups = int(mesh._rescue_select_ref(
-        bbox, bbox, rcut2, k, chunk=cb, count_groups=True).groups)
-    if groups != plain_groups:
-        raise AssertionError(f"rescue_select: the kernel tested {groups} "
-                             f"near groups, the plain count is "
-                             f"{plain_groups}")
-    ms = device_ms(lambda: mesh.rescue_select(bbox, bbox, rcut2, k))
-    call_ms = timed_ms(lambda: mesh.rescue_select(bbox, bbox, rcut2, k))
+    for name, tab in (("the boxes kernel's union table", table),
+                      ("the wrapper's own union table", None)):
+        got = mesh.rescue_select(bbox, bbox, rcut2, k, unions=tab,
+                                 count_groups=True)
+        torch.cuda.synchronize()
+        same = (torch.equal(got.cnt, want.cnt)
+                and int(got.need) == int(want.need)
+                and int(got.hot) == int(want.hot)
+                and torch.equal(got.mval.view(torch.int32),
+                                want.mval.view(torch.int32))
+                and torch.equal(got.midx[valid], want.midx[valid]))
+        if not same:
+            raise AssertionError(f"rescue_select ({name}): the kernel's "
+                                 f"selection differs from the plain "
+                                 f"version's")
+        if int(got.groups) != int(want.groups):
+            raise AssertionError(f"rescue_select ({name}): the kernel "
+                                 f"tested {int(got.groups)} near groups, "
+                                 f"the plain count is {int(want.groups)}")
+    groups = int(want.groups)
+    plan = mesh._select_plan(B, k)
+    # the kernel alone, on the main path's union boxes: a table serves one
+    # selection, so each call takes one of a set zeroed before the timing
+    def kernel(tables):
+        return lambda: mesh._select_launch(bbox, bbox, rcut2, k, k, 0, None,
+                                           None, plan, unions=next(tables))
+
+    ms = device_ms(kernel(_fresh_tables(table)))
+    call_ms = timed_ms(kernel(_fresh_tables(table)))
     plain_ms = timed_ms(lambda: mesh._rescue_select_ref(bbox, bbox, rcut2, k,
                                                         chunk=cb))
 
@@ -525,35 +614,60 @@ def _rescue_select_shape(spos, smass, salive, cfg, a):
         return mesh._rescue_select(spos, live, salive, a, band=S, k=k,
                                    chunk=cfg.mesh_chunk)
 
-    select()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    select()
-    enqueue_ms = 1e3 * (time.perf_counter() - t0)
-    select_ms = timed_ms(select)
-    select_device_ms = device_ms(select)
-    plan = mesh._select_plan(B, k)
+    whole = _per_call("the selection with its boxes", select, 2)
     out = dict(max_abs_err=float((got.mval - want.mval).abs().max()), ms=ms,
                call_ms=call_ms, plain_ms=plain_ms, blocks=B, k=k,
                need=int(want.need),
                hot=int(want.hot), valid_partner_blocks=int(valid.sum()),
-               near_groups=groups, union_tests=B * -(-B // 32),
+               near_groups=groups,
                **bounds(mesh.select_work(B, B, k, groups, boxes=B), ms),
-               with_boxes=dict(ms=select_ms, device_ms=select_device_ms,
-                               host_enqueue_ms=enqueue_ms),
+               with_boxes=whole, before=BEFORE_SELECT,
                plan=dict(warps=plan.warps, tile=plan.tile,
-                         bufcap=plan.bufcap, smem=plan.smem))
+                         bufcap=plan.bufcap, smem=plan.smem,
+                         ctas=mesh._select_capacity(bbox.device.index,
+                                                    plan.warps, plan.smem)))
     print(f"rescue_select S={S} k={k} blocks={B}: the same bits as the "
-          f"plain version (need {out['need']}, {out['hot']} blocks over k, "
-          f"{out['valid_partner_blocks']} valid slots, {groups} near groups "
-          f"of 32 tested in full after {out['union_tests']} union tests); "
-          f"kernel {ms:.4f} ms "
-          f"on the device ({call_ms:.4f} ms a call on an idle card), plain "
-          f"{plain_ms:.4f} ms, bound {out['bound_ms']:.5f} ms "
-          f"({out['bound_by']}, {out['pct_of_bound']:.2f}%); the selection "
-          f"with its boxes {select_ms:.4f} ms a call on an idle card "
-          f"({select_device_ms:.4f} ms on the device), {enqueue_ms:.4f} ms "
-          f"for the host to enqueue it", flush=True)
+          f"plain version with either union table (need {out['need']}, "
+          f"{out['hot']} blocks over k, {out['valid_partner_blocks']} valid "
+          f"slots, {groups} near groups of 32 tested in full, the kernel's "
+          f"counter); kernel "
+          f"{ms:.4f} ms on the device ({call_ms:.4f} ms a call on an idle "
+          f"card; before the redesign {BEFORE_SELECT['kernel_ms']}), plain "
+          f"{plain_ms:.4f} "
+          f"ms, bound {out['bound_ms']:.5f} ms ({out['bound_by']}, "
+          f"{out['pct_of_bound']:.2f}%); plan {out['plan']}; the "
+          "selection with its boxes: "
+          + _per_call_text(whole, BEFORE_SELECT["with_boxes"]), flush=True)
+    return out
+
+
+def _unions_shape(spos, smass, salive, cfg):
+    """The union kernel (``mesh.select_unions``, the sharded callers'
+    table) bit for bit against ``_union_boxes`` on the main path's block
+    boxes, timed on the device beside its plain version; bound: the boxes
+    read once, the unions and the zeroed stats written once."""
+    import torch
+    from tpu_nbody_torch.ops import mesh
+    live = torch.where(salive, smass, 0.0)
+    _, bbox = mesh._block_boxes(spos, live, salive, cfg.mesh_band)
+    got = mesh.select_unions(bbox)
+    want = mesh._union_boxes(bbox)
+    torch.cuda.synchronize()
+    if not (torch.equal(got.boxes, want)
+            and got.stats.tolist() == [0, 0, 0, 0]):
+        raise AssertionError("select_unions: the union table differs from "
+                             "_union_boxes, or its stats are not zero")
+    C = bbox.shape[0]
+    ms = device_ms(lambda: mesh.select_unions(bbox))
+    call_ms = timed_ms(lambda: mesh.select_unions(bbox))
+    plain_ms = timed_ms(lambda: mesh._union_boxes(bbox))
+    work = dict(flops=0, bytes=16 * C + 16 * -(-C // 32) + 16)
+    out = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               boxes=C, **bounds(work, ms))
+    print(f"select_unions {C} boxes: the same bits as _union_boxes; kernel "
+          f"{ms:.4f} ms on the device ({call_ms:.4f} ms a call on an idle "
+          f"card), plain {plain_ms:.4f} ms, bound {out['bound_ms']:.5f} ms "
+          f"({out['bound_by']}, {out['pct_of_bound']:.1f}%)", flush=True)
     return out
 
 
@@ -635,8 +749,11 @@ def _boxes_shape(spos, smass, salive, cfg):
     """The block rows and boxes kernel against its plain version bit for
     bit at the main path's shape (the selection's live masses; the dead
     bodies sort to the end, so the last blocks hold none) and on a ragged
-    tail (every slot but the last), timed on the device with the host's enqueue hidden and as a
-    call on an idle card; bound from ``mesh.block_boxes_work``."""
+    tail (every slot but the last), with the selection's union table bit
+    for bit against ``_union_boxes`` and its stats zeroed; timed as the
+    main path calls it (with the unions) on the device with the host's
+    enqueue hidden and as a call on an idle card; bound from
+    ``mesh.block_boxes_work`` with the unions."""
     import torch
     from tpu_nbody_torch.ops import mesh
     S = cfg.mesh_band
@@ -645,33 +762,40 @@ def _boxes_shape(spos, smass, salive, cfg):
     for name, inputs in (("main", (spos, live, salive)),
                          ("ragged", (spos[:cap - 1], live[:cap - 1],
                                      salive[:cap - 1]))):
-        got = mesh._block_boxes(*inputs, S)
+        got = mesh._block_boxes(*inputs, S, unions=True)
         want = mesh._block_boxes_ref(*inputs, S)
         torch.cuda.synchronize()
         if not (torch.equal(got[0], want[0])
                 and torch.equal(got[1], want[1])):
             raise AssertionError(f"block_boxes ({name}): the kernel's rows "
                                  f"or boxes differ from the plain version's")
-    ms = device_ms(lambda: mesh._block_boxes(spos, live, salive, S))
-    call_ms = timed_ms(lambda: mesh._block_boxes(spos, live, salive, S))
+        if not (torch.equal(got[2].boxes, mesh._union_boxes(want[1]))
+                and got[2].stats.tolist() == [0, 0, 0, 0]):
+            raise AssertionError(f"block_boxes ({name}): the union table "
+                                 f"differs from _union_boxes, or its stats "
+                                 f"are not zero")
+    fn = lambda: mesh._block_boxes(spos, live, salive, S, unions=True)
+    ms = device_ms(fn)
+    call_ms = timed_ms(fn)
     plain_ms = timed_ms(lambda: mesh._block_boxes_ref(spos, live, salive, S))
     out = dict(max_abs_err=0.0, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
-               **bounds(mesh.block_boxes_work(cap, S), ms))
+               **bounds(mesh.block_boxes_work(cap, S, unions=True), ms))
     print(f"block_boxes S={S} cap={cap}: the same bits as the plain version "
-          f"(and on a ragged tail of {cap - 1}); kernel {ms:.4f} ms on the "
-          f"device ({call_ms:.4f} ms a call on an idle card), plain "
-          f"{plain_ms:.4f} ms, bound {out['bound_ms']:.5f} ms "
-          f"({out['bound_by']}, {out['pct_of_bound']:.1f}%)", flush=True)
+          f"(and on a ragged tail of {cap - 1}), the union table bit for "
+          f"bit; kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call "
+          f"on an idle card), plain {plain_ms:.4f} ms, bound "
+          f"{out['bound_ms']:.5f} ms ({out['bound_by']}, "
+          f"{out['pct_of_bound']:.1f}%)", flush=True)
     return out
 
 
 def _merge_compare(name, st, params, H):
     """The merge kernel against its plain version on one state: the same
-    alive flags and heavy_need, masses within MERGE_RTOL; both timed (the
-    kernel's five launches on the device with the host's enqueue hidden,
-    ``device_ms``, and a call on an idle card; the plain version a call).
-    Returns the row's numbers with the bound of the tests the data
-    needs."""
+    alive flags and heavy_need, masses within MERGE_RTOL; the kernel's
+    call (``_per_call``: device ms, a call on an idle card, host enqueue;
+    its device operations, which must be the one kernel) beside those of
+    the design it replaced (BEFORE_MERGE), the plain version a call.
+    Returns the row's numbers with the bound of the tests the data needs."""
     import torch
     from tpu_nbody_torch.ops import merge
     got, need = merge.merge_bodies(st, params, heavy_cap=H)
@@ -688,20 +812,23 @@ def _merge_compare(name, st, params, H):
             f"{name}: the merge kernel disagrees with its plain version: "
             f"heavy_need {int(need)} against {int(wneed)}, alive equal "
             f"{torch.equal(got.alive, want.alive)}, mass max rel {rel:.3e}")
-    ms = device_ms(lambda: merge.merge_bodies(st, params, heavy_cap=H))
-    call_ms = timed_ms(lambda: merge.merge_bodies(st, params, heavy_cap=H))
+    call = _per_call(name, lambda: merge.merge_bodies(st, params,
+                                                      heavy_cap=H), 1)
+    ms = call["device_ms"]
     plain_ms = timed_ms(lambda: merge._merge_bodies_ref(st, params,
                                                         heavy_cap=H))
     work = merge.merge_work(n_alive, int(wneed), H, st.dim)
-    out = dict(max_abs_err=err, max_rel_err=rel, ms=ms, call_ms=call_ms,
+    out = dict(max_abs_err=err, max_rel_err=rel, ms=ms,
+               call_ms=call["call_ms"],
+               host_enqueue_ms=call["host_enqueue_ms"], per_call=call,
                plain_ms=plain_ms, bodies=st.capacity, alive=n_alive,
                heavy_need=int(wneed), heavy_cap=H, victims=victims,
-               tests=work["tests"], **bounds(work, ms))
+               tests=work["tests"], before=BEFORE_MERGE, **bounds(work, ms))
     print(f"{name}: {victims} bodies absorbed of {n_alive}, heavy_need "
           f"{int(wneed)} (cap {H}): the plain version's alive flags and "
-          f"heavy_need, mass max rel diff {rel:.3e}; kernel {ms:.4f} ms on "
-          f"the device ({call_ms:.4f} ms a call on an idle card), plain "
-          f"{plain_ms:.4f} ms, bound {out['bound_ms']:.5f} ms "
+          f"heavy_need, mass max rel diff {rel:.3e}; kernel "
+          + _per_call_text(call, BEFORE_MERGE)
+          + f"; plain {plain_ms:.4f} ms, bound {out['bound_ms']:.5f} ms "
           f"({out['bound_by']}, {out['pct_of_bound']:.2f}%)", flush=True)
     return out
 
@@ -1785,6 +1912,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         for label in ("warm-up", "timed"):
             b0, r0 = band.LAUNCHES, band.RESCUE_LAUNCHES
             s0, x0 = mesh.SELECT_LAUNCHES, mesh.BOXES_LAUNCHES
+            u0 = mesh.UNION_LAUNCHES
             i0, m0 = mesh.INTERP_LAUNCHES, merge_ops.LAUNCHES
             d0, f0 = mesh.DEPOSIT_LAUNCHES, mesh.FD_LAUNCHES
             start = torch.cuda.Event(enable_timing=True)
@@ -1799,6 +1927,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             launches = band.LAUNCHES - b0
             rescues = band.RESCUE_LAUNCHES - r0
             selects = mesh.SELECT_LAUNCHES - s0
+            unions = mesh.UNION_LAUNCHES - u0
             boxes = mesh.BOXES_LAUNCHES - x0
             interps = mesh.INTERP_LAUNCHES - i0
             merges = merge_ops.LAUNCHES - m0
@@ -1807,13 +1936,14 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             print(f"  step({F_STEPS}) {label}: {host:.3f} s host, "
                   f"{start.elapsed_time(end):.1f} ms device events, "
                   f"{launches} band launches, {rescues} rescue launches, "
-                  f"{selects} rescue_select launches, {boxes} boxes "
-                  f"launches, {interps} interp "
+                  f"{selects} rescue_select launches, {unions} union "
+                  f"launches, {boxes} boxes launches, {interps} interp "
                   f"launches, {deposits} deposit launches, {fds} fd "
                   f"launches, {merges} merge launch sets", flush=True)
             if label == "timed" and (launches != P * (F_STEPS + 1)
                                      or rescues != 2 * launches
                                      or selects != 3 * launches
+                                     or unions != 2 * launches
                                      or boxes != 2 * launches
                                      or interps != launches
                                      or deposits != launches
@@ -1821,13 +1951,14 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
                                      or merges != 2 * P * F_STEPS):
                 raise AssertionError(
                     f"sharded pm: {launches} band, {rescues} rescue, "
-                    f"{selects} rescue_select, {boxes} boxes, "
-                    f"{interps} interp, {deposits} deposit, {fds} fd and "
-                    f"{merges} merge launches in step({F_STEPS}), "
+                    f"{selects} rescue_select, {unions} union, {boxes} "
+                    f"boxes, {interps} interp, {deposits} deposit, {fds} "
+                    f"fd and {merges} merge launches in step({F_STEPS}), "
                     f"expected {P} band a force pass x {F_STEPS + 1} "
                     f"passes, two rescues and two block-box builds (local, "
                     f"cross-shard), three selections (local; the "
-                    f"cross-shard export scores and import picks) and one "
+                    f"cross-shard export scores and import picks), two "
+                    f"union tables (the export's and the import's) and one "
                     f"interpolation, one "
                     f"deposit and one FD gradient a band launch, and two "
                     f"merge launch sets (the heavy table, then the "
@@ -1835,7 +1966,8 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             out[label] = (host / F_STEPS, start.elapsed_time(end) / F_STEPS)
         return out, n0
 
-    times, n0 = paths.run("sharded_pm", run, need=P3M_PASS + ("merge",))
+    times, n0 = paths.run("sharded_pm", run,
+                          need=P3M_PASS + ("merge", "select_unions"))
     sec, dev_ms = times["timed"]
     st = se.state
     n1 = int(st.n_alive())
@@ -1890,11 +2022,13 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
     counts = paths.counts["sharded_pm_force_error"]
     if (counts["band"] != P + 1 or counts["rescue_select"] != 3 * P + 1
             or counts["boxes"] != 2 * P + 1
+            or counts["select_unions"] != 2 * P
             or any(counts[k] != P + 1 for k in ("interp", "deposit", "fd"))):
         raise AssertionError(
             f"sharded pm: {counts} launches for a sharded and a one-device "
             f"pass, expected {P} + 1 band, {3 * P} + 1 rescue_select, "
-            f"{2 * P} + 1 boxes and {P} + 1 each of interp, deposit and fd")
+            f"{2 * P} select_unions, {2 * P} + 1 boxes and {P} + 1 each of "
+            f"interp, deposit and fd")
 
     # one pass by phase on rank 0, CUDA events; every rank enqueues on the
     # one stream, so a phase's time holds the other ranks' work enqueued
@@ -2215,10 +2349,94 @@ def _path_f(paths, cfg, params, dev, n_sm, max_clock_hz, results):
     return dict(f1=f1, f2=f2)
 
 
+def _step_trace(eng, steps=STEPS):
+    """One bench ``step(steps)`` of the pm engine on the card, twice: once
+    untraced, for its wall time and the host's enqueue time (the host clock
+    when the step's one host sync begins: ``Engine._record_stats``, wrapped
+    here for this measurement alone), and once under ``profiling.trace``,
+    for the device's busy time (the union of its kernels, memsets and
+    copies), its busy and idle shares of the step (of the traced step's
+    host time, the profiler's overhead in it, and of the untraced wall
+    time), its device operations a step and the kernels that take the
+    most time."""
+    import torch
+    from tpu_nbody_torch import profiling
+    stamps = []
+    real = eng._record_stats
+
+    def record(stats):
+        stamps.append(time.perf_counter())
+        return real(stats)
+
+    eng._record_stats = record
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(steps)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        enqueue_ms = 1e3 * (stamps[0] - t0)
+        with tempfile.TemporaryDirectory() as d:
+            with profiling.trace(d):
+                torch.cuda.synchronize()
+                time.sleep(profiling.TRACE_PAD_S)
+                with torch.profiler.record_function("bench_step"):
+                    eng.step(steps)
+                    torch.cuda.synchronize()
+                time.sleep(profiling.TRACE_PAD_S)
+            path = os.path.join(d, "trace.json")
+            spans = profiling.trace_device_spans(path)
+            with open(path) as f:
+                marks = [e for e in json.load(f)["traceEvents"]
+                         if e.get("name") == "bench_step"
+                         and e.get("ph") == "X"
+                         and e.get("cat") != "gpu_user_annotation"]
+    finally:
+        del eng._record_stats
+    if not marks or not spans:
+        raise AssertionError(f"step trace: {len(marks)} step marks and "
+                             f"{len(spans)} device operations in the trace")
+    # every device operation of the trace is the step's (the trace holds
+    # the step alone); the window is the step's host time up to its sync,
+    # and the device's own clock spans the operations, so no time is
+    # moved from one clock to the other
+    window = float(marks[0]["dur"])
+    busy = profiling.busy_us(spans)
+    by_name = {}
+    for e in spans:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = dict(steps=steps, wall_ms_per_step=wall_ms / steps,
+               host_enqueue_ms_per_step=enqueue_ms / steps,
+               traced_ms_per_step=window / 1e3 / steps,
+               device_busy_ms_per_step=busy / 1e3 / steps,
+               busy_share_traced=busy / window,
+               idle_share_traced=1.0 - busy / window,
+               busy_share_untraced=busy / 1e3 / wall_ms,
+               idle_share_untraced=1.0 - busy / 1e3 / wall_ms,
+               device_ops_per_step=len(spans) / steps,
+               top_kernels_ms_per_step={k: v / 1e3 / steps for k, v in top})
+    print(f"bench pm step({steps}) traced: device busy "
+          f"{out['device_busy_ms_per_step']:.4f} ms a step of "
+          f"{out['traced_ms_per_step']:.4f} traced "
+          f"({100 * out['busy_share_traced']:.1f}% busy, "
+          f"{100 * out['idle_share_traced']:.1f}% idle) and of "
+          f"{out['wall_ms_per_step']:.4f} untraced "
+          f"({100 * out['idle_share_untraced']:.1f}% idle); the host "
+          f"enqueues a step in {out['host_enqueue_ms_per_step']:.4f} ms (untraced); "
+          f"{out['device_ops_per_step']:.1f} device operations a step; "
+          f"most time: "
+          + ", ".join(f"{k[:60]} {v:.4f} ms" for k, v in
+                      out["top_kernels_ms_per_step"].items()), flush=True)
+    return out
+
+
 def _path_g(paths):
     """Path G: the port's bench as a user runs it (module docstring).
     Returns, per solver, the JSON line, ms/step (median, min, max), the
-    warm-up seconds and the mean force error."""
+    warm-up seconds and the mean force error; for pm also one traced step
+    (``_step_trace``: the device's busy and idle shares, the host's
+    enqueue)."""
     import torch
     from tpu_nbody_torch import bench
     out = {}
@@ -2255,6 +2473,8 @@ def _path_g(paths):
                                  f"{missing} or without a bound: {rows}")
         out[solver] = dict(line=line, ms_per_step=rep["ms_per_step"],
                            warmup_s=rep["warmup_s"], force_error=err)
+        if solver == "pm":
+            pm_engine = rep["engine"]
         print(f"bench {solver}: ms/step median {rep['ms_per_step'][0]:.3f} "
               f"[{rep['ms_per_step'][1]:.3f}-{rep['ms_per_step'][2]:.3f}], "
               f"warm-up {rep['warmup_s']:.2f} s, force error mean "
@@ -2262,6 +2482,9 @@ def _path_g(paths):
               flush=True)
         del rep
         torch.cuda.empty_cache()
+    # traced after every timed bench run: a profiler session leaves the
+    # host's later launches slower in this process
+    out["pm"]["step_trace"] = _step_trace(pm_engine)
     return out
 
 
@@ -2388,6 +2611,7 @@ def main() -> int:
     results["rescue"] = _rescue_shape(spos, smass, salive, cfg, params, a,
                                       n_sm, max_clock_hz)
     results["boxes"] = _boxes_shape(spos, smass, salive, cfg)
+    results["select_unions"] = _unions_shape(spos, smass, salive, cfg)
 
     # -- interpolation and merge kernels vs plain --------------------------
     results["interp"] = _interp_shape(spos, smass, salive, cfg, params,
@@ -2649,6 +2873,7 @@ def main() -> int:
           + ", ".join(f"{k} {v['ms_per_step'][0]:.3f}"
                       for k, v in g_runs.items())
           + f"; bh warm-up {g_runs['bh']['warmup_s']:.2f} s", flush=True)
+    _count_device_ops()
     _cuda_tests()
 
     results["allpairs"]["demo_shape_3d"] = e["demo_shape_3d"]
@@ -2658,6 +2883,7 @@ def main() -> int:
     launches = {"band": paths.counts["pm_main"]["band"],
                 "rescue": paths.counts["pm_main"]["rescue"],
                 "rescue_select": paths.counts["pm_main"]["rescue_select"],
+                "select_unions": paths.counts["sharded_pm"]["select_unions"],
                 "boxes": paths.counts["pm_main"]["boxes"],
                 "allpairs": paths.counts["sphere3d_engine"]["allpairs"],
                 "bh_pairs": paths.counts["bh_small_force_error"]["bh_pairs"],
@@ -2696,6 +2922,18 @@ def main() -> int:
              launches=launches["rescue_select"],
              launches_by_path=paths.of("rescue_select"), library_ms=None,
              **results["rescue_select"]),
+        dict(name="select_unions", route="cuda",
+             source="tpu_nbody_torch/csrc/rescue_select.cu",
+             replaces="tpu_nbody/parallel/sharded_pm.py:197",
+             replaces_also="tpu_nbody/ops/mesh.py:245",
+             replaces_kind="none of its own: the union table of the "
+                           "selection's skip test for callers whose boxes "
+                           "do not come from block_boxes.cu (the sharded "
+                           "export and import); the XLA selection tests "
+                           "every pair (no Pallas original)",
+             launches=launches["select_unions"],
+             launches_by_path=paths.of("select_unions"), library_ms=None,
+             **results["select_unions"]),
         dict(name="block_boxes", route="cuda",
              source="tpu_nbody_torch/csrc/block_boxes.cu",
              replaces="tpu_nbody/ops/mesh.py:286",

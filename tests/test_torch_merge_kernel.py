@@ -3,22 +3,24 @@
 merge_bodies`` on the same numpy scenes.
 
 On the CPU the wrapper runs its plain version, ``merge._merge_bodies_ref``;
-a model of the kernel's algorithm written here in numpy (the heavies
-collected in an arbitrary order, the radix select of the H heaviest at the
-cap, the round-2 mask from the table alone, one pass a body over the
-still-absorbing heavies, the gains summed in an arbitrary order) is held to
-JAX on the same scenes. Absorbers (alive flags) and ``heavy_need`` must
-match exactly, masses within rtol 1e-6 (the kernel sums the gains with
-atomics). The scenes: a chain of three overlapping heavies, ties in mass at
-the cap, more heavies than the cap, dead bodies inside the radius,
-``merge_min_dist = 0``, a single alive body, and 3D.
+a model of the one-launch kernel's steps written here in numpy (the heavies
+collected by a grid of CTAs, each in an arbitrary order, the radix select
+of the H heaviest at the cap in CTA 0, the round-2 mask from the table
+alone, one pass a body over the still-absorbing heavies, the first of them
+staged and the rest read apart, the gains summed in an arbitrary order by
+the last CTA) is held to JAX on the same scenes. Absorbers (alive flags)
+and ``heavy_need`` must match exactly, masses within rtol 1e-6 (the kernel
+sums the gains with atomics). The scenes: a chain of three overlapping
+heavies, ties in mass at the cap, more heavies than the cap, dead bodies
+inside the radius, ``merge_min_dist = 0``, a single alive body, and 3D.
 
 On the card (marker ``cuda``, skipped without one): the kernel against the
 plain version on the same scenes, on an overflowing scene with many
-heavies, on a 1-body state and with no heavy at all, and the sharded
-halves (``heavy_table``, ``absorb``) against theirs. The JAX package is
-imported inside the tests that use it, so the ``cuda`` tests also collect
-where jax is missing.
+heavies, on a 1-body state and with no heavy at all, one device operation
+a call (a profiler trace), four calls at once on four streams, and the
+sharded halves (``heavy_table``, ``absorb``) against theirs. The JAX
+package is imported inside the tests that use it, so the ``cuda`` tests
+also collect where jax is missing.
 """
 
 import numpy as np
@@ -158,18 +160,27 @@ def _r2(a, b):
     return r2
 
 
-def _kernel_model(pos, mass, alive, max_mass, md2, H, rng):
-    """The kernel's five steps; the orders the atomics leave free (the
-    collected list, the table after the select, the compacted absorbers,
-    the gain sums) come from ``rng``."""
+def _kernel_model(pos, mass, alive, max_mass, md2, H, rng, ctas=3,
+                  stage=256):
+    """The one-launch kernel's steps on a grid of ``ctas`` CTAs, CTA c
+    owning the bodies [c chunk, (c + 1) chunk); the orders the atomics
+    leave free (each CTA's order of its heavies, the table after the
+    select, the compacted absorbers, the gain sums) come from ``rng``. The
+    pass tests the first ``stage`` absorbers from shared memory and the
+    rest apart."""
     n = pos.shape[0]
     md2 = np.float32(md2)
-    # collect
-    heavies = [i for i in range(n)
-               if alive[i] and mass[i] > np.float32(max_mass)]
+    # 1. collect: each CTA its chunk's heavies, in any order
+    chunk = -(-n // ctas)
+    per_cta = [[] for _ in range(ctas)]
+    for i in range(n):
+        if alive[i] and mass[i] > np.float32(max_mass):
+            per_cta[i // chunk].append(i)
+    # 2. CTA 0 compacts them in CTA order ...
+    heavies = [int(i) for c in range(ctas)
+               for i in rng.permutation(per_cta[c])]
     need, n_alive = len(heavies), int(alive.sum())
-    heavies = [int(i) for i in rng.permutation(heavies)]
-    # pick: the list, or the H largest keys by a radix select
+    # ... and picks: the list, or the H largest keys by a radix select
     if need <= H:
         table = heavies
     else:
@@ -178,26 +189,34 @@ def _kernel_model(pos, mass, alive, max_mass, md2, H, rng):
         for b in range(63, -1, -1):
             if sum(k >= (kth | 1 << b) for k in keys) >= H:
                 kth |= 1 << b
-        table = [i for i, k in zip(heavies, keys) if k >= kth]
+        table = [int(i) for i in
+                 rng.permutation([i for i, k in zip(heavies, keys)
+                                  if k >= kth])]
         assert len(table) == H
-    # still: round 2 from the table alone, compacted in any order
+    # ... then round 2 from the table alone, compacted in any order
     still = []
     if n_alive >= 2:
         for s in table:
             if not any(t < s and _r2(pos[s], pos[t]) < md2 for t in table):
                 still.append(s)
     still = [int(g) for g in rng.permutation(still)]
-    # pass: the lowest-id still absorber that hits, other than the body
+    # 3. pass: the lowest-id still absorber that hits, other than the body,
+    # over the staged absorbers and then the rest
     mass_out, alive_out = mass.copy(), alive.copy()
     victims = {}
     for i in range(n):
         if not alive[i]:
             continue
-        hits = [g for g in still if g != i and _r2(pos[i], pos[g]) < md2]
-        if hits:
-            victims.setdefault(min(hits), []).append(i)
+        best = None
+        for part in (still[:stage], still[stage:]):
+            for g in part:
+                if (best is None or g < best) and g != i \
+                        and _r2(pos[i], pos[g]) < md2:
+                    best = g
+        if best is not None:
+            victims.setdefault(best, []).append(i)
             mass_out[i], alive_out[i] = 0.0, False
-    # finish: gains summed in any order
+    # the last CTA: gains summed in any order
     for g, vs in victims.items():
         gained = np.float32(0.0)
         for v in rng.permutation(vs):
@@ -223,8 +242,8 @@ def test_merge_matches_jax(name):
 
 @pytest.mark.parametrize("name", SCENES)
 def test_kernel_model_matches_jax(name):
-    """The kernel's algorithm, in numpy, against JAX (two arbitrary
-    orders of the atomics)."""
+    """The kernel's steps, in numpy, on a grid of three CTAs, against JAX
+    (two arbitrary orders of the atomics)."""
     pos, mass, alive, md, hcap = _scene(name)
     want = _jax_merge(pos, mass, alive, md, hcap)
     for seed in (0, 1):
@@ -234,6 +253,20 @@ def test_kernel_model_matches_jax(name):
                             min(hcap, len(mass)),
                             np.random.default_rng(seed))
         _check(got, want, alive)
+
+
+@pytest.mark.parametrize("name", ["chain3", "ties_at_cap", "overflow",
+                                  "dead_in_radius", "3d"])
+@pytest.mark.parametrize("ctas,stage", [(1, 256), (7, 256), (2, 1)])
+def test_kernel_model_grid_matches_jax(name, ctas, stage):
+    """The same on one CTA, on seven (each CTA's order of its heavies
+    shuffled), and with one absorber staged, the rest read apart."""
+    pos, mass, alive, md, hcap = _scene(name)
+    want = _jax_merge(pos, mass, alive, md, hcap)
+    got = _kernel_model(pos, mass, alive, MAX_MASS, np.float32(md * md),
+                        min(hcap, len(mass)), np.random.default_rng(ctas),
+                        ctas=ctas, stage=stage)
+    _check(got, want, alive)
 
 
 def test_chain_resolution():
@@ -252,12 +285,17 @@ def test_chain_resolution():
 
 def test_scratch_bytes_match_the_carve():
     """The wrapper's scratch size: each part of csrc/merge.cu's carve
-    rounded up to 16 bytes."""
+    rounded up to 16 bytes, with and without the one-launch merge's
+    counts a CTA and compacted list."""
     assert tmerge._scratch_bytes(0, 0, 2) == 16
     assert tmerge._scratch_bytes(1, 1, 2) == 16 * 9
     n, H = 1 << 20, 64
     assert tmerge._scratch_bytes(n, H, 2) == (16 + 256 + 4 * n + 512 + 256
                                               + 64 + 512 + 256 + 256)
+    # the one-launch merge: two counts a CTA and the compacted list
+    assert tmerge._scratch_bytes(n, H, 2, 264) == (
+        tmerge._scratch_bytes(n, H, 2) + 8 * 264 + 4 * n)
+    assert tmerge._scratch_bytes(1, 1, 3, 1) == 16 * 11
     w = tmerge.merge_work(1000, 5, 64)
     assert w["tests"] == 5000 and w["flops"] == 30000
     assert tmerge.merge_work(1000, 100, 64, dim=3)["flops"] == 9 * 64000
@@ -318,6 +356,62 @@ def test_merge_kernel_one_body_and_no_heavy_on_card(cuda_device):
     mass = np.minimum(mass, 100.0).astype(np.float32)   # empty table
     got = _kernel_vs_plain(pos, mass, alive, md, 16, cuda_device)
     assert torch.equal(got.alive.cpu(), torch.from_numpy(alive))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chain3", "overflow", "single_alive",
+                                  "3d"])
+def test_merge_is_one_device_op_on_card(cuda_device, name):
+    """One ``merge_bodies`` call is one wrapper launch and one device
+    operation, the cooperative merge kernel: no memset, no second kernel
+    (counted from a profiler trace of the call)."""
+    from tpu_nbody_torch import profiling
+    pos, mass, alive, md, hcap = _scene(name)
+    st = _state(pos, mass, alive, cuda_device)
+    before = tmerge.LAUNCHES
+    ops = profiling.device_ops(
+        lambda: tmerge.merge_bodies(st, _params(md), heavy_cap=hcap))
+    assert tmerge.LAUNCHES == before + 2      # an untraced call, a traced
+    assert len(ops) == 1 and "merge_kernel" in ops[0], ops
+
+
+@pytest.mark.cuda
+def test_merge_kernel_on_four_streams_on_card(cuda_device):
+    """Four threads each merge their own scene on their own stream, at
+    once and 20 times over: the cooperative launches finish (no thread
+    waits past its timeout) and each result equals the plain version's."""
+    import threading
+    names = ["chain3", "overflow", "dead_in_radius", "3d"]
+    out, errors = {}, []
+
+    def run(name):
+        try:
+            pos, mass, alive, md, hcap = _scene(name)
+            st = _state(pos, mass, alive, cuda_device)
+            side = torch.cuda.Stream(cuda_device)
+            side.wait_stream(torch.cuda.current_stream(cuda_device))
+            with torch.cuda.stream(side):
+                for _ in range(20):
+                    got, need = tmerge.merge_bodies(st, _params(md),
+                                                    heavy_cap=hcap)
+                torch.cuda.current_stream().synchronize()
+            out[name] = (got, need, st, md, hcap)
+        except Exception as e:    # reported below, with the scene
+            errors.append((name, e))
+
+    threads = [threading.Thread(target=run, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads), "a merge never finished"
+    assert not errors, errors
+    for name, (got, need, st, md, hcap) in out.items():
+        want, wneed = tmerge._merge_bodies_ref(st, _params(md),
+                                               heavy_cap=hcap)
+        assert int(need) == int(wneed), name
+        assert torch.equal(got.alive, want.alive), name
+        torch.testing.assert_close(got.mass, want.mass, rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda

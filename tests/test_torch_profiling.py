@@ -152,3 +152,39 @@ def test_card_info_reads_the_power_limit_or_says_not_read(monkeypatch):
     info = profiling.card_info("cuda:0")
     assert info == dict(name="card", smi=None,
                         power_limit="power limit not read")
+
+
+def _trace_file(tmp_path, events):
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    return str(path)
+
+
+def test_trace_device_spans_keep_the_cards_operations(tmp_path):
+    """Kernels, memsets and copies, by start; host ops, runtime calls and
+    instant events are left out."""
+    path = _trace_file(tmp_path, [
+        dict(ph="X", cat="cpu_op", name="aten::add", ts=0, dur=50),
+        dict(ph="X", cat="cuda_runtime", name="cudaLaunchKernel", ts=1,
+             dur=3),
+        dict(ph="X", cat="kernel", name="k2", ts=30, dur=5),
+        dict(ph="X", cat="gpu_memset", name="Memset (Device)", ts=10, dur=2),
+        dict(ph="i", cat="kernel", name="marker", ts=12),
+        dict(ph="X", cat="gpu_memcpy", name="Memcpy DtoH", ts=40, dur=1.5),
+    ])
+    spans = profiling.trace_device_spans(path)
+    assert [e["name"] for e in spans] == ["Memset (Device)", "k2",
+                                          "Memcpy DtoH"]
+    assert spans[1] == dict(name="k2", cat="kernel", ts=30.0, dur=5.0)
+
+
+@pytest.mark.parametrize("spans,window,want", [
+    ([], (0, 10), 0.0),
+    ([(0, 4), (2, 3), (10, 1)], (-1e9, 1e9), 6.0),     # overlap merged
+    ([(0, 4), (2, 3), (10, 1)], (3, 10.5), 2.5),       # clipped
+    ([(5, 1), (0, 2), (1, 1)], (-1e9, 1e9), 3.0),      # out of order
+])
+def test_busy_us_is_the_union_in_the_window(spans, window, want):
+    ev = [dict(name="k", cat="kernel", ts=float(a), dur=float(d))
+          for a, d in spans]
+    assert profiling.busy_us(ev, *window) == pytest.approx(want)

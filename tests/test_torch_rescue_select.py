@@ -10,14 +10,21 @@ slots, exactly, on the two-disk bench scene at capacities 2^13-2^15, a
 tie-heavy scene (every block overlaps every block), half-dead and all-dead
 blocks, a block count that is not a multiple of the chunk, k >= B and the
 two-tier case; ``_block_rescue`` and ``_cross_shard_rescue`` go through
-the wrapper; the launch plan. The JAX package is imported inside the tests
-that use it, so the ``cuda`` tests also collect where jax is missing.
+the wrapper; the launch plan; the table of union boxes (the union of each
+32 consecutive candidate boxes, NaN wherever a member's coordinate is NaN)
+against ``mesh._union_boxes`` and a numpy union on ragged, inverted, NaN
+and huge boxes, and the near-group count on such boxes. The JAX package is
+imported inside the tests that use it, so the ``cuda`` tests also collect
+where jax is missing.
 
 On the card (marker ``cuda``, skipped without one): the kernel against
-the plain version bit for bit on every scene, with the box table in
-several tiles and with buffers small enough to prune often, the
-cross-shard calls at P = 2 and 4 thread ranks, and ``_block_rescue``
-against the CPU.
+the plain version bit for bit on every scene, with the union table given
+(built by ``csrc/block_boxes.cu``) and the wrapper's own (its union
+kernel), with the union table in several tiles and with buffers small
+enough to prune often, in the export and import modes, the cross-shard
+calls at P = 2 and 4 thread ranks, ``_block_rescue`` against the CPU; both
+union kernels bit for bit against ``mesh._union_boxes``; the selection
+phase's two device operations.
 """
 
 import math
@@ -342,40 +349,221 @@ def test_plain_version_counts_the_kernels_near_groups(name):
 
 
 def test_select_work_counts_the_near_groups():
-    """Union tests a target and group, 32 box tests a near group; the
-    boxes read once, the slots and counts written once."""
+    """32 box tests a near group, no union test (their number is the
+    design's own); the boxes read once, the slots and counts written
+    once."""
     w = tmesh.select_work(8192, 8192, 8, 0, boxes=8192)
-    assert w == dict(flops=11 * 8192 * 256,
-                     bytes=16 * 8192 + 8192 * (12 * 8 + 4) + 8)
+    assert w == dict(flops=0, bytes=16 * 8192 + 8192 * (12 * 8 + 4) + 8)
     near = tmesh.select_work(8192, 8192, 8, 5000, boxes=8192)
-    assert near["flops"] == w["flops"] + 11 * 32 * 5000
+    assert near["flops"] == 11 * 32 * 5000
     assert near["bytes"] == w["bytes"]
     cross = tmesh.select_work(256, 100, 6, 7)      # targets apart
-    assert cross == dict(flops=11 * (256 * 4 + 32 * 7),
+    assert cross == dict(flops=11 * 32 * 7,
                          bytes=16 * 356 + 256 * (12 * 6 + 4) + 8)
 
 
 @pytest.mark.parametrize("C,kh,want", [
-    (8192, 8, (16, 8192, 160, 159760)),
-    (8192, 1, (16, 8192, 160, 159760)),
-    (4 * 2048, 4, (16, 8192, 160, 159760)),
-    (20_000, 8, (16, 12576, 160, 232096)),
-    (100, 0, (16, 128, 128, 16 + 16 * 128 + 64 + 16 * 8 * 128)),
-    (8192, 8192, (1, 6080, 8320, 16 + 16 * 6080 + 3040 + 8 * 16512)),
+    (8192, 8, (16, 8192, 0, 32 + 4096 + 1024)),
+    (8192, 1, (16, 8192, 0, 32 + 4096 + 1024)),
+    (4 * 2048, 4, (16, 8192, 0, 32 + 4096 + 1024)),
+    (20_000, 8, (16, 20_000, 0, 32 + 10_000 + 2504)),
+    (78_125, 8, (16, 78_144, 0, 32 + 39_072 + 9768)),
+    (200_000, 8, (16, 131_072, 0, 32 + 65_536 + 16_384)),
+    (100, 0, (16, 128, 0, 32 + 64 + 16)),
+    (8192, 32, (16, 8192, 0, 32 + 4096 + 1024)),
+    (8192, 40, (16, 8192, 192, 32 + 4096 + 1024 + 16 * 8 * 256)),
+    (8192, 8192, (1, 8192, 8320, 32 + 4096 + 1024 + 8 * 16512)),
 ])
 def test_select_plan(C, kh, want):
-    """Warps, tile, buffer, shared bytes: one tile up to 12,576 boxes at
-    small kh, the warps cut for a large kh, always within 227 KB."""
+    """Warps, tile (candidates whose union boxes a shared tile holds),
+    buffer, shared bytes (the head, the union boxes and their near list):
+    the unions of up to 131,072 candidates (4096 boxes, 64 KB) in one
+    tile, so the main path's 8192 blocks and the
+    sharded export's 78,125 take one; up to 32 slots the best keys in
+    registers (no buffer), past that a shared buffer a warp and the warps
+    cut for a large kh; always within 227 KB."""
     plan = tmesh._select_plan(C, kh)
     assert tuple(plan) == want
     assert plan.smem <= 232448 and plan.tile % 32 == 0
-    assert plan.bufcap >= -(-kh // 32) * 32 + 64
+    assert plan.smem == tmesh._plan_smem(plan.warps, plan.tile, plan.bufcap,
+                                         kh)
+    if kh <= 32:
+        assert plan.bufcap == 0
+    else:
+        assert plan.bufcap >= -(-kh // 32) * 32 + 64
+    assert plan.tile // 32 <= tmesh._SELECT_UNIONS
 
 
-@pytest.mark.parametrize("C,kh", [(0, 1), (10, -1), (40_000, 40_000)])
+@pytest.mark.parametrize("C,kh", [(0, 1), (10, -1), (40_000, 40_000),
+                                  (30_000, 14_500)])
 def test_select_plan_refuses(C, kh):
+    """No candidate, a negative kh, or a kh whose key buffers alone
+    overflow the shared memory of a CTA."""
     with pytest.raises(ValueError):
         tmesh._select_plan(C, kh)
+
+
+def _odd_boxes(name):
+    """Candidate boxes (float32 numpy) with the cases the union rule must
+    carry: a ragged count (not a multiple of 32), inverted boxes of empty
+    blocks, NaN coordinates, coordinates past 2^126, their mixes, and
+    infinite coordinates (a block whose alive bodies all lie at +-inf in
+    x, or some of them)."""
+    rng = np.random.default_rng(40 + ODD.index(name))
+    C = {"ragged": 1001, "inverted": 96, "nan": 200, "huge": 161,
+         "mixed": 333, "one": 1, "inf": 300}[name]
+    lo = rng.uniform(-500.0, 500.0, (C, 2))
+    hi = lo + rng.uniform(0.0, 20.0, (C, 2))
+    box = np.stack([lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1]], 1)
+    box = box.astype(np.float32)
+    big = np.finfo(np.float32).max
+    inv = np.array([big, -big, big, -big], np.float32)
+    if name in ("inverted", "mixed"):
+        box[rng.choice(C, C // 3, replace=False)] = inv
+    if name in ("nan", "mixed"):
+        box[rng.choice(C, 7, replace=False), rng.integers(0, 4, 7)] = np.nan
+    if name in ("huge", "mixed"):
+        far = np.float32(2.0 ** 127)
+        box[rng.choice(C, 9, replace=False)] = [far, 1.5 * far, -far, far]
+        box[5] = [-1.5 * far, far, 0.0, 1.0]
+    if name in ("inverted", "mixed"):
+        box[32:64] = inv                    # a group of empty blocks only
+    if name == "inf":                       # in y order, as blocks lie
+        box = box[np.argsort(box[:, 2])]
+        inf = np.float32(np.inf)
+        rows = rng.choice(C, 24, replace=False)
+        box[rows[:10], :2] = inf            # every alive x at +inf
+        box[rows[10:16], :2] = -inf         # every alive x at -inf
+        box[rows[16:], 1] = inf             # some alive x at +inf
+    return box
+
+
+def _numpy_unions(box):
+    """The union of each 32 boxes with numpy's NaN-propagating min and
+    max, the last group padded with the inverted infinite box."""
+    pad = -box.shape[0] % 32
+    inv = np.array([np.inf, -np.inf, np.inf, -np.inf], np.float32)
+    g = np.concatenate([box, np.tile(inv, (pad, 1))]).reshape(-1, 32, 4)
+    return np.stack([g[..., 0].min(1), g[..., 1].max(1), g[..., 2].min(1),
+                     g[..., 3].max(1)], axis=1)
+
+
+ODD = ["ragged", "inverted", "nan", "huge", "mixed", "one", "inf"]
+
+
+@pytest.mark.filterwarnings("ignore:invalid value encountered")
+@pytest.mark.parametrize("name", ODD)
+def test_union_table_matches_numpy(name):
+    """``select_unions`` (the plain version on the CPU) equals
+    ``_union_boxes`` and a numpy union: NaN wherever a member's coordinate
+    is NaN, the inverted box for a group of empty blocks, infinite
+    coordinates kept; its stats are four zeroed int32 words."""
+    box = _odd_boxes(name)
+    table = tmesh.select_unions(torch.from_numpy(box))
+    want = _numpy_unions(box)
+    np.testing.assert_array_equal(table.boxes.numpy(), want)
+    np.testing.assert_array_equal(
+        tmesh._union_boxes(torch.from_numpy(box)).numpy(), want)
+    assert table.stats.dtype == torch.int32
+    assert table.stats.tolist() == [0, 0, 0, 0]
+    assert table.boxes.shape == (-(-box.shape[0] // 32), 4)
+    if name in ("nan", "mixed"):
+        assert np.isnan(want).any()
+    if name in ("inverted", "mixed"):
+        big = np.finfo(np.float32).max
+        assert (want[1] == [big, -big, big, -big]).all()
+
+
+@pytest.mark.parametrize("name", ["bench_8k", "half_dead", "ragged_chunk",
+                                  "all_dead"])
+def test_block_boxes_unions_on_cpu(name):
+    """``_block_boxes(..., unions=True)`` on CPU tensors: the plain rows and
+    boxes, and the union table of those boxes with zeroed stats."""
+    spos, smass, salive, _, S, _, _, _ = _scene(name)
+    X, bbox, table = tmesh._block_boxes(spos, smass, salive, S, unions=True)
+    wX, wbox = tmesh._block_boxes_ref(spos, smass, salive, S)
+    assert torch.equal(X, wX) and torch.equal(bbox, wbox)
+    np.testing.assert_array_equal(table.boxes.numpy(),
+                                  _numpy_unions(wbox.numpy()))
+    assert table.stats.tolist() == [0, 0, 0, 0]
+
+
+@pytest.mark.filterwarnings("ignore:overflow encountered",
+                            "ignore:invalid value encountered")
+@pytest.mark.parametrize("name", ["nan", "huge", "mixed", "inverted", "inf"])
+def test_near_groups_on_odd_boxes(name):
+    """The plain near-group count on boxes with NaN, inverted and huge
+    members equals the numpy count from NaN-propagating unions (a NaN
+    union is near: its members are tested one by one), and counting
+    changes no selected bit."""
+    box = torch.from_numpy(_odd_boxes(name))
+    rcut2 = tmesh._rcut2(12.0)
+    plain = tmesh._rescue_select_ref(box, box, rcut2, 4, chunk=64)
+    sel = tmesh._rescue_select_ref(box, box, rcut2, 4, chunk=64,
+                                   count_groups=True)
+    assert int(sel.groups) == _near_groups_np(box.numpy(), box.numpy(),
+                                              rcut2)
+    assert torch.equal(sel.mval.view(torch.int32),
+                       plain.mval.view(torch.int32))
+    assert torch.equal(sel.cnt, plain.cnt)
+
+
+def _near_groups_cta_np(tbox, cbox, rcut2, W, inf_rule=True):
+    """The kernel's two-level count of near groups, in numpy float32: a
+    CTA of ``W`` consecutive targets lists the union boxes near the union
+    of its targets (NaN-propagating; made NaN where a target has an
+    infinite coordinate, unless ``inf_rule`` is off), and each target
+    counts the listed ones near itself."""
+    u = _numpy_unions(cbox)
+    zero, cut = np.float32(0), np.float32(rcut2)
+
+    def g2(t, b):
+        gx = np.maximum(np.maximum(t[0] - b[:, 1], b[:, 0] - t[1]), zero)
+        gy = np.maximum(np.maximum(t[2] - b[:, 3], b[:, 2] - t[3]), zero)
+        return gx * gx + gy * gy
+
+    n = 0
+    for c0 in range(0, tbox.shape[0], W):
+        ts = tbox[c0:c0 + W]
+        tu = np.array([ts[:, 0].min(), ts[:, 1].max(), ts[:, 2].min(),
+                       ts[:, 3].max()], np.float32)
+        if inf_rule and np.isinf(ts).any():
+            tu[:] = np.nan
+        listed = u[~(g2(tu, u) >= cut)]
+        n += sum(int((~(g2(t, listed) >= cut)).sum()) for t in ts)
+    return n
+
+
+@pytest.mark.filterwarnings("ignore:overflow encountered",
+                            "ignore:invalid value encountered")
+@pytest.mark.parametrize("name", ODD)
+def test_cta_near_list_keeps_every_near_group(name):
+    """A numpy model of the kernel's CTA near list (its plan's warps a
+    CTA) counts the plain near groups on every odd box set; on the
+    infinite one, a list from the targets' plain union would miss some
+    (a target's inf - inf gap is NaN, near, where the union's is not)."""
+    box = _odd_boxes(name)
+    rcut2 = tmesh._rcut2(12.0)
+    W = tmesh._select_plan(box.shape[0], min(4, box.shape[0])).warps
+    want = _near_groups_np(box, box, rcut2)
+    assert _near_groups_cta_np(box, box, rcut2, W) == want
+    if name == "inf":
+        assert _near_groups_cta_np(box, box, rcut2, W, inf_rule=False) < want
+
+
+def test_union_table_is_single_use():
+    """A selection takes its union table: a second selection with the
+    same table raises, since the table's stats hold the first one's
+    counts."""
+    box = torch.from_numpy(_odd_boxes("ragged"))
+    table = tmesh.select_unions(box)
+    assert not table.used
+    tmesh.rescue_select(box, box, tmesh._rcut2(12.0), 4, unions=table)
+    assert table.used
+    with pytest.raises(ValueError, match="served a selection"):
+        tmesh.rescue_select(box, box, tmesh._rcut2(12.0), 4, unions=table)
+    with pytest.raises(ValueError, match="served a selection"):
+        tmesh.rescue_select(box[:0], box[:0], 1.0, 0, unions=table)
 
 
 def test_select_wrapper_refusals():
@@ -418,10 +606,37 @@ def test_select_kernel_matches_plain_on_card(cuda_device, name):
     want = tmesh._rescue_select_ref(bbox, bbox, tmesh._rcut2(a), kh, k=k,
                                     chunk=cb)
     box = bbox.to(cuda_device)
-    n0 = tmesh.SELECT_LAUNCHES
+    n0, u0 = tmesh.SELECT_LAUNCHES, tmesh.UNION_LAUNCHES
     got = tmesh.rescue_select(box, box, tmesh._rcut2(a), kh, k=k)
     _assert_bits(got, want)
     assert tmesh.SELECT_LAUNCHES == n0 + 1
+    assert tmesh.UNION_LAUNCHES == u0 + 1     # the wrapper's own table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SCENES))
+def test_select_kernel_given_unions_on_card(cuda_device, name):
+    """Every scene with the union table that ``csrc/block_boxes.cu``
+    builds beside the boxes (the main path's two launches): the unions bit
+    for bit against ``_union_boxes``, the selection and its near-group
+    counter against the plain version, no union launch of its own."""
+    spos, smass, salive, a, S, k, k_hot, chunk = _scene(name)
+    bbox, a, kh, k, cb = _selection_args(name)
+    rcut2 = tmesh._rcut2(a)
+    want = tmesh._rescue_select_ref(bbox, bbox, rcut2, kh, k=k, chunk=cb,
+                                    count_groups=True)
+    n0, u0, b0 = (tmesh.SELECT_LAUNCHES, tmesh.UNION_LAUNCHES,
+                  tmesh.BOXES_LAUNCHES)
+    _, box, table = tmesh._block_boxes(
+        *(t.to(cuda_device) for t in (spos, smass, salive)), S, unions=True)
+    got = tmesh.rescue_select(box, box, rcut2, kh, k=k, count_groups=True,
+                              unions=table)
+    _assert_bits(got, want)
+    assert int(got.groups) == int(want.groups)
+    assert torch.equal(box.cpu(), bbox)
+    assert torch.equal(table.boxes.cpu(), tmesh._union_boxes(bbox))
+    assert (tmesh.SELECT_LAUNCHES, tmesh.UNION_LAUNCHES,
+            tmesh.BOXES_LAUNCHES) == (n0 + 1, u0, b0 + 1)
 
 
 @pytest.mark.cuda
@@ -440,7 +655,8 @@ def test_select_kernel_counts_its_near_groups_on_card(cuda_device, name,
     box = bbox.to(cuda_device)
     plan = tmesh._select_plan(box.shape[0], kh)
     if tile:
-        plan = plan._replace(tile=tile)
+        plan = plan._replace(tile=tile, smem=tmesh._plan_smem(
+            plan.warps, tile, plan.bufcap, kh))
     got = tmesh._select_launch(box, box, rcut2, kh, k, 0, None, None, plan,
                                count_groups=True)
     _assert_bits(got, want)
@@ -453,13 +669,16 @@ def test_select_kernel_counts_its_near_groups_on_card(cuda_device, name,
                                               (16, 1024, 128),
                                               (16, 64, 96)])
 def test_select_kernel_plans_on_card(cuda_device, name, warps, tile, slack):
-    """Tiled tables (down to one group of 32 a tile), one to 16 warps and
-    buffers that prune every two groups give the same bits."""
+    """The shared key buffers (the path of kh > 32, here at any kh) with
+    tiled union tables (down to one union box a tile), one to 16 warps
+    and buffers that prune every two groups give the same bits."""
     bbox, a, kh, k, _ = _selection_args(name)
     want = tmesh._rescue_select_ref(bbox, bbox, tmesh._rcut2(a), kh, k=k)
     box = bbox.to(cuda_device)
-    plan = tmesh.SelectPlan(warps=warps, tile=tile,
-                            bufcap=-(-kh // 32) * 32 + slack, smem=0)
+    kp = -(-kh // 32) * 32
+    plan = tmesh.SelectPlan(warps=warps, tile=tile, bufcap=kp + slack,
+                            smem=tmesh._plan_smem(warps, tile, kp + slack,
+                                                  kh))
     got = tmesh._select_launch(box, box, tmesh._rcut2(a), kh, k, 0, None,
                                None, plan)
     _assert_bits(got, want)
@@ -467,19 +686,106 @@ def test_select_kernel_plans_on_card(cuda_device, name, warps, tile, slack):
 
 @pytest.mark.cuda
 def test_select_kernel_tiles_a_large_table_on_card(cuda_device):
-    """16,384 blocks (S = 8 at 2^17 bodies) do not fit one tile of the
-    default plan: the table is loaded in two."""
+    """16,384 blocks (S = 8 at 2^17 bodies) with their union table in
+    tiles of 128 boxes (4096 candidates): the table is loaded in four,
+    with the same bits and near groups as the default plan's one tile."""
     spos, smass, salive, a = _two_disk(1 << 17, 1 << 17, 12)
     _, bbox = tmesh._block_boxes(spos, smass, salive, 8)
     kh = 8
-    plan = tmesh._select_plan(bbox.shape[0], kh)
-    assert plan.tile < bbox.shape[0]
-    want = tmesh._rescue_select_ref(bbox, bbox, tmesh._rcut2(a), kh,
-                                    chunk=512)
+    rcut2 = tmesh._rcut2(a)
+    want = tmesh._rescue_select_ref(bbox, bbox, rcut2, kh, chunk=512,
+                                    count_groups=True)
     box = bbox.to(cuda_device)
-    got = tmesh.rescue_select(box, box, tmesh._rcut2(a), kh)
-    _assert_bits(got, want)
+    plan = tmesh._select_plan(bbox.shape[0], kh)
+    assert plan.tile == bbox.shape[0]
+    for p in (plan, plan._replace(tile=4096, smem=tmesh._plan_smem(
+            plan.warps, 4096, plan.bufcap, kh))):
+        got = tmesh._select_launch(box, box, rcut2, kh, kh, 0, None, None,
+                                   p, count_groups=True)
+        _assert_bits(got, want)
+        assert int(got.groups) == int(want.groups)
     assert int(want.need) > kh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("given", [False, True])
+def test_select_kernel_cross_shard_modes_on_card(cuda_device, P, given):
+    """The export mode (kh = 1, k = 0, a valid flag a candidate) and the
+    import mode (other global ids, tgid0, invalid slots) of the sharded
+    rescue, against the plain version bit for bit, with the union table
+    given (``select_unions``) or the wrapper's own."""
+    bbox, a, _, _, _ = _selection_args("bench_8k")
+    rcut2 = tmesh._rcut2(a)
+    B = bbox.shape[0] // P
+    me = P - 1
+    tbox = bbox[me * B:(me + 1) * B].contiguous()
+    remote = (torch.arange(bbox.shape[0]) // B) != me
+    rng = np.random.default_rng(P)
+    E = 16
+    pick = rng.choice(bbox.shape[0], P * E, replace=False)
+    cbox = bbox[pick].contiguous()
+    cgid = torch.from_numpy(pick.astype(np.int64))
+    cgid[::5] = -10
+    shard = torch.arange(P).repeat_interleave(E)
+    cvalid = (shard != me) & (cgid >= 0)
+    dev = cuda_device
+    for tb, cb, kw in ((tbox, bbox, dict(kh=1, k=0, tgid0=me * B,
+                                         cvalid=remote)),
+                       (tbox, cbox, dict(kh=8, k=8, tgid0=me * B,
+                                         cgid=cgid, cvalid=cvalid))):
+        kh = kw.pop("kh")
+        want = tmesh._rescue_select_ref(tb, cb, rcut2, kh, chunk=7, **kw)
+        on = {key: (v.to(dev) if torch.is_tensor(v) else v)
+              for key, v in kw.items()}
+        cbd = cb.to(dev)
+        table = tmesh.select_unions(cbd) if given else None
+        got = tmesh.rescue_select(tb.to(dev), cbd, rcut2, kh, unions=table,
+                                  **on)
+        _assert_bits(got, want)
+        assert int(want.need) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.filterwarnings("ignore:overflow encountered",
+                            "ignore:invalid value encountered")
+@pytest.mark.parametrize("name", ODD)
+def test_select_unions_and_odd_boxes_on_card(cuda_device, name):
+    """The union kernel bit for bit against ``_union_boxes`` on ragged,
+    inverted, NaN and huge boxes (NaN propagates), its stats zeroed; the
+    selection on those boxes against the plain version, its near-group
+    counter equal to the plain count."""
+    box = torch.from_numpy(_odd_boxes(name))
+    dev = cuda_device
+    u0 = tmesh.UNION_LAUNCHES
+    table = tmesh.select_unions(box.to(dev))
+    torch.cuda.synchronize()
+    assert tmesh.UNION_LAUNCHES == u0 + 1
+    np.testing.assert_array_equal(table.boxes.cpu().numpy(),
+                                  _numpy_unions(box.numpy()))
+    assert table.stats.cpu().tolist() == [0, 0, 0, 0]
+    rcut2 = tmesh._rcut2(12.0)
+    kh = min(4, box.shape[0])
+    want = tmesh._rescue_select_ref(box, box, rcut2, kh, chunk=64,
+                                    count_groups=True)
+    got = tmesh.rescue_select(box.to(dev), box.to(dev), rcut2, kh,
+                              count_groups=True, unions=table)
+    _assert_bits(got, want)
+    assert int(got.groups) == int(want.groups)
+
+
+@pytest.mark.cuda
+def test_selection_phase_is_two_device_ops_on_card(cuda_device):
+    """The main path's selection phase (``_rescue_select``) enqueues two
+    device operations, the boxes with their unions and the selection: no
+    fill, no union kernel (counted from a profiler trace)."""
+    from tpu_nbody_torch import profiling
+    spos, smass, salive, a, S, k, k_hot, chunk = _scene("bench_32k")
+    on = [t.to(cuda_device) for t in (spos, smass, salive)]
+    ops = profiling.device_ops(lambda: tmesh._rescue_select(
+        *on, a, band=S, k=k, chunk=chunk))
+    assert len(ops) == 2, ops
+    assert "block_boxes" in ops[0] and "select" in ops[1], ops
 
 
 @pytest.mark.cuda

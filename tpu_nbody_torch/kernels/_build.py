@@ -49,8 +49,9 @@ SIGNATURES = {
     # trows, tid, prows, pidx, pvalid, out, walked (or null), m, k, band,
     # soft2, inv_scale, cut (NaN: no skip), switch, T, R, stream
     "tnt_rescue_pairs": [_P] * 7 + [_I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
-    # pos, mass, alive, X, box, cap, band, stream
-    "tnt_block_boxes": [_P] * 5 + [_I, _I, _P],
+    # pos, mass, alive, X, box, uni (or null), stats (or null), cap, band,
+    # stream
+    "tnt_block_boxes": [_P] * 7 + [_I, _I, _P],
     # targets, sources, masses, out, M, C, NT, S, soft2, T, tpg, lanes,
     # stream
     "tnt_bh_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
@@ -58,13 +59,21 @@ SIGNATURES = {
     # gvalid, gmin, gmax, out, counts (or null), walked (or null), groups,
     # K, CH, GS, cap, NC, stage, theta2, soft2, stream
     "tnt_bh_hier": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
-    # tbox, cbox, cgid (or null), cvalid (or null), mval, midx, cnt, stats,
-    # groups (or null), tgid0, M, C, kh, kthr, rcut2, warps, tile, bufcap,
-    # stream
-    "tnt_rescue_select": [_P] * 9 + [_L] + [_I] * 4 + [_F] + [_I] * 3 + [_P],
-    # pos, mass, alive, n, dim, max_mass, md2, H, scratch, scratch_bytes,
-    # mass_out, alive_out, need_out, stream
-    "tnt_merge": [_P, _P, _P, _I, _I, _F, _F, _I, _P, _L, _P, _P, _P, _P],
+    # tbox, cbox, cuni, cgid (or null), cvalid (or null), mval, midx, cnt,
+    # stats, count, tgid0, M, C, kh, kthr, rcut2, warps, tile, bufcap,
+    # smem, grid, stream
+    "tnt_rescue_select": [_P] * 9 + [_I, _L] + [_I] * 4 + [_F] + [_I] * 5
+                         + [_P],
+    # threads, smem -> selection CTAs one SM holds at once (0 on error)
+    "tnt_rescue_select_blocks_per_sm": [_I, _I],
+    # cbox, uni, stats, C, stream
+    "tnt_select_unions": [_P, _P, _P, _I, _P],
+    # pos, mass, alive, n, dim, max_mass, md2, H, grid, scratch,
+    # scratch_bytes, mass_out, alive_out, need_out, stream
+    "tnt_merge": [_P, _P, _P, _I, _I, _F, _F, _I, _I, _P, _L, _P, _P, _P,
+                  _P],
+    # dim -> CTAs of the one-launch merge one SM holds at once (0 on error)
+    "tnt_merge_blocks_per_sm": [_I],
     # pos, mass, alive, n, dim, max_mass, H, gid0, scratch, scratch_bytes,
     # tpos, tgid, tvalid, stream
     "tnt_merge_heavies": [_P, _P, _P, _I, _I, _F, _I, _I, _P, _L, _P, _P,
@@ -188,6 +197,14 @@ def library() -> ctypes.CDLL:
             lib.tnt_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, for a launch:
+    the handle ``torch.cuda.current_stream(device).cuda_stream`` gives,
+    from torch's own accessor, without the ``torch.cuda.Stream`` object
+    that call builds each time (microseconds of host time a launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(name: str, rc: int):

@@ -236,7 +236,7 @@ def _launch(spos, smass, soft2, a, band: int, switch: str, plan: BandPlan):
         spos.data_ptr(), smass.data_ptr(), out.data_ptr(), cap, band,
         ctypes.c_float(float(soft2)), ctypes.c_float(inv_scale),
         _SWITCH_IDS[switch], plan.T, plan.B,
-        torch.cuda.current_stream(spos.device).cuda_stream)
+        _build.stream(spos.device))
     _build.check_launch("band_short_range", rc)
     with _COUNT_LOCK:
         LAUNCHES += 1
@@ -494,7 +494,7 @@ def _rescue_launch(trows, tid, prows, pidx, pvalid, soft2, a, switch: str,
         None if walked is None else walked.data_ptr(), m, k, S,
         ctypes.c_float(float(soft2)), ctypes.c_float(inv_scale),
         ctypes.c_float(cut), _SWITCH_IDS[switch], plan.T, plan.R,
-        torch.cuda.current_stream(trows.device).cuda_stream)
+        _build.stream(trows.device))
     _build.check_launch("rescue_pair_sum", rc)
     with _COUNT_LOCK:
         RESCUE_LAUNCHES += 1

@@ -130,7 +130,7 @@ def _launch(pos, mass, soft2, tgt, plan: SplitPlan):
     rc = _build.library().tnt_allpairs(
         tgt.data_ptr(), pos.data_ptr(), mass.data_ptr(), scratch.data_ptr(),
         out.data_ptr(), nt, ns, dim, ctypes.c_float(float(soft2)),
-        plan.splits, torch.cuda.current_stream(pos.device).cuda_stream)
+        plan.splits, _build.stream(pos.device))
     _build.check_launch("allpairs", rc)
     with _COUNT_LOCK:
         LAUNCHES += 1

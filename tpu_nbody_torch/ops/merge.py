@@ -12,18 +12,20 @@ engine can grow ``heavy_cap`` when it overflows. Deviations from the
 sequential reference are those documented in ``tpu_nbody/ops/merge.py``.
 
 :func:`merge_bodies` launches the hand-written ``csrc/merge.cu`` for CUDA
-tensors (one launch set a call, no host sync) and runs
-:func:`_merge_bodies_ref` for CPU tensors; the sharded merge
-(``parallel/sharded.py``) goes through :func:`heavy_table` and
-:func:`absorb`, the same kernel's two halves (plain versions
-:func:`_heavy_table_ref`, :func:`_absorb_ref`). Any other device raises.
-:data:`LAUNCHES` counts the launch sets: one a :func:`merge_bodies` call,
-one each a :func:`heavy_table` and an :func:`absorb` call.
+tensors (one cooperative launch a call, the only device operation; no
+host sync) and runs :func:`_merge_bodies_ref` for CPU tensors; the sharded
+merge (``parallel/sharded.py``) goes through :func:`heavy_table` and
+:func:`absorb`, the same file's two halves (a memset and two kernels
+each; plain versions :func:`_heavy_table_ref`, :func:`_absorb_ref`). Any
+other device raises. :data:`LAUNCHES` counts the wrapper's launches: one a
+:func:`merge_bodies` call, one each a :func:`heavy_table` and an
+:func:`absorb` call.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,6 +37,8 @@ from tpu_nbody_torch.state import SimState
 LAUNCHES = 0                            # csrc/merge.cu launch sets
 BIG = torch.iinfo(torch.int32).max      # id of an empty heavy slot
 FLOPS_PER_TEST = 6                      # a 2D distance test: 2 -, 2 *, +, <
+MERGE_THREADS = 1024                    # a CTA of the one-launch merge, as
+                                        # csrc/merge.cu's FUSED_THREADS
 
 
 def _r2(a, b):
@@ -108,9 +112,10 @@ def merge_bodies(state: SimState, params,
     0-dim int32 tensor on the state's device (0 where the rule is off).
 
     CPU tensors take :func:`_merge_bodies_ref`; CUDA tensors launch
-    ``csrc/merge.cu``: the same absorbers, alive flags and heavy_need, the
-    gained masses summed with atomics (their last bits may differ). Neither
-    syncs with the host.
+    ``csrc/merge.cu`` once (a cooperative grid of :func:`_merge_grid`
+    CTAs): the same absorbers, alive flags and heavy_need, the gained
+    masses summed with atomics (their last bits may differ). Neither syncs
+    with the host.
     """
     if state.pos.device.type == "cpu":
         return _merge_bodies_ref(state, params, heavy_cap)
@@ -121,16 +126,18 @@ def merge_bodies(state: SimState, params,
         return state, torch.zeros((), dtype=torch.int32, device=dev)
     _check_bodies(state.pos, state.mass, state.alive)
     md2 = params.merge_min_dist * params.merge_min_dist
-    scratch = torch.empty((_scratch_bytes(cap, H, dim),), dtype=torch.uint8,
-                          device=dev)
+    grid = min(_merge_grid(dev.index, dim), -(-cap // MERGE_THREADS))
+    scratch = torch.empty((_scratch_bytes(cap, H, dim, grid),),
+                          dtype=torch.uint8, device=dev)
     mass = torch.empty_like(state.mass)
     alive = torch.empty_like(state.alive)
     need = torch.empty((), dtype=torch.int32, device=dev)
     rc = _build.library().tnt_merge(
         state.pos.data_ptr(), state.mass.data_ptr(), state.alive.data_ptr(),
         cap, dim, ctypes.c_float(params.merge_max_mass), ctypes.c_float(md2),
-        H, scratch.data_ptr(), scratch.numel(), mass.data_ptr(),
-        alive.data_ptr(), need.data_ptr(), _stream(dev))
+        H, grid, scratch.data_ptr(), scratch.numel(),
+        mass.data_ptr(), alive.data_ptr(), need.data_ptr(),
+        _build.stream(dev))
     _build.check_launch("merge", rc)
     _count()
     return state._replace(mass=mass, alive=alive), need
@@ -174,7 +181,7 @@ def heavy_table(pos, mass, alive, max_mass, H, gid0=0):
         pos.data_ptr(), mass.data_ptr(), alive.data_ptr(), n, dim,
         ctypes.c_float(max_mass), H, gid0, scratch.data_ptr(),
         scratch.numel(), hpos.data_ptr(), hgid.data_ptr(), hvalid.data_ptr(),
-        _stream(dev))
+        _build.stream(dev))
     _build.check_launch("merge_heavies", rc)
     _count()
     return scratch[:4].view(torch.int32)[0], hpos, hgid, hvalid
@@ -228,7 +235,7 @@ def absorb(pos, mass, alive, hpos, hgid, hvalid, md2, gid0=0):
         ctypes.c_float(md2), hpos.data_ptr(), hgid.data_ptr(),
         hvalid.data_ptr(), nH, scratch.data_ptr(), scratch.numel(),
         mass_out.data_ptr(), alive_out.data_ptr(), gained.data_ptr(),
-        _stream(dev))
+        _build.stream(dev))
     _build.check_launch("merge_apply", rc)
     _count()
     return mass_out, alive_out, gained
@@ -236,12 +243,14 @@ def absorb(pos, mass, alive, hpos, hgid, hvalid, md2, gid0=0):
 
 # -- launch helpers ----------------------------------------------------------
 
-def _scratch_bytes(n_list: int, nT: int, dim: int) -> int:
+def _scratch_bytes(n_list: int, nT: int, dim: int, ctas: int = 0) -> int:
     """Bytes of the kernel's scratch buffer (``carve`` in csrc/merge.cu,
-    part for part, each rounded up to 16): the counters, the gains, the
-    heavy list, the table and the compacted absorbers."""
-    parts = (16, 4 * nT, 4 * n_list, 4 * nT * dim, 4 * nT, nT,
-             4 * nT * dim, 4 * nT, 4 * nT)
+    part for part, each rounded up to 16): the counters, two counts a CTA
+    of the one-launch merge (``ctas`` of them; 0 for the sharded halves),
+    the gains, the heavy list and, with CTAs, its compacted copy, the
+    table and the compacted absorbers."""
+    parts = (16, 8 * ctas, 4 * nT, 4 * n_list, 4 * n_list if ctas else 0,
+             4 * nT * dim, 4 * nT, nT, 4 * nT * dim, 4 * nT, 4 * nT)
     return sum((p + 15) & ~15 for p in parts)
 
 
@@ -255,6 +264,20 @@ def merge_work(n: int, heavy_need: int, heavy_cap: int, dim: int = 2):
                 bytes=n * (4 * dim + 4 + 1) + n * (4 + 1))
 
 
+@functools.lru_cache(maxsize=None)
+def _merge_grid(device_index: int, dim: int) -> int:
+    """CTAs of the one-launch merge the card holds at once (its SMs times
+    the occupancy API's count), asked once a (device, dim): the most a
+    cooperative launch may have."""
+    with torch.cuda.device(device_index):
+        per_sm = _build.library().tnt_merge_blocks_per_sm(dim)
+        n_sm = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    if per_sm < 1:
+        raise RuntimeError(f"merge: no occupancy for dim={dim}")
+    return n_sm * per_sm
+
+
 def _check_bodies(pos, mass, alive):
     n, dim = pos.shape
     if dim not in (2, 3):
@@ -263,10 +286,6 @@ def _check_bodies(pos, mass, alive):
     _build.check_tensor("mass", mass, (n,), device=pos.device)
     _build.check_tensor("alive", alive, (n,), device=pos.device, align=1,
                         dtype=torch.bool)
-
-
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _count():

@@ -33,14 +33,17 @@ the FD gradient, :func:`_fd_gradient` and the general
 :func:`fd_window`, launches ``csrc/fd.cu`` (:data:`FD_LAUNCHES`) and runs
 :func:`_fd_window_ref` for CPU tensors.
 The rescue's block rows and boxes, :func:`_block_boxes`, launch
-``csrc/block_boxes.cu`` for CUDA tensors (:data:`BOXES_LAUNCHES`) and run
+``csrc/block_boxes.cu`` for CUDA tensors (:data:`BOXES_LAUNCHES`), which
+also builds the selection's :class:`UnionTable` when asked, and run
 :func:`_block_boxes_ref` for CPU tensors;
 :func:`rescue_select` launches ``csrc/rescue_select.cu`` for CUDA tensors
 and runs :func:`_rescue_select_ref` for CPU tensors;
 :data:`SELECT_LAUNCHES` counts its launches, :func:`_select_plan` chooses
 its launch shape and :func:`select_work` counts the work a run's data
-needs of it. The interpolation, :func:`_interp_packed` from the force-grid
-windows and :func:`_interp_rows` from a carried table, launches
+needs of it; a caller that brings no union table gets one from
+:func:`select_unions` (the same file's union kernel,
+:data:`UNION_LAUNCHES`). The interpolation, :func:`_interp_packed` from
+the force-grid windows and :func:`_interp_rows` from a carried table, launches
 ``csrc/interp.cu`` for CUDA tensors (:data:`INTERP_LAUNCHES`) and runs
 :func:`_interp_packed_ref` and :func:`_interp_rows_ref` for CPU tensors.
 """
@@ -48,6 +51,7 @@ windows and :func:`_interp_rows` from a carried table, launches
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -64,7 +68,8 @@ from tpu_nbody_torch.ops.band import (  # noqa: F401
     SWITCHES, _block_bounds, _check_switch, _pair_sum, _short_weight)
 
 ORDERS = (1, 2, 3)          # NGP, CIC, TSC
-SELECT_LAUNCHES = 0         # csrc/rescue_select.cu
+SELECT_LAUNCHES = 0         # csrc/rescue_select.cu, the selection
+UNION_LAUNCHES = 0          # csrc/rescue_select.cu, the union table alone
 INTERP_LAUNCHES = 0         # csrc/interp.cu
 DEPOSIT_LAUNCHES = 0        # csrc/deposit.cu, every entry
 FD_LAUNCHES = 0             # csrc/fd.cu
@@ -79,6 +84,7 @@ _SELECT_GROUP = 32          # candidates behind one union box of the kernel
 _BOX_TEST_FLOPS = 11        # _box_gaps of one pair of boxes
 _SELECT_SLACK = 128         # keys a warp buffers beyond kh between prunes
 _SELECT_SMEM = 232448       # shared memory a CTA may use (227 KB)
+_SELECT_UNIONS = 4096       # union boxes a shared tile holds at most (64 KB)
 
 
 def _check_order(order: int):
@@ -222,14 +228,46 @@ def _block_boxes_ref(spos, smass, salive, band):
     return X, torch.stack([lo, hi], dim=2).reshape(B, 4)
 
 
-def _block_boxes(spos, smass, salive, band):
-    """Block rows and boxes (:func:`_block_boxes_ref`). CPU tensors take
-    the plain version; CUDA tensors launch ``csrc/block_boxes.cu`` once
-    (:data:`BOXES_LAUNCHES`), which reads the bodies once and writes the
-    same bits."""
+class UnionTable:
+    """The selection's table of union boxes: ``boxes`` (ceil(C / 32), 4),
+    the union of each :data:`_SELECT_GROUP` consecutive candidate boxes
+    (:func:`_union_boxes`), and ``stats`` (4,) int32, the counters of the
+    one :func:`rescue_select` call that reads the table (need, hot and the
+    64-bit near-group count), zeroed by the kernel that built it. A table
+    serves one selection, since the selection adds its counts into
+    ``stats``: the selection takes it (:meth:`take`), and a second
+    selection with the same table raises."""
+    __slots__ = ("boxes", "stats", "used")
+
+    def __init__(self, boxes: torch.Tensor, stats: torch.Tensor):
+        self.boxes, self.stats, self.used = boxes, stats, False
+
+    def take(self) -> "UnionTable":
+        """Mark the table as read by a selection; raise if one read it."""
+        if self.used:
+            raise ValueError("this UnionTable has served a selection, whose "
+                             "counts its stats hold; build a new table")
+        self.used = True
+        return self
+
+
+def _plain_unions(cbox) -> UnionTable:
+    return UnionTable(_union_boxes(cbox),
+                      torch.zeros((4,), dtype=torch.int32,
+                                  device=cbox.device))
+
+
+def _block_boxes(spos, smass, salive, band, unions=False):
+    """Block rows and boxes (:func:`_block_boxes_ref`), and with
+    ``unions`` also the selection's :class:`UnionTable` of the boxes. CPU
+    tensors take the plain versions; CUDA tensors launch
+    ``csrc/block_boxes.cu`` once (:data:`BOXES_LAUNCHES`), which reads the
+    bodies once and writes the same bits, the unions and the zeroed stats
+    included."""
     global BOXES_LAUNCHES
     if all(t.device.type == "cpu" for t in (spos, smass, salive)):
-        return _block_boxes_ref(spos, smass, salive, band)
+        X, bbox = _block_boxes_ref(spos, smass, salive, band)
+        return (X, bbox, _plain_unions(bbox)) if unions else (X, bbox)
     cap = spos.shape[0]
     S = band
     if not 1 <= S <= band_ops.MAX_BAND:
@@ -243,23 +281,35 @@ def _block_boxes(spos, smass, salive, band):
     B = -(-cap // S)
     X = torch.empty((B, S, 3), dtype=spos.dtype, device=dev)
     bbox = torch.empty((B, 4), dtype=spos.dtype, device=dev)
+    table = None
+    if unions:
+        table = UnionTable(
+            torch.empty((-(-B // _SELECT_GROUP), 4), dtype=spos.dtype,
+                        device=dev),
+            torch.empty((4,), dtype=torch.int32, device=dev))
     if B == 0:
-        return X, bbox
+        if unions:
+            table.stats.zero_()
+        return (X, bbox, table) if unions else (X, bbox)
     rc = _build.library().tnt_block_boxes(
         spos.data_ptr(), smass.data_ptr(), salive.data_ptr(), X.data_ptr(),
-        bbox.data_ptr(), cap, S, torch.cuda.current_stream(dev).cuda_stream)
+        bbox.data_ptr(), None if table is None else table.boxes.data_ptr(),
+        None if table is None else table.stats.data_ptr(), cap, S,
+        _build.stream(dev))
     _build.check_launch("block_boxes", rc)
     with band_ops._COUNT_LOCK:
         BOXES_LAUNCHES += 1
-    return X, bbox
+    return (X, bbox, table) if unions else (X, bbox)
 
 
-def block_boxes_work(cap: int, S: int) -> dict:
+def block_boxes_work(cap: int, S: int, unions: bool = False) -> dict:
     """Bytes of one :func:`_block_boxes`: positions, masses and alive
     flags read once, the zero-padded (B, S, 3) rows and (B, 4) boxes
-    written once; no arithmetic but compares."""
+    written once, and with ``unions`` the (ceil(B / 32), 4) union boxes
+    and the 16 bytes of zeroed stats; no arithmetic but compares."""
     B = -(-cap // S)
-    return dict(flops=0, bytes=cap * 13 + B * S * 12 + B * 16)
+    extra = 16 * -(-B // _SELECT_GROUP) + 16 if unions else 0
+    return dict(flops=0, bytes=cap * 13 + B * S * 12 + B * 16 + extra)
 
 
 def _rcut2(a):
@@ -280,43 +330,78 @@ class Selection(NamedTuple):
 
 class SelectPlan(NamedTuple):
     """Launch shape of ``csrc/rescue_select.cu``: ``warps`` a CTA, a
-    shared table of ``tile`` candidate boxes, ``bufcap`` buffered keys a
-    warp; ``smem`` bytes of shared memory."""
+    shared tile of the union boxes of ``tile`` candidates (tile / 32
+    boxes), ``bufcap`` buffered keys a warp (0: the best keys in
+    registers); ``smem`` bytes of shared memory (:func:`_plan_smem`)."""
     warps: int
     tile: int
     bufcap: int
     smem: int
 
 
+_SELECT_REGS = 32           # kh up to this keeps the best keys in registers
+
+
+def _plan_smem(warps: int, tile: int, bufcap: int, kh: int) -> int:
+    """Shared bytes of a selection CTA: its 32-byte head (counters and the
+    union of its targets), the union boxes of a tile of ``tile``
+    candidates and their near list (an int each, rounded up to 8 bytes)
+    and, with ``bufcap`` > 0, each warp's key buffer and sort space."""
+    kp = -(-kh // 32) * 32
+    ut = tile // _SELECT_GROUP
+    return (32 + 16 * ut + 8 * ((ut + 1) // 2)
+            + (8 * warps * (bufcap + kp) if bufcap else 0))
+
+
+@functools.lru_cache(maxsize=None)
 def _select_plan(C: int, kh: int) -> SelectPlan:
     """The selection kernel's launch shape for ``C`` candidates and ``kh``
-    partner slots. A warp buffers kh rounded up to 32 keys plus
-    :data:`_SELECT_SLACK` and sorts into as many again; the
-    :data:`_SELECT_WARPS` warps a CTA are cut so the buffers take at most
-    half the shared memory, and the table takes the rest, whole groups of
-    32 boxes each with its union box, up to all ``C`` candidates (one
-    tile)."""
+    partner slots. Up to :data:`_SELECT_REGS` slots a warp keeps its best
+    keys in registers (``bufcap`` 0); past that it buffers kh rounded up
+    to 32 keys plus :data:`_SELECT_SLACK` in shared memory and sorts into
+    as many again, and the :data:`_SELECT_WARPS` warps a CTA are cut so
+    the buffers take at most half of it. The union boxes take the rest, up
+    to :data:`_SELECT_UNIONS` of them, those of all ``C`` candidates (one
+    tile) where they fit; the candidate boxes stay in global memory."""
     if kh < 0 or C < 1:
         raise ValueError(f"a selection needs C >= 1 candidates and kh >= 0 "
                          f"slots, got C={C}, kh={kh}")
     kp = -(-kh // 32) * 32
-    bufcap = kp + _SELECT_SLACK
-    per_warp = 8 * (bufcap + kp)
-    warps = max(1, min(_SELECT_WARPS, (_SELECT_SMEM // 2) // per_warp))
-    room = _SELECT_SMEM - 16 - warps * per_warp
-    fit = room // (33 * 16) * 32        # 32 boxes and their union
-    if fit < 32:
+    bufcap = 0 if kh <= _SELECT_REGS else kp + _SELECT_SLACK
+    per_warp = 8 * (bufcap + kp) if bufcap else 0
+    warps = max(1, min(_SELECT_WARPS, (_SELECT_SMEM // 2) // per_warp
+                       if per_warp else _SELECT_WARPS))
+    room = _SELECT_SMEM - 32 - 8 - warps * per_warp
+    fit = min(room // 20, _SELECT_UNIONS) * _SELECT_GROUP
+    if fit < _SELECT_GROUP:
         raise ValueError(f"kh={kh} partner slots leave no room for the "
-                         f"box table in shared memory")
+                         f"union table in shared memory")
     tile = min(-(-C // 32) * 32, fit)
     return SelectPlan(warps=warps, tile=tile, bufcap=bufcap,
-                      smem=16 + 16 * tile + tile // 2 + warps * per_warp)
+                      smem=_plan_smem(warps, tile, bufcap, kh))
+
+
+@functools.lru_cache(maxsize=None)
+def _select_capacity(device_index: int, warps: int, smem: int) -> int:
+    """CTAs of ``warps`` warps and ``smem`` bytes the card holds at once,
+    asked of the CUDA occupancy API once a (device, plan); the same call
+    lifts the kernel's shared-memory limit on that device."""
+    with torch.cuda.device(device_index):
+        per_sm = _build.library().tnt_rescue_select_blocks_per_sm(
+            32 * warps, smem)
+        n_sm = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    if per_sm < 1:
+        raise RuntimeError(f"rescue_select: no CTA of {warps} warps and "
+                           f"{smem} bytes fits an SM")
+    return n_sm * per_sm
 
 
 def _union_boxes(cbox):
     """The union box of each :data:`_SELECT_GROUP` consecutive candidate
     boxes of ``cbox`` (C, 4), the last group padded with the inverted
-    infinite box, as the selection kernel builds them."""
+    infinite box, as the selection's kernels build them: a coordinate is
+    NaN where any member's is (``amin`` and ``amax`` propagate NaN)."""
     C = cbox.shape[0]
     pad = -C % _SELECT_GROUP
     inf = math.inf
@@ -330,18 +415,19 @@ def _union_boxes(cbox):
 def select_work(M: int, C: int, kh: int, groups: int, *,
                 boxes=None) -> dict:
     """Flops and bytes of one selection of ``M`` targets among ``C``
-    candidates that this run's data needs: the box test (11 flops) of one
-    union box a (target, group of :data:`_SELECT_GROUP` candidates), and
-    of the members of the ``groups`` groups whose union box is near (the
-    kernel's counter, :func:`rescue_select` with ``count_groups``); the
-    ``boxes`` distinct boxes read (default M + C; M where the targets are
-    the candidates), and the kh scores and indices and the count of each
-    target written."""
-    unions = M * -(-C // _SELECT_GROUP)
+    candidates that this run's data needs: the box test (11 flops) of each
+    of the :data:`_SELECT_GROUP` members of the ``groups`` (target, group)
+    pairs whose union box is near (the kernel's counter,
+    :func:`rescue_select` with ``count_groups``); the ``boxes`` distinct
+    boxes read (default M + C; M where the targets are the candidates),
+    and the kh scores and indices and the count of each target written.
+    The union tests that find the near groups are not counted: how many a
+    design makes is its own (a CTA's targets against every union box, then
+    each target against its CTA's list), so the bound holds for any design
+    that tests the near groups member by member."""
     boxes = M + C if boxes is None else boxes
-    return dict(
-        flops=_BOX_TEST_FLOPS * (unions + _SELECT_GROUP * groups),
-        bytes=16 * boxes + M * (12 * kh + 4) + 8)
+    return dict(flops=_BOX_TEST_FLOPS * _SELECT_GROUP * groups,
+                bytes=16 * boxes + M * (12 * kh + 4) + 8)
 
 
 def _rescue_select_ref(tbox, cbox, rcut2, kh, *, k=None, tgid0=0,
@@ -387,17 +473,47 @@ def _rescue_select_ref(tbox, cbox, rcut2, kh, *, k=None, tgid0=0,
                      groups=groups if count_groups else None)
 
 
+def select_unions(cbox) -> UnionTable:
+    """The :class:`UnionTable` of the candidate boxes ``cbox`` (C, 4), its
+    stats zeroed. CPU tensors take :func:`_union_boxes`; CUDA tensors
+    launch ``csrc/rescue_select.cu``'s union kernel once
+    (:data:`UNION_LAUNCHES`), the same bits."""
+    global UNION_LAUNCHES
+    if cbox.device.type == "cpu":
+        return _plain_unions(cbox)
+    C = cbox.shape[0]
+    dev = cbox.device
+    _build.check_tensor("cbox", cbox, (C, 4), align=16)
+    table = UnionTable(
+        torch.empty((-(-C // _SELECT_GROUP), 4), dtype=cbox.dtype,
+                    device=dev),
+        torch.empty((4,), dtype=torch.int32, device=dev))
+    rc = _build.library().tnt_select_unions(
+        cbox.data_ptr(), table.boxes.data_ptr(), table.stats.data_ptr(), C,
+        _build.stream(dev))
+    _build.check_launch("select_unions", rc)
+    with band_ops._COUNT_LOCK:
+        UNION_LAUNCHES += 1
+    return table
+
+
 def rescue_select(tbox, cbox, rcut2, kh, *, k=None, tgid0=0, cgid=None,
-                  cvalid=None, chunk=None, count_groups=False) -> Selection:
+                  cvalid=None, chunk=None, count_groups=False,
+                  unions: UnionTable | None = None) -> Selection:
     """The rescue's partner selection (:func:`_rescue_select_ref`). CPU
-    tensors take the plain version, chunked by ``chunk``; CUDA tensors
-    launch ``csrc/rescue_select.cu`` once, which needs no chunks and keeps
-    ``need`` and ``hot`` on the device. ``cgid`` holds int64 ids,
-    ``cvalid`` bools; ``kh`` is at most C. ``count_groups`` fills
-    ``groups``, the near groups the kernel tests in full (its counter on
-    the card)."""
+    tensors take the plain version, chunked by ``chunk`` (``unions`` is
+    taken but not read); CUDA tensors launch ``csrc/rescue_select.cu`` once, which needs
+    no chunks and keeps ``need`` and ``hot`` on the device. ``unions`` is
+    the :class:`UnionTable` of ``cbox`` made for this call (by
+    :func:`_block_boxes` or :func:`select_unions`); without one the
+    wrapper makes it with :func:`select_unions` first. ``cgid`` holds
+    int64 ids, ``cvalid`` bools; ``kh`` is at most C. ``count_groups``
+    fills ``groups``, the near groups the kernel tests in full (its
+    counter on the card)."""
     given = [t for t in (tbox, cbox, cgid, cvalid) if t is not None]
     if all(t.device.type == "cpu" for t in given):
+        if unions is not None:
+            unions.take()
         return _rescue_select_ref(tbox, cbox, rcut2, kh, k=k, tgid0=tgid0,
                                   cgid=cgid, cvalid=cvalid, chunk=chunk,
                                   count_groups=count_groups)
@@ -414,6 +530,8 @@ def rescue_select(tbox, cbox, rcut2, kh, *, k=None, tgid0=0, cgid=None,
         raise ValueError(f"kh={kh} partner slots for {C} candidates")
     k = kh if k is None else k
     if C == 0:                  # no candidate: nothing to launch
+        if unions is not None:
+            unions.take()
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return Selection(
             mval=torch.zeros((M, kh), dtype=tbox.dtype, device=dev),
@@ -423,34 +541,48 @@ def rescue_select(tbox, cbox, rcut2, kh, *, k=None, tgid0=0, cgid=None,
             groups=(torch.zeros((), dtype=torch.int64, device=dev)
                     if count_groups else None))
     return _select_launch(tbox, cbox, rcut2, kh, k, tgid0, cgid, cvalid,
-                          _select_plan(C, kh), count_groups)
+                          _select_plan(C, kh), count_groups, unions)
 
 
 def _select_launch(tbox, cbox, rcut2, kh, k, tgid0, cgid, cvalid,
-                   plan: SelectPlan, count_groups=False) -> Selection:
-    """Launch the selection kernel with ``plan`` on checked arguments."""
+                   plan: SelectPlan, count_groups=False,
+                   unions: UnionTable | None = None) -> Selection:
+    """Launch the selection kernel with ``plan`` on checked arguments,
+    with the union table ``unions`` (made here when None; taken, so it
+    serves no other selection)."""
     global SELECT_LAUNCHES
     M, C = tbox.shape[0], cbox.shape[0]
     dev = tbox.device
+    if unions is None:
+        unions = select_unions(cbox)
+    else:
+        _build.check_tensor("unions.boxes", unions.boxes,
+                            (-(-C // _SELECT_GROUP), 4), device=dev,
+                            align=16)
+        _build.check_tensor("unions.stats", unions.stats, (4,), device=dev,
+                            align=8, dtype=torch.int32)
+        unions.take()
     mval = torch.empty((M, kh), dtype=tbox.dtype, device=dev)
     midx = torch.empty((M, kh), dtype=torch.int64, device=dev)
     cnt = torch.empty((M,), dtype=torch.int32, device=dev)
-    stats = torch.zeros((2,), dtype=torch.int32, device=dev)
-    groups = (torch.zeros((), dtype=torch.int64, device=dev)
-              if count_groups else None)
+    grid = min(-(-M // plan.warps),
+               _select_capacity(dev.index, plan.warps, plan.smem))
+    stats = unions.stats
     rc = _build.library().tnt_rescue_select(
-        tbox.data_ptr(), cbox.data_ptr(),
+        tbox.data_ptr(), cbox.data_ptr(), unions.boxes.data_ptr(),
         None if cgid is None else cgid.data_ptr(),
         None if cvalid is None else cvalid.data_ptr(),
         mval.data_ptr(), midx.data_ptr(), cnt.data_ptr(), stats.data_ptr(),
-        None if groups is None else groups.data_ptr(), tgid0, M, C, kh, k,
-        ctypes.c_float(float(rcut2)), plan.warps, plan.tile, plan.bufcap,
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(count_groups), tgid0, M, C, kh, k, ctypes.c_float(float(rcut2)),
+        plan.warps, plan.tile, plan.bufcap, plan.smem, grid,
+        _build.stream(dev))
     _build.check_launch("rescue_select", rc)
     with band_ops._COUNT_LOCK:
         SELECT_LAUNCHES += 1
     return Selection(mval=mval, midx=midx, cnt=cnt, need=stats[0],
-                     hot=stats[1], groups=groups)
+                     hot=stats[1],
+                     groups=(stats[2:].view(torch.int64)[0] if count_groups
+                             else None))
 
 
 class RescueSelection(NamedTuple):
@@ -473,7 +605,8 @@ def _rescue_select(spos, smass, salive, a, *, band: int, k: int,
                    chunk: int, k_hot: int = 0,
                    count_groups: bool = False) -> RescueSelection:
     """The rescue's selection, everything but the pair sum: alive-only
-    block boxes, then one :func:`rescue_select` of every block against
+    block boxes with their union table (one launch on the card), then one
+    :func:`rescue_select` of every block against
     every block with the cutoff 2a: the kh = max(k, min(k_hot, B)) closest
     partner blocks more than one block away, closest first (ties towards
     the lower index as in JAX), and the exact partner counts. Ranks
@@ -483,11 +616,11 @@ def _rescue_select(spos, smass, salive, a, *, band: int, k: int,
     cap = spos.shape[0]
     S = band
     B, cb, _ = _block_bounds(cap, S, chunk)
-    X, bbox = _block_boxes(spos, smass, salive, band)
+    X, bbox, table = _block_boxes(spos, smass, salive, band, unions=True)
     k = min(k, B)
     kh = max(k, min(k_hot, B))
     sel = rescue_select(bbox, bbox, _rcut2(a), kh, k=k, chunk=cb,
-                        count_groups=count_groups)
+                        count_groups=count_groups, unions=table)
     return RescueSelection(
         rows=X.reshape(B, S * 3), bbox=bbox,
         midx=sel.midx[:, :k], mval=sel.mval[:, :k],
@@ -651,7 +784,7 @@ def _deposit_packed(smass, base, w, nw, grid, run_compress=False,
     rc = _build.library().tnt_deposit_given(
         smass.data_ptr(), base.data_ptr(), int(base.dtype == torch.int64),
         w.data_ptr(), rho.data_ptr(), n, K, nw, grid,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check_launch("deposit_given", rc)
     with band_ops._COUNT_LOCK:
         DEPOSIT_LAUNCHES += 1
@@ -709,7 +842,7 @@ def _deposit_launch(spos, smass, origin, h, nw, order, ny, grid=None,
         base.data_ptr(), w.data_ptr(), None if rho is None else rho.data_ptr(),
         n, order, ctypes.c_float(ox), ctypes.c_float(oy),
         ctypes.c_float(float(h)), nw, ny, 0 if grid is None else grid,
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check_launch("deposit_cells", rc)
     with band_ops._COUNT_LOCK:
         DEPOSIT_LAUNCHES += 1
@@ -929,7 +1062,7 @@ def _interp_launch(fn, grid, base, w, args):
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     rc = getattr(_build.library(), fn)(
         *args(out.data_ptr(), base.data_ptr(), int(base.dtype == torch.int64)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check_launch(fn, rc)
     with band_ops._COUNT_LOCK:
         INTERP_LAUNCHES += 1
@@ -1022,7 +1155,7 @@ def fd_window(src, h, rows, cols):
     rc = _build.library().tnt_fd_gradient(
         src.data_ptr(), R, W, rows, cols, ctypes.c_float(c1),
         ctypes.c_float(c2), ctypes.c_float(c3), fx.data_ptr(), fy.data_ptr(),
-        torch.cuda.current_stream(src.device).cuda_stream)
+        _build.stream(src.device))
     _build.check_launch("fd_gradient", rc)
     with band_ops._COUNT_LOCK:
         FD_LAUNCHES += 1

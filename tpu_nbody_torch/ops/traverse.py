@@ -813,7 +813,7 @@ def _hier_launch(node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
         gmax.data_ptr(), out.data_ptr(), ptr(cnt), ptr(walked), Gp, K,
         Gp // C, GS, spos.shape[0], node_rows.shape[0], stage,
         ctypes.c_float(float(theta2)), ctypes.c_float(float(soft2)),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _build.stream(dev))
     _build.check_launch("bh_hier", rc)
     with _COUNT_LOCK:
         HIER_LAUNCHES += 1
@@ -924,7 +924,7 @@ def _pairs_launch(targets, sources, masses, soft2, plan: PairsPlan):
         targets.data_ptr(), sources.data_ptr(), masses.data_ptr(),
         out.data_ptr(), M, C, NT, sources.shape[1],
         ctypes.c_float(float(soft2)), plan.T, plan.tpg, plan.lanes,
-        torch.cuda.current_stream(targets.device).cuda_stream)
+        _build.stream(targets.device))
     _build.check_launch("bh_pairs", rc)
     with _COUNT_LOCK:
         LAUNCHES += 1

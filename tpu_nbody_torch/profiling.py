@@ -9,7 +9,9 @@ The reference's only performance instrumentation is a wall-clock FPS counter
   finishes, so a host clock without that measures the enqueue).
 * :class:`Meter` — the FPS counter generalized to body-updates/sec.
 * :func:`trace` — context manager around ``torch.profiler`` that writes a
-  Chrome trace into a directory.
+  Chrome trace into a directory; :func:`trace_device_spans` reads the
+  device operations back from it, :func:`busy_us` their busy time in a
+  window, and :func:`device_ops` names the operations one call enqueues.
 * :func:`timed_ms` and :class:`EventClock` — device time by CUDA events: of
   one call, and of the phases of one run.
 * :func:`bounds` — the least time the card could take for a piece of work
@@ -20,8 +22,11 @@ The reference's only performance instrumentation is a wall-clock FPS counter
 from __future__ import annotations
 
 import contextlib
+import json
+import math
 import os
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 
@@ -33,6 +38,8 @@ PEAK_FLOPS = 67e12      # float32 outside the tensor cores, flop/s
 PEAK_BYTES = 3.35e12    # HBM3, bytes/s
 RSQRT_PER_CLK_SM = 16   # rsqrt results a clock per SM (the SFU rate)
 LEAD_CYCLES = 4_000_000  # device_ms's spin kernel, about 2 ms on an H100
+# Chrome-trace categories of the card's own operations
+DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 
 
 def _first_tensor(x):
@@ -131,6 +138,59 @@ def trace(log_dir: str, device="cuda"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def trace_device_spans(path: str) -> list[dict]:
+    """The device operations of a Chrome trace that :func:`trace` wrote
+    (categories :data:`DEVICE_CATS`: kernels, memsets, copies), each as
+    ``name``, ``cat``, ``ts`` and ``dur`` in microseconds, by start."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [dict(name=e["name"], cat=e["cat"], ts=float(e["ts"]),
+                  dur=float(e.get("dur", 0.0)))
+             for e in events
+             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    return sorted(spans, key=lambda e: e["ts"])
+
+
+def busy_us(spans, t0: float = -math.inf, t1: float = math.inf) -> float:
+    """Microseconds in [t0, t1] during which at least one of ``spans``
+    (:func:`trace_device_spans`) ran: the union of their intervals."""
+    busy, end = 0.0, -math.inf
+    for e in sorted(spans, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], t0, end), min(e["ts"] + e["dur"], t1)
+        if b > a:
+            busy += b - a
+        end = max(end, min(e["ts"] + e["dur"], t1))
+    return busy
+
+
+# host seconds a trace of device_ops (and chip_smoke's step trace) waits
+# before and after its call. The profiler drops a device operation whose
+# start, moved to the host's clock, falls outside the trace's window
+# ("Out-of-range" in its log); on the card, after the first seconds of
+# load, that move went wrong by more than half a second, and a window
+# padded by this much kept every operation.
+TRACE_PAD_S = 2.0
+
+
+def device_ops(fn, device="cuda") -> list[str]:
+    """Names of the device operations (kernels, memsets, copies) that one
+    call of ``fn()`` enqueues, in the order they ran, from a
+    ``torch.profiler`` trace of that call after one untraced call; the
+    trace waits :data:`TRACE_PAD_S` before and after the call. A profiler
+    session leaves the host's later launches in the process slower (on the
+    card a pm step read slower after one), so time nothing after it."""
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d, device):
+            time.sleep(TRACE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        return [e["name"] for e in
+                trace_device_spans(os.path.join(d, "trace.json"))]
 
 
 def timed_ms(fn, reps: int = 10, warmup: int = 2) -> float:
