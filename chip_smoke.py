@@ -117,7 +117,9 @@ On the way it
    Barnes–Hut pair kernel against its plain version on one group of a
    dense pass at N = 65,536 (its two launches, accepted nodes and direct
    partners, cut to the group with the most nonzero masses; the kernel
-   also timed on the whole evaluation chunk), within the same 1e-5; the
+   also on the whole evaluation chunk; both with the plan's splits, the
+   same bits from two calls, timed a call and on the device beside one
+   split), within the same 1e-5; the
    hier kernel on a pass at N = 1M with path D's caps: the pass against
    the same pass through the masked-dense route (the plain evaluation
    with the pair kernel) within 1e-5 of max |a| and with the same needs,
@@ -136,9 +138,12 @@ On the way it
    there; the deposit kernel against
    its plain versions on the sorted scene in CIC, NGP and TSC (the cells
    of both cell entries bit for bit, rho of every entry within RHO_RTOL a
-   cell and MASS_RTOL of the total, from int32 and int64 cells), the CIC
-   entries timed beside the grid's zeroing and ``index_add_`` as a
-   yardstick, and on a clustered scene against a float64 sum within
+   cell and MASS_RTOL of the total: the fused entry's block of the rows
+   the FFT reads and of a sharded rank's ``occ_p`` against the plain
+   grid's leading rows, the entry from given cells from int32 and int64
+   cells), the CIC pass timed with its block's zeroing and counted in
+   device operations, beside the block's zeroing alone and ``index_add_``
+   as a yardstick, and on a clustered scene against a float64 sum within
    CLUSTER_RHO_RTOL a cell; the FD-gradient kernel bit for bit on the
    potential rows of each order's deposit, timed beside ``conv2d`` as a
    yardstick; in path C the deposit in each ``run_compress`` mode against
@@ -172,7 +177,7 @@ merge, the interpolation, the deposit and the FD gradient have no Pallas
 original: ``replaces`` names the XLA code they stand for. The
 interpolation's ``library_ms`` is ``grid_sample``'s time on the same
 windows and positions, the deposit's one ``index_add_`` into the zeroed
-grid, the FD gradient's one ``conv2d``: yardsticks the port never calls;
+block, the FD gradient's one ``conv2d``: yardsticks the port never calls;
 the merge's is null (no PyTorch call computes it).
 Each kernel's bound_ms is the larger of its flops over the float32 peak and its
 bytes over the memory rate (``pair_work``, ``rescue_pair_work`` in its
@@ -185,7 +190,8 @@ target and group of 32 blocks and the members of the near groups, from
 the kernels' counters, the merge's distance tests of every alive body
 against min(heavy_need, cap) heavies, ``merge.merge_work``; the
 interpolation's window cells its bodies touch, ``mesh.interp_work``; the
-deposit's bodies, cells and grid, ``mesh.deposit_work``; the FD
+deposit's bodies, cells and the block of the rows the FFT reads,
+``mesh.deposit_work``; the FD
 gradient's source rows and windows, ``mesh.fd_work``);
 rsqrt_floor_ms is its
 pairs over the rsqrt unit's rate (16 a clock per SM at the card's highest
@@ -1009,26 +1015,31 @@ def _deposit_shape(spos, smass, cfg, origin, side):
     """The deposit kernel against its plain versions at the main path's
     shape, on the Hilbert-sorted scene, in CIC (the main path), NGP and
     TSC: the cells of the fused entry and of the cells-only entry bit for
-    bit with ``_cic_cells_ref``; rho of the fused entry and of the entry
-    from given cells (int32 and int64 base) within RHO_RTOL a cell and
-    MASS_RTOL of the total. In CIC each entry timed (``device_ms``, a
-    call's device time), the grid's zeroing alone, the plain versions
-    (cells and deposit), and, as a yardstick only, one ``index_add_`` of
-    the 4n (cell, m w) pairs into the zeroed flattened grid; the bound
-    both over the whole grid the kernel writes and over the rows the FFT
-    reads of it. Then a clustered scene, the same bodies drawn 20 times
-    closer to the window's centre: the fused entry timed and held to a
-    float64 sum of the same float32 products within CLUSTER_RHO_RTOL a
-    cell and MASS_RTOL of the total, beside the plain float32 version's
-    difference from that sum (read, not held). Also counts the
-    coordinates where torch's division by h as a Python scalar differs on
-    the card from the IEEE division the cells use (``_cic_cells_ref``
-    divides by a 0-dim tensor for that reason)."""
+    bit with ``_cic_cells_ref``; rho of the fused entry, the block of the
+    rows the FFT reads (``mesh.occ_rows``) and of a sharded rank's
+    ``occ_p``, against the plain grid's leading rows (the plain grid holds
+    nothing past them), and of the entry from given cells (int32 and
+    int64 base, the whole grid) within RHO_RTOL a cell and MASS_RTOL of the
+    total. In CIC: the pass timed (``_per_call``: two device operations,
+    the memset of the block and the kernel), the entries apart, the
+    block's zeroing alone by ``torch.zeros``, the plain versions (cells
+    and deposit), and, as a yardstick only, one ``index_add_`` of the 4n
+    (cell, m w) pairs into the zeroed flattened block; the bound over the
+    block. Then a clustered scene, the same bodies drawn 20 times closer
+    to the window's centre: the fused entry timed and held to a float64
+    sum of the same float32 products within CLUSTER_RHO_RTOL a cell and
+    MASS_RTOL of the total, beside the plain float32 version's difference
+    from that sum (read, not held). Also
+    counts the coordinates where torch's division by h as a Python scalar
+    differs on the card from the IEEE division the cells use
+    (``_cic_cells_ref`` divides by a 0-dim tensor for that reason)."""
     import torch
     from tpu_nbody_torch.ops import mesh
+    from tpu_nbody_torch.parallel import sharded_pm
     nw, ny, grid, grid_y, h, _, mo = mesh._pm_geometry(
         origin, side, cfg.mesh_level, cfg.mesh_ny, cfg.mesh_split)
     kw = dict(ny=ny, grid_y=grid_y)
+    occ_p = sharded_pm._occ_rows_p(ny, P_RANKS, grid_y)
     n = spos.shape[0]
     shifted = spos - torch.tensor(mo, device=spos.device)
     scalar_differs = int((shifted / h != shifted / torch.tensor(
@@ -1038,19 +1049,29 @@ def _deposit_shape(spos, smass, cfg, origin, side):
           f"coordinates on the card", flush=True)
     del shifted
 
-    def fused(p=spos, order=2):
-        return mesh.deposit_cells(p, smass, mo, h, nw, grid, order, **kw)
+    def fused(p=spos, order=2, rows=None):
+        return mesh.deposit_cells(p, smass, mo, h, nw, grid, order,
+                                  rows=rows, **kw)
 
     out = {}
     for order in (2, 1, 3):
         name = {1: "NGP", 2: "CIC", 3: "TSC"}[order]
+        rows = mesh.occ_rows(ny, order)
         base_p, w_p = mesh._cic_cells_ref(spos, mo, h, nw, order, ny=ny)
         rho_p = mesh._deposit_packed_ref(smass, base_p, w_p, nw, grid, **kw)
-        rho, base, w = fused(order=order)
-        _same_bits(f"deposit {name} cells (fused)", base, base_p)
-        _same_bits(f"deposit {name} weights (fused)", w, w_p)
-        cell_err, total_err = _rho_check(f"deposit {name} rho (fused)", rho,
-                                         rho_p)
+        if rho_p[min(rows, occ_p):].any():
+            raise AssertionError(f"deposit {name}: the plain grid holds "
+                                 f"mass past the {rows} rows the FFT reads")
+        for r in (rows, occ_p):
+            rho, base, w = fused(order=order, rows=r)
+            if tuple(rho.shape) != (r, grid):
+                raise AssertionError(f"deposit {name}: a block of "
+                                     f"{tuple(rho.shape)}, expected "
+                                     f"{(r, grid)}")
+            _same_bits(f"deposit {name} cells (fused)", base, base_p)
+            _same_bits(f"deposit {name} weights (fused)", w, w_p)
+            cell_err, total_err = _rho_check(
+                f"deposit {name} rho (fused, {r} rows)", rho, rho_p[:r])
         base_c, w_c = mesh._cic_cells(spos, mo, h, nw, order, ny=ny)
         _same_bits(f"deposit {name} cells (cells only)", base_c, base_p)
         _same_bits(f"deposit {name} weights (cells only)", w_c, w_p)
@@ -1061,16 +1082,19 @@ def _deposit_shape(spos, smass, cfg, origin, side):
         print(f"deposit {name}: cells and weights the plain version's bits "
               f"(both entries); rho within {RHO_RTOL} a cell (max "
               f"{cell_err:.3e}) and {MASS_RTOL} of the total "
-              f"({total_err:.3e}) in every entry", flush=True)
+              f"({total_err:.3e}) in every entry, the fused entry's "
+              f"{rows}- and {occ_p}-row blocks and the given entry's whole "
+              f"grid", flush=True)
         if order != 2:
             continue
         K = w_p.shape[1]
-        ms = device_ms(fused)
+        call = _per_call("deposit_cells", fused, 2)
+        ms = call["device_ms"]
         cells_ms = device_ms(lambda: mesh._cic_cells(spos, mo, h, nw, order,
                                                      ny=ny))
         given_ms = device_ms(lambda: mesh._deposit_packed(
             smass, base_p, w_p, nw, grid, **kw))
-        zero_ms = device_ms(lambda: torch.zeros((grid_y, grid),
+        zero_ms = device_ms(lambda: torch.zeros((rows, grid),
                                                 device=spos.device))
         plain_ms = timed_ms(lambda: mesh._deposit_packed_ref(
             smass, *mesh._cic_cells_ref(spos, mo, h, nw, order, ny=ny), nw,
@@ -1083,42 +1107,39 @@ def _deposit_shape(spos, smass, cfg, origin, side):
         vals = (smass[:, None] * w_p).reshape(-1)
 
         def library():
-            return torch.zeros((grid_y * grid,), device=spos.device
+            return torch.zeros((rows * grid,), device=spos.device
                                ).index_add_(0, idx, vals)
 
-        lib_rho = library().reshape(grid_y, grid)
-        lib_diff = float((lib_rho - rho_p).abs().max())
+        lib_rho = library().reshape(rows, grid)
+        lib_diff = float((lib_rho - rho_p[:rows]).abs().max())
         library_ms = device_ms(library)
         mult = torch.bincount(b64[smass > 0])
-        # the rows _conv_potential reads of the grid: the mesh's and the
-        # CIC reach's
-        read_rows = ny + 2
-        out.update(max_abs_err=float((fused()[0] - rho_p).abs().max()),
+        out.update(max_abs_err=float((fused()[0] - rho_p[:rows]).abs().max()),
                    max_rel_err_cell=cell_err, rel_err_total=total_err,
-                   ms=ms, scalar_divisor_differs=scalar_differs,
-                   cells_ms=cells_ms, given_ms=given_ms, zero_ms=zero_ms,
-                   plain_ms=plain_ms, library_ms=library_ms,
+                   ms=ms, call=call, scalar_divisor_differs=scalar_differs,
+                   cells_ms=cells_ms, given_ms=given_ms,
+                   block_zero_ms=zero_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
                    library="torch.Tensor.index_add_ of the 4n (cell, m w) "
-                           "pairs into the zeroed flattened grid",
+                           "pairs into the zeroed flattened block",
                    library_max_abs_diff=lib_diff, bodies=n, taps=K,
-                   grid=[grid_y, grid], cells_occupied=int((mult > 0).sum()),
+                   block=[rows, grid], grid=[grid_y, grid],
+                   cells_occupied=int((mult > 0).sum()),
                    max_bodies_a_cell=int(mult.max()),
-                   **bounds(mesh.deposit_work(n, K, grid_y * grid), ms))
-        out["read_rows"] = dict(rows=read_rows, **bounds(
-            mesh.deposit_work(n, K, read_rows * grid), ms))
-        print(f"deposit CIC {n} bodies, fused: kernel {ms:.4f} ms on the "
-              f"device; cells only {cells_ms:.4f}, from given cells "
-              f"{given_ms:.4f}; the {grid_y} x {grid} grid's zeroing alone "
+                   **bounds(mesh.deposit_work(n, K, rows * grid), ms))
+        print(f"deposit CIC {n} bodies, fused: {ms:.4f} ms on the device, "
+              f"the memset of the {rows} x {grid} block and the kernel "
+              f"({call['call_ms']:.4f} a call, {call['host_enqueue_ms']:.4f} "
+              f"to enqueue); cells only {cells_ms:.4f}, from given cells "
+              f"(the whole grid) {given_ms:.4f}; the block's zeroing alone "
               f"{zero_ms:.4f}; plain {plain_ms:.4f} ms; index_add_ "
               f"{library_ms:.4f} ms (max |diff| from the plain version "
               f"{lib_diff:.3e}); bound {out['bound_ms']:.5f} ms "
               f"({out['bound_by']}, {out['pct_of_bound']:.2f}%) over the "
-              f"whole grid, {out['read_rows']['bound_ms']:.5f} ms "
-              f"({out['read_rows']['pct_of_bound']:.2f}%) over the "
-              f"{read_rows} rows the FFT reads; {out['cells_occupied']} base "
-              f"cells hold bodies, at most {out['max_bodies_a_cell']} a "
-              f"cell", flush=True)
+              f"block; {out['cells_occupied']} base cells hold bodies, at "
+              f"most {out['max_bodies_a_cell']} a cell", flush=True)
     # a clustered scene: the same bodies 20 times closer to the centre
+    rows = mesh.occ_rows(ny, 2)
     centre = torch.tensor([mo[0] + 0.5 * nw * h, mo[1] + 0.5 * ny * h],
                           device=spos.device)
     tight = (centre + (spos - centre) / 20.0).contiguous()
@@ -1131,11 +1152,12 @@ def _deposit_shape(spos, smass, cfg, origin, side):
     idx = ((b64 // nw) * grid + b64 % nw)[:, None] + offs[None, :]
     terms = torch.zeros((grid_y * grid,), device=spos.device).index_add_(
         0, idx.reshape(-1), (prods != 0).float().reshape(-1))
+    rho64 = rho64[:rows]
     cell_err, total_err = _rho_check("deposit CIC clustered",
                                      fused(tight)[0], rho64,
                                      rtol=CLUSTER_RHO_RTOL)
     g64 = mesh._deposit_packed_ref(smass, base_t, w_t, nw, grid,
-                                   **kw).double()
+                                   **kw)[:rows].double()
     plain_cell = float(((g64 - rho64).abs()
                         / rho64.abs().clamp(min=1e-300)).max())
     plain_total = abs(float(g64.sum() - rho64.sum())) / float(rho64.sum())
@@ -1242,7 +1264,11 @@ def _bh_pairs_shape(st, cfg, params, n_sm, max_clock_hz):
     with the most of them is cut out of that chunk's two launches,
     accepted nodes and direct partners, and both run through the kernel
     and the plain version. The kernel is also timed on the whole chunk,
-    the launch shape of the pass."""
+    the launch shape of the pass. Group and chunk each: the plan's splits,
+    the same bits from two calls, the time of a call on an idle card
+    (``timed_ms``, as earlier versions read it) and on the device
+    (``device_ms``), and beside it one split (the kernel before the
+    split) on the device."""
     import torch
     from tpu_nbody_torch import accuracy
     from tpu_nbody_torch.ops import traverse
@@ -1266,6 +1292,26 @@ def _bh_pairs_shape(st, cfg, params, n_sm, max_clock_hz):
     nodes, direct = best["calls"]
     row = int((direct[2] != 0).sum(dim=(1, 2)).argmax())
     soft2 = params.soft2
+
+    def shape(t, src, m):
+        """The plan's split, its bits from two calls, its device ms and
+        one split's."""
+        NT = t.shape[2]
+        one = traverse._pairs_plan(NT)
+        plan = traverse._pairs_plan(
+            NT, S=src.shape[1], sets=t.shape[0] * t.shape[1],
+            ctas=traverse._pairs_ctas(t.device.index, one.T, one.tpg,
+                                      one.lanes))
+        a = traverse.point_accel(t, src, m, soft2)
+        _same_bits("bh_pairs: two calls", a,
+                   traverse.point_accel(t, src, m, soft2))
+        return dict(splits=plan.splits,
+                    device_ms=device_ms(
+                        lambda: traverse.point_accel(t, src, m, soft2)),
+                    one_split_device_ms=device_ms(
+                        lambda: traverse._pairs_launch(t, src, m, soft2,
+                                                       one)))
+
     out = {}
     for name, (t, src, m) in (("nodes", nodes), ("direct", direct)):
         t1, s1, m1 = (x[row:row + 1].contiguous() for x in (t, src, m))
@@ -1275,21 +1321,30 @@ def _bh_pairs_shape(st, cfg, params, n_sm, max_clock_hz):
             f"{s1.shape[1]} sources",
             lambda: traverse.point_accel(t1, s1, m1, soft2),
             lambda: traverse.point_accel_ref(t1, s1, m1, soft2))
+        _check_close(f"bh_pairs dense chunk, {name}",
+                     traverse.point_accel(t, src, m, soft2),
+                     traverse.point_accel_ref(t, src, m, soft2))
         batch_ms = timed_ms(lambda: traverse.point_accel(t, src, m, soft2))
         work = traverse.pair_work(m, NT)
         out[name] = dict(
             r, groups=C, targets=NT, sources=s1.shape[1],
-            nonzero_masses=int((m1 != 0).sum()),
+            nonzero_masses=int((m1 != 0).sum()), **shape(t1, s1, m1),
             **bounds(traverse.pair_work(m1, NT), r["ms"], n_sm,
                      max_clock_hz),
-            batch=dict(rows=t.shape[0], ms=batch_ms,
+            batch=dict(rows=t.shape[0], ms=batch_ms, **shape(t, src, m),
                        **bounds(work, batch_ms, n_sm, max_clock_hz)))
-        print(f"  bh_pairs {name}: group bound "
-              f"{out[name]['bound_ms']:.4f} ms "
-              f"({out[name]['pct_of_bound']:.1f}%); the chunk of "
-              f"{t.shape[0]} groups {batch_ms:.4f} ms, bound "
-              f"{out[name]['batch']['bound_ms']:.4f} ms "
-              f"({out[name]['batch']['pct_of_bound']:.1f}%)", flush=True)
+        g, c = out[name], out[name]["batch"]
+        print(f"  bh_pairs {name}: the group {g['splits']} splits, "
+              f"{g['device_ms']:.4f} ms on the "
+              f"device (one split {g['one_split_device_ms']:.4f}), bound "
+              f"{g['bound_ms']:.4f} ms ({g['pct_of_bound']:.1f}% of a "
+              f"call's {g['ms']:.4f}); the chunk of {t.shape[0]} groups "
+              f"{c['splits']} splits, {batch_ms:.4f} ms a call, "
+              f"{c['device_ms']:.4f} on the device (one split "
+              f"{c['one_split_device_ms']:.4f}), bound "
+              f"{c['bound_ms']:.4f} ms ({c['pct_of_bound']:.1f}% of a "
+              f"call, {100 * c['bound_ms'] / c['device_ms']:.1f}% of the "
+              f"device time); the same bits from two calls", flush=True)
     plan = traverse._pairs_plan(direct[0].shape[2])
     return dict(out["direct"], nodes_call=out["nodes"],
                 plan=dict(T=plan.T, tpg=plan.tpg, lanes=plan.lanes,

@@ -167,6 +167,10 @@ def test_phase_work_counts(small):
     # the fresh pass's one deposit launch: the cells, then 4 products and
     # adds a body
     assert work["deposit"]["flops"] == (16 + 2 * 4) * n
+    # ... and the block of the ny + 2 rows the FFT reads, written once
+    assert cfg.mesh_order == 2
+    assert work["deposit"]["bytes"] == (n * (8 + 4) + n * (4 + 4 * 4)
+                                        + 4 * (ny + 2) * 2 * nw)
 
 
 class _HostEvent:

@@ -9,22 +9,30 @@ CIC, TSC) on a level-6 mesh, square (64 rows) and rectangular (32 rows),
 with bodies beyond the window's edges (clipped cells). The base cells
 equal the JAX package's and the weights are within 1e-6 (they lie in
 [0, 1]; XLA may fuse a product and a difference); the deposits are within
-1e-6 of max rho (the same products, summed in another order). A numpy
+1e-6 of max rho (the same products, summed in another order).
+``deposit_cells`` returns the leading rows of the padded grid, the
+``occ_rows`` the FFT reads by default or a sharded rank's ``occ_p``: the
+JAX package's grid on those rows, and exactly zero past them. A numpy
 model of the kernel (the cells rounded op by op, then the warp pre-sum
 of same-cell bodies and each sum's K products added at row by + oy,
-column bx + ox of the padded grid) gives the plain version's cells bit
-for bit and its rho within RHO_RTOL of each cell and MASS_RTOL of the
-total, on the scene and on the scene drawn 20 times closer to the
-window's centre: the sums are of positive terms, in another order. A fresh pass computes
-its cells once, and ``_mesh_force`` and ``pm_accel_sorted`` stay within
-1e-4 of the JAX package's max |a| (the FFT libraries round differently).
+column bx + ox of the block) gives the plain version's cells bit for bit
+and its rho within RHO_RTOL of each cell and MASS_RTOL of the total, on
+the scene and on the scene drawn 20 times closer to the window's centre,
+into the whole grid and into the blocks of the rows the FFT reads: the
+sums are of positive terms, in another order. A fresh pass computes
+its cells once; its force windows (``_mesh_grids_one``), ``_mesh_force``
+and ``pm_accel_sorted`` stay within 1e-4 of the JAX package's max (the
+FFT libraries round differently).
 
 On the card (marker ``cuda``, skipped without one): every entry of the
-kernel (cells only, cells and deposit, deposit from given cells with
-int32 and int64 base in each ``run_compress`` mode) against the plain
-version, the cells bit for bit, rho within the same tolerances (the
-fused entry also on the scene 20 times closer), and the launch
-counter. The JAX package is imported
+kernel (cells only, cells and deposit at the default rows and a sharded
+``occ_p``, deposit from given cells with int32 and int64 base in each
+``run_compress`` mode) against the plain version, the cells bit for bit,
+rho within the same tolerances (the fused entry also on the scene 20
+times closer), the launch counter, two device operations a deposit (the
+memset of the block and the kernel; no torch fill), the block exactly
+zero past the bodies' reach, and four deposits on four streams at
+once. The JAX package is imported
 inside the tests that use it, so the ``cuda`` tests also collect where
 jax is missing.
 """
@@ -127,11 +135,11 @@ def _cells_model(pos, origin, h, nw, ny, order):
                                    wx1 * wy1], axis=1)
 
 
-def _deposit_model(mass, base, w, nw, grid, grid_y):
+def _deposit_model(mass, base, w, nw, grid, rows):
     """csrc/deposit.cu's deposit in numpy: the bodies of a warp of 32 that
     share a base cell summed in lane order, from +0.0, then each warp's
     K sums m w_k added at row by + oy, column bx + ox of the zeroed
-    (grid_y, grid) grid, in body order."""
+    (rows, grid) block, in body order."""
     n, K = w.shape
     by, bx = base // nw, base % nw
     v = mass[:, None] * w
@@ -148,10 +156,10 @@ def _deposit_model(mass, base, w, nw, grid, grid_y):
             lane_sum[peers[0]] = s
             keep[peers[0]] = True
     v = np.where(keep[:, None], lane_sum, np.float32(0.0))
-    rho = np.zeros(grid_y * grid, np.float32)
+    rho = np.zeros(rows * grid, np.float32)
     for k, (oy, ox) in enumerate(_offsets(K)):
         np.add.at(rho, (by + oy) * grid + bx + ox, v[:, k])
-    return rho.reshape(grid_y, grid)
+    return rho.reshape(rows, grid)
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -198,7 +206,59 @@ def test_deposit_matches_jax(order, mesh):
     rho, b2, w2 = tmesh.deposit_cells(_t(pos), _t(mass), g["mo"], g["h"],
                                       g["nw"], g["grid"], order, **kw)
     assert torch.equal(b2, base) and torch.equal(w2, w)
-    assert np.array_equal(rho.numpy(), got)
+    rows = tmesh.occ_rows(g["ny"], order)
+    assert rho.shape == (rows, g["grid"])
+    assert np.array_equal(rho.numpy(), got[:rows])
+
+
+def _sharded_rows(g):
+    """A 4-rank slab FFT's ``occ_p``: the rows it reduce-scatters."""
+    from tpu_nbody_torch.parallel import sharded_pm
+    return sharded_pm._occ_rows_p(g["ny"], 4, g["grid_y"])
+
+
+@pytest.mark.parametrize("rows", ["occ", "occ_p"])
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("order", ORDERS)
+def test_deposit_cells_block_matches_jax(order, mesh, rows):
+    """The block ``deposit_cells`` returns, at the default rows and at a
+    sharded rank's ``occ_p``, is the JAX package's grid on its leading
+    rows, and the JAX grid is exactly zero past them."""
+    import jax.numpy as jnp
+
+    from tpu_nbody.ops import mesh as jmesh
+    g = _geometry(MESHES[mesh])
+    pos, mass = _bodies(MESHES[mesh], n=1500, seed=5)
+    kw = dict(ny=g["ny"], grid_y=g["grid_y"])
+    base, w = jmesh._cic_cells(jnp.asarray(pos),
+                               jnp.asarray(g["mo"], jnp.float32),
+                               jnp.float32(g["h"]), g["nw"], order,
+                               ny=g["ny"])
+    want = np.asarray(jmesh._deposit_packed(jnp.asarray(mass), base, w,
+                                            g["nw"], g["grid"], **kw))
+    r = (tmesh.occ_rows(g["ny"], order) if rows == "occ"
+         else _sharded_rows(g))
+    rho, _, _ = tmesh.deposit_cells(_t(pos), _t(mass), g["mo"], g["h"],
+                                    g["nw"], g["grid"], order, rows=r, **kw)
+    assert rho.shape == (r, g["grid"])
+    assert not want[r:].any()
+    np.testing.assert_allclose(rho.numpy(), want[:r], rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_deposit_cells_refuses_rows(order):
+    """A block that misses a row the bodies reach, or has more rows than
+    the grid, raises."""
+    g = _geometry(32)
+    pos, mass = _bodies(32, n=64)
+    occ = tmesh.occ_rows(g["ny"], order)
+    for r in (g["ny"] + {1: 0, 2: 1, 3: 2}[order], g["grid_y"] + 1):
+        with pytest.raises(ValueError, match="rows|too small"):
+            tmesh.deposit_cells(_t(pos), _t(mass), g["mo"], g["h"], g["nw"],
+                                g["grid"], order, ny=g["ny"],
+                                grid_y=g["grid_y"], rows=r)
+    assert occ == g["ny"] + (3 if order == 3 else 2)
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -230,6 +290,34 @@ def test_deposit_model_matches_plain(order, mesh, closer):
     reach = {1: 0, 2: 1, 3: 2}[order]
     assert not got[g["ny"] + reach + 1:].any()
     assert not got[:, g["nw"] + reach + 1:].any()
+
+
+@pytest.mark.parametrize("rows", ["occ", "occ_p"])
+@pytest.mark.parametrize("closer", [1.0, 20.0])
+@pytest.mark.parametrize("order", ORDERS)
+def test_deposit_model_block_matches_plain(order, closer, rows):
+    """The kernel's order of sums into the block of the rows the FFT reads
+    (``occ_rows``, or a sharded rank's ``occ_p``), on the Hilbert-sorted
+    scene and 20 times closer: within RHO_RTOL a cell and MASS_RTOL of the
+    total of the plain version's leading rows, which hold all its mass."""
+    g = _geometry(32)
+    spos, smass, _ = _sorted_scene(32, n=3000)
+    pos = spos.numpy()
+    if closer != 1.0:
+        centre = np.array(g["mo"], np.float32) + 0.5 * np.array(
+            [g["nw"] * g["h"], g["ny"] * g["h"]], np.float32)
+        pos = (centre + (pos - centre) / np.float32(closer)).astype(
+            np.float32)
+    mass = smass.numpy()
+    base, w = _cells_model(pos, g["mo"], g["h"], g["nw"], g["ny"], order)
+    r = (tmesh.occ_rows(g["ny"], order) if rows == "occ"
+         else _sharded_rows(g))
+    got = _deposit_model(mass, base, w, g["nw"], g["grid"], r)
+    want = tmesh._deposit_packed_ref(_t(mass), _t(base), _t(w), g["nw"],
+                                     g["grid"], ny=g["ny"],
+                                     grid_y=g["grid_y"]).numpy()
+    assert not want[r:].any()
+    _rho_close(got, want[:r])
 
 
 def _sorted_scene(mesh_ny, n=2048):
@@ -280,6 +368,30 @@ def test_mesh_force_cells_once_matches_jax(order, monkeypatch):
     want = np.asarray(want)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("order", ORDERS)
+def test_mesh_grids_one_matches_jax(order):
+    """The fresh pass end to end (the deposit's block, the FFT, the FD
+    gradient): the force windows within 1e-4 of the JAX package's max."""
+    import jax.numpy as jnp
+
+    from tpu_nbody.ops import mesh as jmesh
+    g = _geometry(32)
+    spos, smass, _ = _sorted_scene(32)
+    kernel = _kernel_hats(g, order)
+    got = tmesh._mesh_grids_one(spos, smass, g["mo"], g["h"], g["nw"],
+                                g["grid"], order, kernel, ny=g["ny"])
+    want = jmesh._mesh_grids_one(
+        jnp.asarray(spos.numpy()), jnp.asarray(smass.numpy()),
+        jnp.asarray(g["mo"], jnp.float32), jnp.float32(g["h"]), g["nw"],
+        g["grid"], order, tuple(jnp.asarray(k.numpy()) for k in kernel),
+        ny=g["ny"])
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-4 * np.abs(b).max())
 
 
 @pytest.mark.parametrize("interlace", [False, True])
@@ -352,26 +464,99 @@ def test_cells_kernel_matches_plain_on_card(cuda_device, order, mesh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["occ", "occ_p"])
 @pytest.mark.parametrize("closer", [1.0, 20.0])
 @pytest.mark.parametrize("mesh", MESHES)
 @pytest.mark.parametrize("order", ORDERS)
 def test_deposit_cells_kernel_matches_plain_on_card(cuda_device, order, mesh,
-                                                    closer):
+                                                    closer, rows):
     g = _geometry(MESHES[mesh])
     pos, mass = (_t(x).to(cuda_device)
                  for x in _bodies(MESHES[mesh], n=20000, closer=closer))
     kw = dict(ny=g["ny"], grid_y=g["grid_y"])
+    r = (tmesh.occ_rows(g["ny"], order) if rows == "occ"
+         else _sharded_rows(g))
     before = tmesh.DEPOSIT_LAUNCHES
     rho, base, w = tmesh.deposit_cells(pos, mass, g["mo"], g["h"], g["nw"],
-                                       g["grid"], order, **kw)
+                                       g["grid"], order, rows=r, **kw)
     assert tmesh.DEPOSIT_LAUNCHES == before + 1
+    assert rho.shape == (r, g["grid"])
     base_p, w_p = tmesh._cic_cells_ref(pos, g["mo"], g["h"], g["nw"], order,
                                        ny=g["ny"])
     _same_bits(base, base_p)
     _same_bits(w, w_p)
     want = tmesh._deposit_packed_ref(mass, base_p, w_p, g["nw"], g["grid"],
                                      **kw)
-    _rho_close(rho.cpu().numpy(), want.cpu().numpy())
+    _rho_close(rho.cpu().numpy(), want[:r].cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ORDERS)
+def test_deposit_block_zero_past_bodies_on_card(cuda_device, order):
+    """Bodies in the window's lower-left quarter (memory that held other
+    values before): every cell of the fused entry's block and of the
+    given entry's grid past their reach is exactly 0, including the
+    block's rows past the mesh."""
+    g = _geometry(0)
+    pos, mass = _bodies(0, n=5000, seed=3)
+    lo = np.array(g["mo"], np.float32)
+    span = np.array([g["nw"] * g["h"], g["ny"] * g["h"]], np.float32)
+    pos = (lo + 0.1 * span + (pos - lo) * 0.3).astype(np.float32)
+    pos, mass = _t(pos).to(cuda_device), _t(mass).to(cuda_device)
+    torch.full((1 << 22,), float("nan"), device=cuda_device)  # dirty memory
+    kw = dict(ny=g["ny"], grid_y=g["grid_y"])
+    rho, base, w = tmesh.deposit_cells(pos, mass, g["mo"], g["h"], g["nw"],
+                                       g["grid"], order, **kw)
+    given = tmesh._deposit_packed(mass, base, w, g["nw"], g["grid"], **kw)
+    reach = {1: 0, 2: 1, 3: 2}[order]
+    b = base.long()
+    y1 = int((b // g["nw"]).max()) + reach
+    x1 = int((b % g["nw"]).max()) + reach
+    torch.cuda.synchronize()
+    assert rho.shape == (tmesh.occ_rows(g["ny"], order), g["grid"])
+    for r in (rho, given):
+        assert torch.isfinite(r).all()
+        assert not r[y1 + 1:].any() and not r[:, x1 + 1:].any()
+        assert r.sum() > 0
+
+
+@pytest.mark.cuda
+def test_deposit_device_operations_on_card(cuda_device):
+    """A fresh pass's deposit enqueues a memset of its block and the
+    kernel: no torch fill of the grid."""
+    from tpu_nbody_torch import profiling
+    g = _geometry(0)
+    pos, mass = (_t(x).to(cuda_device) for x in _bodies(0, n=20000))
+    ops = profiling.device_ops(lambda: tmesh.deposit_cells(
+        pos, mass, g["mo"], g["h"], g["nw"], g["grid"], 2, ny=g["ny"],
+        grid_y=g["grid_y"]))
+    assert len(ops) == 2 and "emset" in ops[0] \
+        and "deposit_kernel" in ops[1], ops
+
+
+@pytest.mark.cuda
+def test_deposits_on_four_streams_on_card(cuda_device):
+    """Four deposits at once on four streams complete, each the plain
+    version's block."""
+    g = _geometry(0)
+    pos, mass = (_t(x).to(cuda_device) for x in _bodies(0, n=200000))
+    kw = dict(ny=g["ny"], grid_y=g["grid_y"])
+    base_p, w_p = tmesh._cic_cells_ref(pos, g["mo"], g["h"], g["nw"], 2,
+                                       ny=g["ny"])
+    want = tmesh._deposit_packed_ref(mass, base_p, w_p, g["nw"], g["grid"],
+                                     **kw)[:tmesh.occ_rows(g["ny"], 2)]
+    streams = [torch.cuda.Stream() for _ in range(4)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(tmesh.deposit_cells(pos, mass, g["mo"], g["h"],
+                                                g["nw"], g["grid"], 2,
+                                                **kw)[0])
+    torch.cuda.synchronize()
+    for rho in outs:
+        _rho_close(rho.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.cuda

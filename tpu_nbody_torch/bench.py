@@ -142,9 +142,10 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
     written once; the interpolation reads fx and fy at the
     ``interp_cells`` distinct cells the bodies touch
     (:func:`mesh.interp_work`; None counts the whole windows). The
-    deposit is the fresh pass's one launch (:func:`mesh.deposit_work`):
-    each body's cells and K products and adds into the padded grid,
-    written once (its zeros included); the FFT convolution reads the
+    deposit is the fresh pass's block (:func:`mesh.deposit_work`): each
+    body's cells and K products and adds into the ``occ`` rows of the
+    padded grid the FFT reads, the block written once (its zeros
+    included); the FFT convolution reads the
     occupied density rows and the potential kernel and writes the
     potential rows the stencil keeps; the FD gradient reads those rows at
     the nw + 7 + reach columns the stencil touches and writes fx and fy.
@@ -175,7 +176,7 @@ def phase_work(cfg: SimConfig, n: int, heavy_cap: int = 64,
             + 26 * grid_y * cols)
     return {
         "sort": dict(flops=0, bytes=body_in + body_in + n * 8),
-        "deposit": mesh.deposit_work(n, K, grid_y * grid),
+        "deposit": mesh.deposit_work(n, K, occ * grid),
         "fft": dict(flops=conv,
                     bytes=occ * grid * _F32 + grid_y * cols * _C64
                     + kept * grid * _F32),

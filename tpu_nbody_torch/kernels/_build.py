@@ -52,9 +52,11 @@ SIGNATURES = {
     # pos, mass, alive, X, box, uni (or null), stats (or null), cap, band,
     # stream
     "tnt_block_boxes": [_P] * 7 + [_I, _I, _P],
-    # targets, sources, masses, out, M, C, NT, S, soft2, T, tpg, lanes,
-    # stream
-    "tnt_bh_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    # targets, sources, masses, out, part, flags, tickets (the three null
+    # with one split), M, C, NT, S, soft2, T, tpg, lanes, splits, stream
+    "tnt_bh_pairs": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+    # T, tpg, lanes -> pair-kernel CTAs one SM holds at once (0 on error)
+    "tnt_bh_pairs_blocks_per_sm": [_I, _I, _I],
     # node_rows, body_rows, spos, ids, cvalid, kend, gstart, gcount,
     # gvalid, gmin, gmax, out, counts (or null), walked (or null), groups,
     # K, CH, GS, cap, NC, stage, theta2, soft2, stream
@@ -86,11 +88,11 @@ SIGNATURES = {
     "tnt_interp_windows": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     # T, L, base, is64, w, out, n, K, has_frac, frac, stream
     "tnt_interp_table": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _F, _P],
-    # pos, mass (or null: cells only), base, w, rho (or null), n, order,
-    # ox, oy, h, nw, ny, ld, stream
-    "tnt_deposit_cells": [_P] * 5 + [_I, _I, _F, _F, _F, _I, _I, _I, _P],
-    # mass, base, is64, w, rho, n, K, nw, ld, stream
-    "tnt_deposit_given": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
+    # pos, mass, base, w, rho (null: cells only), n, order, ox, oy, h, nw,
+    # ny, ld, rows, stream
+    "tnt_deposit_cells": [_P] * 5 + [_I, _I, _F, _F, _F] + [_I] * 4 + [_P],
+    # mass, base, is64, w, rho, n, K, nw, ld, rows, stream
+    "tnt_deposit_given": [_P, _P, _I, _P, _P] + [_I] * 5 + [_P],
     # src, R, W, rows, cols, c1, c2, c3, fx, fy, stream
     "tnt_fd_gradient": [_P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
 }
@@ -205,6 +207,27 @@ def stream(device: torch.device) -> int:
     from torch's own accessor, without the ``torch.cuda.Stream`` object
     that call builds each time (microseconds of host time a launch)."""
     return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_COUNTERS: dict = {}
+_COUNTERS_LOCK = threading.Lock()
+
+
+def stream_counters(device: torch.device, name: str, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters for the kernel ``name`` on
+    ``device``'s current stream, kept from call to call: the kernel
+    leaves them ready for its next launch (the pair kernel's last CTA of a
+    set resets its ticket), so only a new buffer is filled, once, with
+    zeros. Each stream has its own, so launches on two streams never
+    share a counter; launches on one stream run in turn."""
+    key = (name, device.index, stream(device))
+    with _COUNTERS_LOCK:
+        t = _COUNTERS.get(key)
+        if t is None or t.numel() < n:
+            t = torch.zeros((max(n, 1024),), dtype=torch.int32,
+                            device=device)
+            _COUNTERS[key] = t
+    return t
 
 
 def check_launch(name: str, rc: int):

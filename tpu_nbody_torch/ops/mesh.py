@@ -761,7 +761,8 @@ def _deposit_packed(smass, base, w, nw, grid, run_compress=False,
     plain version; CUDA tensors launch ``csrc/deposit.cu``'s entry from
     given cells in every ``run_compress`` mode (the modes differ only in
     the order of the sums, which the kernel's atomics choose anyway; a
-    window must still divide the bodies)."""
+    window must still divide the bodies), which zeroes the whole grid (a
+    memset) and adds into it."""
     if smass.device.type == "cpu":
         return _deposit_packed_ref(smass, base, w, nw, grid,
                                    run_compress=run_compress, ny=ny,
@@ -780,10 +781,12 @@ def _deposit_packed(smass, base, w, nw, grid, run_compress=False,
     _build.check_tensor("smass", smass, (n,))
     _build.check_tensor("base", base, (n,), device=dev, dtype=base.dtype)
     _build.check_tensor("w", w, (n, K), device=dev)
-    rho = _zero_grid(nw, grid, ny, grid_y, INTERP_TAPS[K], smass.dtype, dev)
+    grid_y = grid if grid_y is None else grid_y
+    rho = _grid_block(nw, grid, ny, grid_y, grid_y, INTERP_TAPS[K],
+                      smass.dtype, dev)
     rc = _build.library().tnt_deposit_given(
         smass.data_ptr(), base.data_ptr(), int(base.dtype == torch.int64),
-        w.data_ptr(), rho.data_ptr(), n, K, nw, grid,
+        w.data_ptr(), rho.data_ptr(), n, K, nw, grid, grid_y,
         _build.stream(dev))
     _build.check_launch("deposit_given", rc)
     with band_ops._COUNT_LOCK:
@@ -791,37 +794,63 @@ def _deposit_packed(smass, base, w, nw, grid, run_compress=False,
     return rho
 
 
+def occ_rows(ny: int, order: int) -> int:
+    """Rows of the padded grid that hold mass and that the FFT reads
+    (:func:`_conv_potential`; the sharded slab FFT pads them to its
+    shards): the mesh's ny, the CIC reach and a zero row, and TSC's longer
+    reach. The one place that says which rows a deposit's block holds."""
+    return ny + 2 + (1 if order == 3 else 0)
+
+
 def deposit_cells(spos, smass, origin, h, nw, grid, order, ny=None,
-                  grid_y=None):
+                  grid_y=None, rows=None):
     """The fresh pass's assignment and deposit at once: ``(rho, base,
-    w)``, the padded grid of :func:`_deposit_packed` and the cells of
-    :func:`_cic_cells`, which the interpolation reuses. CPU tensors take
-    the two plain versions; CUDA tensors launch ``csrc/deposit.cu`` once,
-    which writes the cells and adds each body's K products into the grid
-    in one pass, a warp's bodies of one cell summed before their atomics."""
+    w)``, rho the leading ``rows`` rows (default :func:`occ_rows`, those
+    the FFT reads) of the padded (grid_y, grid) grid of
+    :func:`_deposit_packed`, and the cells of :func:`_cic_cells`, which
+    the interpolation reuses. No row past ``rows`` ever holds mass or is
+    read. CPU tensors take the two plain versions and return the plain
+    grid's leading rows; CUDA tensors zero the (rows, grid) block (a
+    memset) and launch ``csrc/deposit.cu`` once, which writes the cells
+    and adds each body's K products into the block, a warp's bodies of
+    one cell summed before their atomics: no row past ``rows`` is
+    written."""
+    ny = nw if ny is None else ny
+    rows = occ_rows(ny, order) if rows is None else rows
     if spos.device.type == "cpu":
         base, w = _cic_cells_ref(spos, origin, h, nw, order, ny=ny)
+        grid_y = grid if grid_y is None else grid_y
+        _grid_block(nw, grid, ny, grid_y, rows, INTERP_TAPS[w.shape[1]],
+                    spos.dtype, None)
         return (_deposit_packed_ref(smass, base, w, nw, grid, ny=ny,
-                                    grid_y=grid_y), base, w)
+                                    grid_y=grid_y)[:rows], base, w)
     return _deposit_launch(spos, smass, origin, h, nw, order, ny, grid,
-                           grid_y)
+                           grid_y, rows)
 
 
-def _zero_grid(nw, grid, ny, grid_y, reach, dtype, dev):
-    """The zeroed padded (grid_y, grid) grid, checked to hold the (ny +
-    reach + 1, nw + reach + 1) cells a deposit reaches."""
+def _grid_block(nw, grid, ny, grid_y, rows, reach, dtype, dev):
+    """The leading ``rows`` rows of the padded (grid_y, grid) grid, left
+    for the launch to zero (``dev`` None: checked only), checked to hold
+    the (ny + reach + 1, nw + reach + 1) cells a deposit reaches."""
     ny = nw if ny is None else ny
     grid_y = grid if grid_y is None else grid_y
-    if grid_y < ny + reach + 1 or grid < nw + reach + 1:
-        raise ValueError(f"a ({grid_y}, {grid}) grid is too small for a "
-                         f"({ny}, {nw}) mesh at reach {reach}")
-    return torch.zeros((grid_y, grid), dtype=dtype, device=dev)
+    if rows > grid_y:
+        raise ValueError(f"a block of {rows} rows of a ({grid_y}, {grid}) "
+                         f"grid: more rows than the grid has")
+    if rows < ny + reach + 1 or grid < nw + reach + 1:
+        raise ValueError(f"a ({rows}, {grid}) block of a ({grid_y}, "
+                         f"{grid}) grid is too small for a ({ny}, {nw}) "
+                         f"mesh at reach {reach}")
+    if dev is None:
+        return None
+    return torch.empty((rows, grid), dtype=dtype, device=dev)
 
 
 def _deposit_launch(spos, smass, origin, h, nw, order, ny, grid=None,
-                    grid_y=None):
+                    grid_y=None, rows=None):
     """Launch ``csrc/deposit.cu``'s cells entry: ``(rho, base, w)``, rho
-    None without ``smass`` (cells only)."""
+    the zeroed and filled (rows, grid) block, None without ``smass``
+    (cells only)."""
     global DEPOSIT_LAUNCHES
     _check_order(order)
     n = spos.shape[0]
@@ -832,8 +861,9 @@ def _deposit_launch(spos, smass, origin, h, nw, order, ny, grid=None,
     rho = None
     if smass is not None:
         _build.check_tensor("smass", smass, (n,), device=dev)
-        rho = _zero_grid(nw, grid, ny, grid_y, INTERP_TAPS[K], spos.dtype,
-                         dev)
+        rows = occ_rows(ny, order) if rows is None else rows
+        rho = _grid_block(nw, grid, ny, grid_y, rows, INTERP_TAPS[K],
+                          spos.dtype, dev)
     base = torch.empty((n,), dtype=torch.int32, device=dev)
     w = torch.empty((n, K), dtype=spos.dtype, device=dev)
     ox, oy = (float(o) for o in origin)
@@ -842,22 +872,23 @@ def _deposit_launch(spos, smass, origin, h, nw, order, ny, grid=None,
         base.data_ptr(), w.data_ptr(), None if rho is None else rho.data_ptr(),
         n, order, ctypes.c_float(ox), ctypes.c_float(oy),
         ctypes.c_float(float(h)), nw, ny, 0 if grid is None else grid,
-        _build.stream(dev))
+        0 if rho is None else rows, _build.stream(dev))
     _build.check_launch("deposit_cells", rc)
     with band_ops._COUNT_LOCK:
         DEPOSIT_LAUNCHES += 1
     return rho, base, w
 
 
-def deposit_work(n: int, K: int, grid_cells: int) -> dict:
+def deposit_work(n: int, K: int, block_cells: int) -> dict:
     """Flops and bytes of ``n`` bodies through the cells-and-deposit
     entry of ``csrc/deposit.cu`` (:func:`deposit_cells`) with ``K`` taps:
     positions and masses read, the base cell and K weights written,
     :data:`CELL_FLOPS` and K products and adds a body, and the
-    ``grid_cells`` floats of the padded grid written once, its zeros
-    included."""
+    ``block_cells`` floats of the block the pass writes (its zeros
+    included: at the fresh pass the :func:`occ_rows` rows times the grid's
+    width) written once."""
     return dict(flops=(CELL_FLOPS[K] + 2 * K) * n,
-                bytes=n * (8 + 4) + n * (4 + 4 * K) + 4 * grid_cells)
+                bytes=n * (8 + 4) + n * (4 + 4 * K) + 4 * block_cells)
 
 
 def fd_work(rows: int, cols: int) -> dict:
@@ -1077,9 +1108,14 @@ def _conv_potential(rho, phi_hat, ny, grid, grid_y, extra=0):
     the FD stencil, so the inverse row transforms run on ny+7+extra rows
     (the three negative rows wrap to the far padded edge, ``sp[-3:]``). The
     column transforms stay full. ``extra`` is 1 for TSC's longer reach.
-    Returns the (ny+7+extra, grid) rows -3..ny+3+extra.
+    ``rho`` holds at least those :func:`occ_rows` (the block of
+    :func:`deposit_cells`, or the whole grid). Returns the
+    (ny+7+extra, grid) rows -3..ny+3+extra.
     """
-    occ = ny + 2 + extra
+    occ = occ_rows(ny, 3 if extra else 2)
+    if rho.shape[0] < occ:
+        raise ValueError(f"_conv_potential: {rho.shape[0]} density rows, "
+                         f"the FFT reads {occ}")
     rh = torch.fft.rfft(rho[:occ], dim=1)
     rh = F.pad(rh, (0, 0, 0, grid_y - occ))
     sp = torch.fft.ifft(torch.fft.fft(rh, dim=0) * phi_hat, dim=0)

@@ -67,6 +67,7 @@ What differs from the JAX package, whose results it reproduces:
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import NamedTuple
 
@@ -88,6 +89,9 @@ _COUNT_LOCK = threading.Lock()
 _PAIRS_THREADS = 256     # threads a CTA of csrc/bh_pairs.cu aims at
 _PAIRS_TILE = 256        # TILE in csrc/bh_pairs.cu
 _PAIR_FLOPS = 13         # ops/forces.py::_PAIR_FLOPS[2], the same formula
+_PAIRS_UNIT = 32         # UNIT in csrc/bh_pairs.cu: sources dealt at once
+_PAIRS_MAX_SPLITS = 8    # CTAs a set: its last CTA adds that many sums
+_PAIRS_SCRATCH = 32 << 20   # bytes of a call's partial sums, at most
 _HIER_MAX_GS = 2048      # targets a group csrc/bh_hier.cu holds
 _HIER_STAGE = 2048       # STAGE in csrc/bh_hier.cu: leaf bodies staged
 
@@ -849,20 +853,31 @@ def _point_accel(bpos, src_pos, src_mass, soft2):
 
 
 class PairsPlan(NamedTuple):
-    """Launch shape of ``csrc/bh_pairs.cu``: a CTA a target set, ``lanes``
-    lanes of ``tpg`` threads, each thread ``T`` targets."""
+    """Launch shape of ``csrc/bh_pairs.cu``: a CTA a (target set, split),
+    ``lanes`` lanes of ``tpg`` threads, each thread ``T`` targets; each
+    set's sources dealt to its ``splits`` CTAs in units of
+    :data:`_PAIRS_UNIT` slots, round robin."""
     T: int
     tpg: int
     lanes: int
     threads: int
+    splits: int = 1
 
 
-def _pairs_plan(NT: int, T: int = 8) -> PairsPlan:
-    """The pair kernel's launch shape for sets of ``NT`` targets: ``T``
-    halved until it is at most NT, ``tpg`` = ⌈NT/T⌉ threads hold a set,
-    and as many lanes of them as fit in about :data:`_PAIRS_THREADS`
-    threads (the source tiles are shared out among the lanes). At the
-    group size 512, tpg = 64: a lane is two whole warps."""
+def _pairs_plan(NT: int, T: int = 8, *, S: int = 0, sets: int = 1,
+                ctas: int = 0) -> PairsPlan:
+    """The pair kernel's launch shape for ``sets`` sets of ``NT`` targets
+    and ``S`` sources: ``T`` halved until it is at most NT, ``tpg`` =
+    ⌈NT/T⌉ threads hold a set, and as many lanes of them as fit in about
+    :data:`_PAIRS_THREADS` threads (the source tiles are shared out among
+    the lanes). At the group size 512, tpg = 64: a lane is two whole warps.
+    ``ctas``, the CTAs of that shape the card holds at once
+    (:func:`_pairs_ctas`; 0: one split), sets ``splits``: the sets' CTAs
+    fill half the card (a CTA's fixed costs, its targets, lane sums and
+    partial, outweigh its share of the pairs past that on the card's
+    dense traversal shapes), each CTA with a unit of :data:`_PAIRS_UNIT`
+    sources at least, at most :data:`_PAIRS_MAX_SPLITS` a set and as many
+    as keep the partial sums within :data:`_PAIRS_SCRATCH` bytes."""
     if T not in (1, 2, 4, 8):
         raise ValueError(f"T must be 1, 2, 4 or 8, got {T}")
     if NT < 1:
@@ -874,7 +889,27 @@ def _pairs_plan(NT: int, T: int = 8) -> PairsPlan:
         raise ValueError(f"{NT} targets a set need {tpg} threads of {T}; "
                          f"at most 1024")
     lanes = max(1, _PAIRS_THREADS // tpg)
-    return PairsPlan(T=T, tpg=tpg, lanes=lanes, threads=tpg * lanes)
+    splits = 1
+    if ctas > 0 and S > 0 and sets > 0:
+        splits = max(1, min(-(-ctas // (2 * sets)),
+                            _PAIRS_MAX_SPLITS, -(-S // _PAIRS_UNIT),
+                            _PAIRS_SCRATCH // (sets * NT * 8)))
+    return PairsPlan(T=T, tpg=tpg, lanes=lanes, threads=tpg * lanes,
+                     splits=splits)
+
+
+@functools.lru_cache(maxsize=None)
+def _pairs_ctas(device_index: int, T: int, tpg: int, lanes: int) -> int:
+    """CTAs of the pair kernel's shape the card holds at once (its SMs
+    times the occupancy API's count), asked once a (device, shape)."""
+    with torch.cuda.device(device_index):
+        per_sm = _build.library().tnt_bh_pairs_blocks_per_sm(T, tpg, lanes)
+        n_sm = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    if per_sm < 1:
+        raise RuntimeError(f"bh_pairs: no occupancy for T={T}, tpg={tpg}, "
+                           f"lanes={lanes}")
+    return n_sm * per_sm
 
 
 def pair_work(masses, NT: int) -> dict:
@@ -894,8 +929,10 @@ def point_accel(targets, sources, masses, soft2):
     shared by the C target sets of a row, masses (M, C, S) one set each;
     returns (M, C, NT, 2), sum_j m_j d_ij r_ij^-3 without G. CPU tensors
     take :func:`_point_accel`; CUDA tensors launch ``csrc/bh_pairs.cu``,
-    which skips every source tile whose masses are all 0 for a set (no
-    change in the result)."""
+    which deals each set's sources to CTAs that fill the card
+    (:func:`_pairs_plan`), adds their sums in a fixed order (the same
+    bits from run to run) and skips every unit of sources whose masses
+    are all 0 for a set (no change in the result)."""
     if all(t.device.type == "cpu" for t in (targets, sources, masses)):
         return point_accel_ref(targets, sources, masses, soft2)
     M, C, NT, _ = targets.shape
@@ -906,7 +943,10 @@ def point_accel(targets, sources, masses, soft2):
     _build.check_tensor("masses", masses, (M, C, S), device=dev)
     if M * C * NT == 0:
         return torch.zeros_like(targets)
-    return _pairs_launch(targets, sources, masses, soft2, _pairs_plan(NT))
+    plan = _pairs_plan(NT)
+    plan = _pairs_plan(NT, S=S, sets=M * C, ctas=_pairs_ctas(
+        dev.index, plan.T, plan.tpg, plan.lanes))
+    return _pairs_launch(targets, sources, masses, soft2, plan)
 
 
 def point_accel_ref(targets, sources, masses, soft2):
@@ -916,15 +956,32 @@ def point_accel_ref(targets, sources, masses, soft2):
 
 
 def _pairs_launch(targets, sources, masses, soft2, plan: PairsPlan):
-    """Launch the pair kernel with ``plan`` on checked arguments."""
+    """Launch the pair kernel with ``plan`` on checked arguments; a split
+    plan whose partial sums pass :data:`_PAIRS_SCRATCH` bytes raises."""
     global LAUNCHES
     M, C, NT, _ = targets.shape
+    S = sources.shape[1]
+    dev = targets.device
+    sets, splits = M * C, plan.splits
     out = torch.empty_like(targets)
+    scratch = (None, None, None)
+    if splits > 1:
+        if sets * splits * NT * 8 > _PAIRS_SCRATCH:
+            raise ValueError(f"bh_pairs: {splits} splits of {sets} sets of "
+                             f"{NT} targets need more than "
+                             f"{_PAIRS_SCRATCH} bytes of partial sums")
+        # the partial sums, then the flags (int32), in one buffer that
+        # lives past the launch
+        part = torch.empty((sets * splits * (NT * 2 + 1),),
+                           dtype=torch.float32, device=dev)
+        scratch = (part.data_ptr(),
+                   part.data_ptr() + 4 * sets * splits * NT * 2,
+                   _build.stream_counters(dev, "bh_pairs", sets).data_ptr())
     rc = _build.library().tnt_bh_pairs(
         targets.data_ptr(), sources.data_ptr(), masses.data_ptr(),
-        out.data_ptr(), M, C, NT, sources.shape[1],
-        ctypes.c_float(float(soft2)), plan.T, plan.tpg, plan.lanes,
-        _build.stream(targets.device))
+        out.data_ptr(), *scratch,
+        M, C, NT, S, ctypes.c_float(float(soft2)), plan.T, plan.tpg,
+        plan.lanes, splits, _build.stream(dev))
     _build.check_launch("bh_pairs", rc)
     with _COUNT_LOCK:
         LAUNCHES += 1

@@ -68,12 +68,21 @@ def _win_rows(ny: int, n_shards: int) -> int:
     return -(-(ny + 7) // n_shards) * n_shards
 
 
+def _occ_rows_p(ny: int, n_shards: int, grid_y: int) -> int:
+    """Density rows the slab FFT reduce-scatters: the CIC rows
+    (:func:`mesh_ops.occ_rows`, rows 0..ny+1) padded to a multiple of the
+    shards, at most the grid's. The rank's deposit fills and zeroes just
+    these rows."""
+    return min(-(-mesh_ops.occ_rows(ny, 2) // n_shards) * n_shards, grid_y)
+
+
 def _slab_fft_phi(rho_local, phi_hat, *, group: Group, grid, grid_y, ny):
     """Distributed potential solve, a trimmed slab-decomposed FFT
     convolution (inside :func:`run_spmd`).
 
-    ``rho_local`` is this rank's partial (grid_y, grid) density; the ranks'
-    sum is the global grid. Only rows 0..ny+1 hold mass, so only those
+    ``rho_local`` is this rank's partial density, at least the leading
+    ``occ_p`` (:func:`_occ_rows_p`) rows of the (grid_y, grid) grid; the
+    ranks' sum is the global grid. Only rows 0..ny+1 hold mass, so only those
     (padded to ``occ_p``, a multiple of P) are reduce-scattered and
     row-transformed; only φ rows -3..ny+3 feed the FD stencil, so only
     those return. Returns this rank's (win_p/P, grid) slab of the φ window
@@ -82,7 +91,7 @@ def _slab_fft_phi(rho_local, phi_hat, *, group: Group, grid, grid_y, ny):
     P = group.size
     hw = grid // 2 + 1
     hwp = -(-hw // P) * P
-    occ_p = min(-(-(ny + 2) // P) * P, grid_y)
+    occ_p = _occ_rows_p(ny, P, grid_y)
     win = ny + 7
     win_p = _win_rows(ny, P)
     slab = group.psum_scatter(rho_local[:occ_p], scatter_dimension=0)
@@ -230,7 +239,8 @@ def _pm_accel_local_sorted(spos, smass, salive, G, soft2, origin, root_side,
 
     def mesh_pass(mo):
         rho_local, base, w = mesh_ops.deposit_cells(
-            spos, smass, mo, h, nw, grid, order, ny=ny, grid_y=grid_y)
+            spos, smass, mo, h, nw, grid, order, ny=ny, grid_y=grid_y,
+            rows=_occ_rows_p(ny, P, grid_y))
         probe("deposit")
         phi_slab = _slab_fft_phi(rho_local, kernel[2], group=group,
                                  grid=grid, grid_y=grid_y, ny=ny)
