@@ -214,7 +214,7 @@ import sys
 import tempfile
 import time
 
-from tpu_nbody_torch.profiling import (EventClock, bounds, card_info,
+from tpu_nbody_torch.profiling import (Recorder, bounds, card_info,
                                        device_ms, device_ops, timed_ms)
 
 N = 1_000_000       # bodies of the two-disk scene
@@ -2088,7 +2088,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
     # one pass by phase on rank 0, CUDA events; every rank enqueues on the
     # one stream, so a phase's time holds the other ranks' work enqueued
     # between rank 0's marks, which the collectives keep in step
-    clock = EventClock()
+    clock = Recorder(events=True)
 
     def probe(name):
         if grp.rank == 0:
@@ -2406,9 +2406,9 @@ def _path_f(paths, cfg, params, dev, n_sm, max_clock_hz, results):
 
 def _step_trace(eng, steps=STEPS):
     """One bench ``step(steps)`` of the pm engine on the card, twice: once
-    untraced, for its wall time and the host's enqueue time (the host clock
-    when the step's one host sync begins: ``Engine._record_stats``, wrapped
-    here for this measurement alone), and once under ``profiling.trace``,
+    untraced, for its wall time and the host's enqueue time (from the
+    call's entry to the start of its one host sync, the engine's call
+    record, ``profiling.call_records``), and once under ``profiling.trace``,
     for the device's busy time (the union of its kernels, memsets and
     copies), its busy and idle shares of the step (of the traced step's
     host time, the profiler's overhead in it, and of the untraced wall
@@ -2416,38 +2416,28 @@ def _step_trace(eng, steps=STEPS):
     most time."""
     import torch
     from tpu_nbody_torch import profiling
-    stamps = []
-    real = eng._record_stats
-
-    def record(stats):
-        stamps.append(time.perf_counter())
-        return real(stats)
-
-    eng._record_stats = record
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.step(steps)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        enqueue_ms = 1e3 * (stamps[0] - t0)
-        with tempfile.TemporaryDirectory() as d:
-            with profiling.trace(d):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step(steps)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    call = profiling.call_records()[-1]
+    enqueue_ms = 1e-6 * (call.t_sync_start - call.t_enter)
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            torch.cuda.synchronize()
+            time.sleep(profiling.TRACE_PAD_S)
+            with torch.profiler.record_function("bench_step"):
+                eng.step(steps)
                 torch.cuda.synchronize()
-                time.sleep(profiling.TRACE_PAD_S)
-                with torch.profiler.record_function("bench_step"):
-                    eng.step(steps)
-                    torch.cuda.synchronize()
-                time.sleep(profiling.TRACE_PAD_S)
-            path = os.path.join(d, "trace.json")
-            spans = profiling.trace_device_spans(path)
-            with open(path) as f:
-                marks = [e for e in json.load(f)["traceEvents"]
-                         if e.get("name") == "bench_step"
-                         and e.get("ph") == "X"
-                         and e.get("cat") != "gpu_user_annotation"]
-    finally:
-        del eng._record_stats
+            time.sleep(profiling.TRACE_PAD_S)
+        path = os.path.join(d, "trace.json")
+        spans = profiling.trace_device_spans(path)
+        with open(path) as f:
+            marks = [e for e in json.load(f)["traceEvents"]
+                     if e.get("name") == "bench_step"
+                     and e.get("ph") == "X"
+                     and e.get("cat") != "gpu_user_annotation"]
     if not marks or not spans:
         raise AssertionError(f"step trace: {len(marks)} step marks and "
                              f"{len(spans)} device operations in the trace")

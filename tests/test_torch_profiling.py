@@ -107,7 +107,7 @@ def test_timed_ms_and_event_clock(monkeypatch):
     ms = profiling.timed_ms(lambda: (calls.append(1), time.sleep(0.002)),
                             reps=3)
     assert len(calls) == 5 and 2.0 <= ms < 1000.0     # 2 warm-ups, 3 timed
-    clock = profiling.EventClock()
+    clock = profiling.Recorder(events=True)
     clock("start")
     time.sleep(0.002)
     clock("a")
@@ -116,6 +116,11 @@ def test_timed_ms_and_event_clock(monkeypatch):
     clock("a")
     out = clock.ms()
     assert set(out) == {"a", "b"} and out["a"] >= 4.0 and out["b"] >= 0.0
+    # the same marks as phases on the host clock, contiguous
+    ph = clock.phases()
+    assert [p[0] for p in ph] == ["a", "b", "a"]
+    assert all(x[2] == y[1] for x, y in zip(ph, ph[1:]))
+    assert ph[0][2] - ph[0][1] >= 2_000_000 and not hasattr(clock, "pairs")
 
 
 def test_bounds_take_the_larger_time():

@@ -53,8 +53,8 @@ def fitted_bh_pass(pos, mass, alive, cfg: SimConfig, params: Params,
     caps = caps or engine.Caps.from_config(cfg)
 
     def one(evaluate, probe=None):
-        acc, st = engine.make_bh_accel(cfg, caps, evaluate=evaluate,
-                                       probe=probe)(pos, mass, alive, params)
+        acc, st = engine.make_bh_accel(cfg, caps, evaluate=evaluate)(
+            pos, mass, alive, params, probe=probe)
         return acc, st.on_host(st.flat().tolist())
 
     for _ in range(rounds + 1):

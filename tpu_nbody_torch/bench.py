@@ -343,11 +343,12 @@ def _report(args, rep: dict, file):
           f"{err['p99']:.4e} max {err['max']:.4e}", file=file, flush=True)
 
 
-class _PairClock(profiling.EventClock):
-    """EventClock that also sums the Barnes–Hut pass's pair counts."""
+class _PairClock(profiling.Recorder):
+    """A recorder with a CUDA event at each mark that also sums the
+    Barnes–Hut pass's pair counts."""
 
     def __init__(self):
-        super().__init__()
+        super().__init__(events=True)
         self.padded = []
         self.needed = []
 

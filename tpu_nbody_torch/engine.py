@@ -28,11 +28,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 import warnings
 from typing import Callable
 
 import torch
 
+from tpu_nbody_torch import profiling
 from tpu_nbody_torch import state as state_lib
 from tpu_nbody_torch.config import CENTRAL_MASS, Params, SimConfig, f32
 from tpu_nbody_torch.models import scenes
@@ -220,18 +222,18 @@ def _inside_root(pos, origin, side):
 
 
 def make_bh_accel(cfg: SimConfig, caps: Caps, strict_parity: bool = False,
-                  evaluate: bool = True, probe=None):
-    """accel(pos, mass, alive, params) -> (acc, TraversalStats) via
-    Barnes–Hut: one tree build and one traversal with ``caps``. With
-    ``strict_parity`` bodies outside the root quad exert no force
-    (the reference's insert drops them, ``BarnesHutAlg.kt:126``) but still
-    receive one. ``evaluate`` and ``probe`` are passed to the traversal
-    (:func:`traverse.bh_accel_from_tree`); ``probe`` is also called with
-    ``"build"`` once the tree build is enqueued."""
+                  evaluate: bool = True):
+    """accel(pos, mass, alive, params, probe=None) -> (acc,
+    TraversalStats) via Barnes–Hut: one tree build and one traversal with
+    ``caps``. With ``strict_parity`` bodies outside the root quad exert no
+    force (the reference's insert drops them, ``BarnesHutAlg.kt:126``) but
+    still receive one. ``evaluate`` and the call's ``probe`` are passed to
+    the traversal (:func:`traverse.bh_accel_from_tree`); ``probe`` is also
+    called with ``"build"`` once the tree build is enqueued."""
     origin, side = _root(cfg)
     traversal = _resolve_traversal(cfg)
 
-    def accel(pos, mass, alive, params):
+    def accel(pos, mass, alive, params, probe=None):
         mass_exert = mass
         if strict_parity:
             mass_exert = torch.where(_inside_root(pos, origin, side), mass,
@@ -256,17 +258,18 @@ def make_bh_accel(cfg: SimConfig, caps: Caps, strict_parity: bool = False,
 
 
 def make_pm_accel(cfg: SimConfig, device):
-    """accel(pos, mass, alive, params, kernel=None) -> (acc, stats) via
-    the P3M solver in the original body order. Its ``prepare(params)``
-    builds the kernel hats on ``device``; the step calls it once per
-    ``step(n)`` and passes the result back as ``kernel=``."""
+    """accel(pos, mass, alive, params, kernel=None, probe=None) -> (acc,
+    stats) via the P3M solver in the original body order. Its
+    ``prepare(params)`` builds the kernel hats on ``device``; the step
+    calls it once per ``step(n)`` and passes the result back as
+    ``kernel=``."""
     origin, side = _root(cfg)
     knobs = _pm_knobs(cfg)
 
-    def accel(pos, mass, alive, params, kernel=None):
+    def accel(pos, mass, alive, params, kernel=None, probe=None):
         return mesh_lib.pm_accel(pos, mass, alive, params.G, params.soft2,
                                  origin, side, return_stats=True,
-                                 kernel=kernel, **knobs)
+                                 kernel=kernel, probe=probe, **knobs)
 
     accel.prepare = functools.partial(_kernel_hats, cfg, device=device)
     return accel
@@ -280,7 +283,7 @@ def make_allpairs_accel(implementation: str = "auto"):
         raise ValueError(f"allpairs implementation {implementation!r}: "
                          f"expected one of {ALLPAIRS_IMPLS}")
 
-    def accel(pos, mass, alive, params):
+    def accel(pos, mass, alive, params, probe=None):
         mass = torch.where(alive, mass, 0.0)
         return forces.accel_allpairs(pos, mass, params.G, params.soft2), None
 
@@ -332,6 +335,12 @@ def _make_pm_sorted_step(cfg: SimConfig, merge_heavy_cap: int) -> Callable:
     per-body arrays but not the grids. The kernel hats are computed once
     per call. Returns ``(state, stats)``, stats as 0-dim device tensors
     max-reduced over the steps; the input state is not modified.
+
+    ``probe(name)``, where given, is called at the end of each phase:
+    ``"hats"``, ``"sort"``, the force pass's phases
+    (:func:`mesh_lib.pm_accel_sorted`), then each step's ``"kick_drift"``,
+    force pass, ``"kick"``, ``"merge"`` (with the stats' maxima) and, every
+    ``pm_resort_every`` steps, ``"resort"``; last ``"unsort"``.
     """
     M = max(1, cfg.pm_mesh_every)
     H = cfg.pm_heavy_cap
@@ -356,52 +365,70 @@ def _make_pm_sorted_step(cfg: SimConfig, merge_heavy_cap: int) -> Callable:
             deconvolve=cfg.mesh_deconvolve, kernel=kernel, prev=prev,
             switch=cfg.mesh_switch)
 
-    def accel_sorted(state, params, kernel, ms, frac=None):
+    def accel_sorted(state, params, kernel, ms, probe, frac=None):
         return mesh_lib.pm_accel_sorted(
             state.pos, state.mass, state.alive, params.G, params.soft2,
             origin, side, kernel=kernel, mesh_state=ms,
-            self_correct=self_correct, stale_frac=frac, **knobs)
+            self_correct=self_correct, stale_frac=frac, probe=probe,
+            **knobs)
 
     def sort_order(state):
         codes = morton.hilbert_codes(state.pos, origin, side, state.alive)
         return torch.argsort(codes, stable=True)
 
-    def step_n(state: SimState, params: Params, n_steps: int = 1):
+    def step_n(state: SimState, params: Params, n_steps: int = 1,
+               probe=None):
         kernel = _kernel_hats(cfg, params, state.pos.device)
+        if probe is not None:
+            probe("hats")
         perm = sort_order(state)
         state = _permute(state, perm)
+        if probe is not None:
+            probe("sort")
         ms = None
         if M > 1:
             ms = mesh_state(state, params, kernel,
                             "zero" if extrap else None)
-        acc, (resc, hot, oob) = accel_sorted(state, params, kernel, ms)
+        acc, (resc, hot, oob) = accel_sorted(state, params, kernel, ms,
+                                             probe)
         heavy = torch.zeros_like(resc)
         half = params.dt * 0.5
         for i in range(n_steps):
             vel = state.vel + acc * half
             state = state._replace(pos=state.pos + vel * params.dt)
+            if probe is not None:
+                probe("kick_drift")
             frac = None
             if M > 1:
                 if i % M == 0:
                     ms = mesh_state(state, params, kernel,
                                     ms[0] if extrap else None)
                 frac = f32((i % M) / M)
-            acc, (need, h, o) = accel_sorted(state, params, kernel, ms, frac)
+            acc, (need, h, o) = accel_sorted(state, params, kernel, ms,
+                                             probe, frac)
             state = state._replace(vel=vel + acc * half, step=state.step + 1)
+            if probe is not None:
+                probe("kick")
             state, hv = merge_bodies(state, params, heavy_cap=merge_heavy_cap)
+            heavy = torch.maximum(heavy, hv)
+            resc = torch.maximum(resc, need)
+            hot = torch.maximum(hot, h)
+            oob = torch.maximum(oob, o)
+            if probe is not None:
+                probe("merge")
             if (i + 1) % K == 0:
                 o_ = sort_order(state)
                 state, acc, perm = _permute(state, o_), acc[o_], perm[o_]
                 if ms is not None:
                     grids, dep_pos, dep_wmass, heavy_mask = ms
                     ms = grids, dep_pos[o_], dep_wmass[o_], heavy_mask[o_]
-            heavy = torch.maximum(heavy, hv)
-            resc = torch.maximum(resc, need)
-            hot = torch.maximum(hot, h)
-            oob = torch.maximum(oob, o)
+                if probe is not None:
+                    probe("resort")
         unsort = torch.empty_like(perm)
         unsort[perm] = torch.arange(perm.shape[0], device=perm.device)
         state = _permute(state, unsort)
+        if probe is not None:
+            probe("unsort")
         return state, {"trav": None, "heavy_need": heavy,
                        "rescue_need": resc, "rescue_hot": hot,
                        "mesh_oob": oob}
@@ -412,7 +439,7 @@ def _make_pm_sorted_step(cfg: SimConfig, merge_heavy_cap: int) -> Callable:
 def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
                  strict_parity: bool, merge_heavy_cap: int,
                  allpairs_impl: str = "auto", device="cuda") -> Callable:
-    """Build step_n(state, params, n_steps) -> (state, stats).
+    """Build step_n(state, params, n_steps, probe=None) -> (state, stats).
 
     ``stats`` holds ``"trav"`` (a TraversalStats for bh, else None) and the
     :data:`STAT_KEYS`, all 0-dim device tensors max-reduced over the force
@@ -424,7 +451,12 @@ def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
     (:func:`tree_lib.strict_parity_nudge`) moves the positions once per
     step before the force pass; under kdk_reuse the carried acceleration is
     then that of the un-nudged positions, an O(1e-3 px) mismatch.
-    ``device`` is where the pm kernel hats are built.
+    ``device`` is where the pm kernel hats are built. ``probe(name)``,
+    where given, is called at the end of each phase: the generic step's
+    ``"hats"`` (pm), each force pass's own (bh: ``"build"`` and the
+    traversal's; pm: :func:`mesh_lib.pm_accel`'s), ``"kick_drift"`` as a
+    step's force pass begins (none before the kdk_reuse seed), ``"kick"``
+    when the integrator returns and ``"merge"`` with the stats' maxima.
     """
     if (solver == "pm" and integrator == "kdk_reuse"
             and cfg.pm_persistent_sort):
@@ -452,15 +484,24 @@ def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
         nudge = functools.partial(tree_lib.strict_parity_nudge,
                                   origin=origin, root_side=side)
 
-    def step_n(state: SimState, params: Params, n_steps: int = 1):
+    def step_n(state: SimState, params: Params, n_steps: int = 1,
+               probe=None):
         dev = state.pos.device
         extra = {} if prepare is None else {"kernel": prepare(params)}
+        if prepare is not None and probe is not None:
+            probe("hats")
         passes = []
 
-        def accel(pos, mass, alive, params):
-            acc, st = accel_stats(pos, mass, alive, params, **extra)
+        def seed(pos, mass, alive, params):
+            acc, st = accel_stats(pos, mass, alive, params, probe=probe,
+                                  **extra)
             passes.append(st)
             return acc
+
+        def accel(pos, mass, alive, params):
+            if probe is not None:
+                probe("kick_drift")
+            return seed(pos, mass, alive, params)
 
         def pass_stats():
             st = functools.reduce(_max_stats,
@@ -471,7 +512,7 @@ def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
 
         agg = _split_aux(None, dev)
         if integrator == "kdk_reuse":
-            acc = accel(state.pos, state.mass, state.alive, params)  # seed
+            acc = seed(state.pos, state.mass, state.alive, params)
             agg = pass_stats()
         for _ in range(n_steps):
             if nudge is not None:
@@ -481,10 +522,14 @@ def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
                                                       accel)
             else:
                 state = _INTEGRATORS[integrator](state, params, accel)
+            if probe is not None:
+                probe("kick")
             st = pass_stats()
             state, st["heavy_need"] = merge_bodies(
                 state, params, heavy_cap=merge_heavy_cap)
             agg = _max_stats(agg, st)
+            if probe is not None:
+                probe("merge")
         return state, agg
 
     return step_n
@@ -552,14 +597,22 @@ class Engine:
             self.strict_parity, self.merge_heavy_cap, self.allpairs_impl,
             self.device)
 
-    def _record_stats(self, stats) -> dict:
+    def _record_stats(self, stats, syncs=None, probe=None) -> dict:
         """Read the step's stats to the host in one transfer (the one host
-        sync of a ``step(n)``) and keep them as ``last_*``."""
+        sync of a ``step(n)``) and keep them as ``last_*``. The host
+        clock's (start, end) of the read is appended to ``syncs``, and
+        ``probe`` marks ``"stats"`` after it."""
         trav = stats["trav"]
         parts = [torch.stack([stats[k].to(torch.int64) for k in STAT_KEYS])]
         if trav is not None:
             parts.append(trav.flat())
-        vals = torch.cat(parts).tolist()
+        flat = torch.cat(parts)
+        t0 = time.time_ns()
+        vals = flat.tolist()
+        if syncs is not None:
+            syncs.append((t0, time.time_ns()))
+        if probe is not None:
+            probe("stats")
         rec = dict(zip(STAT_KEYS, vals))
         rec["trav"] = None if trav is None \
             else trav.on_host(vals[len(STAT_KEYS):])
@@ -622,13 +675,21 @@ class Engine:
 
     def step(self, n: int = 1):
         """Advance ``n`` steps. Regrows the BH caps and the merge heavy cap
-        on overflow."""
+        on overflow. Keeps a :class:`profiling.CallRecord` of the call in
+        :data:`profiling.RECORDER`, and, while the recorder is active,
+        marks each phase of the call there."""
+        t_enter = time.time_ns()
+        probe = profiling.RECORDER.call_probe()
+        syncs = []
 
         def run():
-            state, stats = self._step_fn(self.state, self.params, n_steps=n)
-            return state, self._record_stats(stats)
+            state, stats = self._step_fn(self.state, self.params, n_steps=n,
+                                         probe=probe)
+            return state, self._record_stats(stats, syncs, probe)
 
-        return self._run_with_retune(run)
+        out = self._run_with_retune(run)
+        profiling.RECORDER.record_call(t_enter, syncs, n, probe is not None)
+        return out
 
     def step_stream(self, n: int = 1):
         """The same loop as :meth:`step`. The JAX engine steps here through

@@ -630,7 +630,7 @@ def _rescue_select(spos, smass, salive, a, *, band: int, k: int,
 
 def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
                   chunk: int, k_hot: int = 0, hot_cap: int = 128,
-                  switch: str = "exp4"):
+                  switch: str = "exp4", probe=None):
     """Exact short-range rescue for pairs more than one block apart in
     sorted order.
 
@@ -649,6 +649,9 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
     ranks ``k..k_hot-1`` of the same closest-first ranking, added into
     their rows with ``index_add_``; hot blocks past ``hot_cap`` stay at the
     base tier. See the JAX version for the measurements behind the design.
+
+    ``probe(name)``, where given, marks the end of ``"select"`` and of
+    ``"rescue"`` (the pair sums).
     """
     _check_switch(switch)
     cap = spos.shape[0]
@@ -656,6 +659,8 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
     dev = spos.device
     sel = _rescue_select(spos, smass, salive, a, band=band, k=k, chunk=chunk,
                          k_hot=k_hot)
+    if probe is not None:
+        probe("select")
     rows, k, cnt_all = sel.rows, sel.k, sel.cnt
     B = cnt_all.shape[0]
     tid = torch.arange(B, device=dev)
@@ -679,6 +684,8 @@ def _block_rescue(spos, smass, salive, soft2, a, *, band: int, k: int,
                   + torch.arange(S, device=dev)[None, :]).reshape(-1)
         acc.index_add_(0, rows_h, torch.where(hvalid[:, None, None], acc2,
                                               0.0).reshape(-1, 2))
+    if probe is not None:
+        probe("rescue")
     return acc[:cap], sel.need, sel.hot
 
 
@@ -1138,18 +1145,25 @@ def _mesh_grids_one(spos, smass, origin, h, nw, grid, order, kernel,
 
 
 def _mesh_grids_cells(spos, smass, origin, h, nw, grid, order, kernel,
-                      ny=None):
+                      ny=None, probe=None):
     """:func:`_mesh_grids_one` that also returns the cells of its
     deposit: ``(fx, fy, base, w)``, so a fresh pass computes them once
-    (:func:`deposit_cells`)."""
+    (:func:`deposit_cells`). ``probe(name)``, where given, marks the end
+    of ``"deposit"``, ``"fft"`` and ``"fd"``."""
     ny = nw if ny is None else ny
     grid_y = grid if ny == nw else 2 * ny
     reach = 1 if order == 3 else 0  # TSC reads one more row/col of (fx, fy)
     rho, base, w = deposit_cells(spos, smass, origin, h, nw, grid, order,
                                  ny=ny, grid_y=grid_y)
+    if probe is not None:
+        probe("deposit")
     _, _, phi_hat = kernel
     pw = _conv_potential(rho, phi_hat, ny, grid, grid_y, extra=reach)
+    if probe is not None:
+        probe("fft")
     fx, fy = _fd_gradient(pw, h, nw, ny, reach)
+    if probe is not None:
+        probe("fd")
     return fx, fy, base, w
 
 
@@ -1220,14 +1234,18 @@ def _fd_window_ref(src, h, rows, cols):
 
 
 def _mesh_force(spos, smass, origin, h, nw, grid, soft2, a, order, kernel,
-                ny=None):
+                ny=None, probe=None):
     """Deposit -> FFT convolution -> interpolate, one grid registration.
     Deposit and interpolation use the same assignment, so a body's own
     image exerts no force on it; the interpolation reuses the deposit's
-    cells."""
+    cells. ``probe(name)``, where given, marks the end of ``"deposit"``,
+    ``"fft"``, ``"fd"`` and ``"interp"``."""
     fx, fy, base, w = _mesh_grids_cells(spos, smass, origin, h, nw, grid,
-                                        order, kernel, ny=ny)
-    return _interp_packed(fx, fy, base, w, nw, ny=ny)
+                                        order, kernel, ny=ny, probe=probe)
+    out = _interp_packed(fx, fy, base, w, nw, ny=ny)
+    if probe is not None:
+        probe("interp")
+    return out
 
 
 def _pm_geometry(origin, root_side, mesh_level, mesh_ny, split_cells):
@@ -1354,7 +1372,7 @@ def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
                     rescue_hot_cap: int = 128, mesh_ny: int = 0,
                     deconvolve: bool = True, kernel=None, mesh_state=None,
                     heavy_cap: int = 0, self_correct: bool = True,
-                    stale_frac=None, switch: str = "exp4"):
+                    stale_frac=None, switch: str = "exp4", probe=None):
     """P3M acceleration in the Hilbert-SORTED frame: (n, 2) -> (n, 2).
 
     The body arrays must already be in Hilbert order over the root quad
@@ -1370,6 +1388,11 @@ def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
     stale self-term is cancelled (``self_correct``) and the heavy bodies'
     F_long is summed directly. ``heavy_cap > 0`` without a state builds a
     fresh one. ``heavy_cap`` must match the state's.
+
+    ``probe(name)``, where given, marks the end of each phase: the long
+    range's ``"deposit"``, ``"fft"``, ``"fd"`` and ``"interp"`` (a carried
+    state's whole long range is one ``"interp"``), then ``"band"``, and
+    with a rescue its ``"select"`` and ``"rescue"``.
     """
     _check_switch(switch)
     dtype, dev = spos.dtype, spos.device
@@ -1389,11 +1412,11 @@ def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
                                   deconv_order=order if deconvolve else 0,
                                   switch=switch)
         acc_mesh = _mesh_force(spos, smass, morigin, h, nw, grid, soft2, a,
-                               order, kernel, ny=ny)
+                               order, kernel, ny=ny, probe=probe)
         if interlace:
             acc_mesh = 0.5 * (acc_mesh + _mesh_force(
                 spos, smass, _interlaced(morigin, h), h, nw, grid, soft2, a,
-                order, kernel, ny=ny))
+                order, kernel, ny=ny, probe=probe))
     else:
         # Carried (or freshly built) grids + fresh heavy sum + stale
         # self-term cancellation.
@@ -1418,16 +1441,20 @@ def pm_accel_sorted(spos, smass, salive, G, soft2, origin, root_side, *,
             acc_mesh = acc_mesh + _heavy_direct(spos, smass, salive,
                                                 heavy_mask, soft2, a,
                                                 heavy_cap, switch=switch)
+        if probe is not None:
+            probe("interp")
 
     acc_short = band_ops.band_short_range(spos, smass, soft2, a, band=band,
                                           chunk=chunk, switch=switch)
     rescue_need = torch.zeros((), dtype=torch.int32, device=dev)
     hot_count = torch.zeros((), dtype=torch.int32, device=dev)
+    if probe is not None:
+        probe("band")
     if rescue_k:
         acc_r, rescue_need, hot_count = _block_rescue(
             spos, smass, salive, soft2, a, band=band, k=rescue_k,
             chunk=chunk, k_hot=rescue_k_hot, hot_cap=rescue_hot_cap,
-            switch=switch)
+            switch=switch, probe=probe)
         acc_short = acc_short + acc_r
 
     acc = (acc_mesh + acc_short) * salive[:, None].to(dtype)
@@ -1440,23 +1467,29 @@ def pm_accel(pos, mass, alive, G, soft2, origin, root_side, *,
              rescue_k_hot: int = 0, rescue_hot_cap: int = 128,
              mesh_ny: int = 0, deconvolve: bool = True,
              return_stats: bool = False, kernel=None, heavy_cap: int = 0,
-             switch: str = "exp4"):
+             switch: str = "exp4", probe=None):
     """P3M acceleration in the original body order, (n, 2) -> (n, 2).
 
     Sorts by Hilbert code, runs :func:`pm_accel_sorted` and unsorts. With
     ``return_stats`` also returns ``{"rescue_need", "rescue_hot",
-    "mesh_oob"}``. Parameters as in ``tpu_nbody.ops.mesh.pm_accel``.
+    "mesh_oob"}``. Parameters as in ``tpu_nbody.ops.mesh.pm_accel``;
+    ``probe(name)``, where given, marks ``"sort"``, the sorted pass's
+    phases and ``"unsort"``.
     """
     spos, smass, salive, unsort = _hilbert_sort(pos, mass, alive, origin,
                                                 root_side)
+    if probe is not None:
+        probe("sort")
     acc, (rescue_need, hot_count, mesh_oob) = pm_accel_sorted(
         spos, smass, salive, G, soft2, origin, root_side,
         mesh_level=mesh_level, split_cells=split_cells, band=band,
         chunk=chunk, order=order, interlace=interlace, rescue_k=rescue_k,
         rescue_k_hot=rescue_k_hot, rescue_hot_cap=rescue_hot_cap,
         mesh_ny=mesh_ny, deconvolve=deconvolve, kernel=kernel,
-        heavy_cap=heavy_cap, switch=switch)
+        heavy_cap=heavy_cap, switch=switch, probe=probe)
     out = acc[unsort]
+    if probe is not None:
+        probe("unsort")
     if return_stats:
         return out, {"rescue_need": rescue_need, "rescue_hot": hot_count,
                      "mesh_oob": mesh_oob}

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from tpu_nbody_torch import profiling
+
 # 5x5 circular sprite tiers (gpu/GPU.kt:226 point size + :242-243 round
 # sprite discard): ring 1 completes a 3x3 disc for point size >= 3, ring 2
 # the 21-pixel 5x5 disc (corners discarded) for size >= 5.
@@ -121,13 +123,18 @@ def render_frame(pos, vel, mass, alive, *, width: int, height: int,
     bodies splat as circular 3x3 / 5x5 sprites (the fragment shader's round
     discard, ``gpu/GPU.kt:242-243``). 0 (default) keeps the 1-pixel splat
     and its single-scatter cost. A body at a non-finite coordinate is off
-    screen.
+    screen. While :data:`profiling.RECORDER` is active the call is one
+    ``"render"`` phase there.
     """
-    return torch.clamp(_splat_sum(
+    probe = profiling.RECORDER.call_probe()
+    fb = torch.clamp(_splat_sum(
         pos, vel, mass, alive, width=width, height=height, view_x=view_x,
         view_y=view_y, zoom=zoom, mode=mode, speed_scale=speed_scale,
         gain=gain, size_base=size_base, size_mass_scale=size_mass_scale),
         0.0, 1.0)
+    if probe is not None:
+        probe("render")
+    return fb
 
 
 def _project_3d(pos, mass, alive, *, width: int, height: int, cam_angle=0.0,
@@ -171,7 +178,13 @@ def render_frame_3d(pos, vel, mass, alive, *, width: int, height: int,
 
 
 def to_uint8(fb):
-    return (torch.clamp(fb, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    """The frame as uint8 levels; a ``"to_uint8"`` phase of
+    :data:`profiling.RECORDER` while it is active."""
+    probe = profiling.RECORDER.call_probe()
+    out = (torch.clamp(fb, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
+    if probe is not None:
+        probe("to_uint8")
+    return out
 
 
 def render_movie(state, params, step_fn, *, n_frames: int,

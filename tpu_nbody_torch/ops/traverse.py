@@ -61,7 +61,7 @@ What differs from the JAX package, whose results it reproduces:
   the slot offsets are exact whatever the matmul precision flags are.
 * The JAX package's ``debug_stage`` timing probes are gone; ``probe``
   (a callable taking a phase name, called where that phase's work has been
-  enqueued) serves a caller that times phases with device events.
+  enqueued: ``profiling.Recorder``'s marks) reports the phases.
 """
 
 from __future__ import annotations
@@ -563,7 +563,6 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     dev = gvalid.device
     GS = group_size
     tally = getattr(probe, "pairs", None)
-    probe = probe or (lambda name: None)
 
     sizes, kcaps, lvl_map = _hier_levels(G, NC, hier_sizes, cand_caps)
     CH = sizes[-1]
@@ -587,7 +586,8 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
         rows_all, ids, cvalid, gminp.reshape(C, CH, 2).amin(dim=1),
         gmaxp.reshape(C, CH, 2).amax(dim=1), theta2, soft2, LC=LC,
         batch=min(hier_batch, C))
-    probe("lists")
+    if probe is not None:
+        probe("lists")
 
     if evaluate:
         gcp = padg(gcount, 0)
@@ -605,7 +605,8 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
         acc_rows = acc[:G]
     else:
         acc_rows = torch.zeros((G, GS, 2), dtype=tree.spos.dtype, device=dev)
-    probe("evaluate")
+    if probe is not None:
+        probe("evaluate")
 
     cand_need = torch.zeros((len(hier_sizes),), dtype=torch.int32, device=dev)
     for li, n in zip(lvl_map, lvl_needs):
@@ -1031,7 +1032,6 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
     group_cap = min(group_cap, NC)  # at most one group per node
     spos = tree.spos
     tally = getattr(probe, "pairs", None)
-    probe = probe or (lambda name: None)
 
     gvalid, gstart, gcount, n_groups = make_groups(tree, GS, group_cap)
     gmin, gmax = _group_aabb(spos, gstart, gcount, gvalid, GS)
@@ -1043,7 +1043,8 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
     leaf_max = torch.where(node_valid & (tree.child < 0), tree.count,
                            0).max()
     zero = torch.zeros((), dtype=i32, device=dev)
-    probe("groups")
+    if probe is not None:
+        probe("groups")
 
     if traversal == "hier":
         acc_rows, needs = _hier_accel(
@@ -1058,7 +1059,8 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
             group_need=n_groups, node_need=tree.node_need,
             group_size_need=leaf_max, cand_need=needs["cand_need"])
         out = G * _assemble(tree, acc_rows, gstart, GS, group_cap)
-        probe("assemble")
+        if probe is not None:
+            probe("assemble")
         return out, stats
 
     # Chunk the traversal over groups: the BFS path's per-wave temporaries
@@ -1089,7 +1091,8 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
     approx, a_len, pslots, pvalid, d_need, f_need, a_need, l_need = (
         torch.cat(x) for x in zip(*parts))
     del parts
-    probe("lists")
+    if probe is not None:
+        probe("lists")
 
     # ---- force evaluation, chunked over groups (pure gather + math) ----
     bpos, _ = _group_bodies(spos, gstart, GS)                 # (G, GS, 2)
@@ -1114,7 +1117,8 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
             tally(arows.shape[0] * GS * (approx_cap + direct_body_cap),
                   (gcount[g] * gvalid[g] * (a_len[g] + pvalid[g].sum(-1)))
                   .sum())
-    probe("evaluate")
+    if probe is not None:
+        probe("evaluate")
 
     stats = TraversalStats(
         approx_need=a_need.max(), leaf_need=l_need.max(),
@@ -1122,7 +1126,8 @@ def bh_accel_from_tree(tree: Tree, theta, soft2, G, *, group_size: int,
         group_need=n_groups, node_need=tree.node_need,
         group_size_need=leaf_max)
     out = G * _assemble(tree, acc_rows, gstart, GS, group_cap)
-    probe("assemble")
+    if probe is not None:
+        probe("assemble")
     return out, stats
 
 

@@ -222,7 +222,6 @@ def _pm_accel_local_sorted(spos, smass, salive, G, soft2, origin, root_side,
         raise ValueError("TSC (mesh_order=3) runs on one device only: the "
                          "sharded FD window and tables are sized for the "
                          "CIC reach; use order 1 or 2 on the sharded path")
-    probe = probe or (lambda name: None)
     dtype, dev = spos.dtype, spos.device
     P = group.size
     nw, ny, grid, grid_y, h, a, morigin = mesh_ops._pm_geometry(
@@ -241,14 +240,18 @@ def _pm_accel_local_sorted(spos, smass, salive, G, soft2, origin, root_side,
         rho_local, base, w = mesh_ops.deposit_cells(
             spos, smass, mo, h, nw, grid, order, ny=ny, grid_y=grid_y,
             rows=_occ_rows_p(ny, P, grid_y))
-        probe("deposit")
+        if probe is not None:
+            probe("deposit")
         phi_slab = _slab_fft_phi(rho_local, kernel[2], group=group,
                                  grid=grid, grid_y=grid_y, ny=ny)
-        probe("fft")
+        if probe is not None:
+            probe("fft")
         fx, fy = _fd_force_window(phi_slab, h, group=group, nw=nw, ny=ny)
-        probe("fd")
+        if probe is not None:
+            probe("fd")
         out = mesh_ops._interp_packed(fx, fy, base, w, nw, ny=ny)
-        probe("interp")
+        if probe is not None:
+            probe("interp")
         return out
 
     acc_mesh = mesh_pass(morigin)
@@ -274,7 +277,8 @@ def _pm_accel_local_sorted(spos, smass, salive, G, soft2, origin, root_side,
     acc_short = band_ops.band_short_range(
         ext[:, :2].contiguous(), ext[:, 2].contiguous(), soft2, a, band=S,
         chunk=chunk, switch=switch)[S:S + n]
-    probe("band")
+    if probe is not None:
+        probe("band")
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     rescue_need, xport_need, ximp_need = zero, zero, zero
     if rescue_k:
@@ -282,14 +286,16 @@ def _pm_accel_local_sorted(spos, smass, salive, G, soft2, origin, root_side,
             spos, smass, salive, soft2, a, band=band, k=rescue_k,
             chunk=chunk, switch=switch)
         acc_short = acc_short + acc_r
-    probe("rescue")
+    if probe is not None:
+        probe("rescue")
     if xrescue_k and P > 1:
         acc_x, xport_need, ximp_need = _cross_shard_rescue(
             spos, smass, salive, soft2, a, band=band, k=xrescue_k,
             export_cap=xrescue_export, chunk=chunk, group=group,
             switch=switch)
         acc_short = acc_short + acc_x
-    probe("xrescue")
+    if probe is not None:
+        probe("xrescue")
     acc = (acc_mesh + acc_short) * salive[:, None].to(dtype)
     return G * acc, (rescue_need, xport_need, ximp_need, mesh_oob)
 

@@ -9,11 +9,15 @@ The reference's only performance instrumentation is a wall-clock FPS counter
   finishes, so a host clock without that measures the enqueue).
 * :class:`Meter` — the FPS counter generalized to body-updates/sec.
 * :func:`trace` — context manager around ``torch.profiler`` that writes a
-  Chrome trace into a directory; :func:`trace_device_spans` reads the
-  device operations back from it, :func:`busy_us` their busy time in a
-  window, and :func:`device_ops` names the operations one call enqueues.
-* :func:`timed_ms` and :class:`EventClock` — device time by CUDA events: of
-  one call, and of the phases of one run.
+  Chrome trace, with the program's phases, into a directory;
+  :func:`trace_device_spans` reads the device operations back from it,
+  :func:`busy_us` their busy time in a window, and :func:`device_ops`
+  names the operations one call enqueues.
+* :class:`Recorder` — the port's phase marks on the profiler's clock and a
+  record of every ``Engine.step`` call (:data:`RECORDER`,
+  :func:`set_recording`, :func:`phases`, :func:`call_records`,
+  :func:`trace_us`); with ``events=True`` device time by phase.
+* :func:`timed_ms` — device time of one call by CUDA events.
 * :func:`bounds` — the least time the card could take for a piece of work
   (:data:`PEAK_FLOPS`, :data:`PEAK_BYTES`), and :func:`card_info`, the
   card's name and power limit to print beside every time.
@@ -28,9 +32,11 @@ import os
 import subprocess
 import tempfile
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
+from typing import NamedTuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Published peaks of one NVIDIA H100 SXM at its full 700 W power limit
 # (NVIDIA's data sheet): a card set below it runs slower under load.
@@ -119,14 +125,21 @@ class Meter:
         return self.rate
 
 
+# the Chrome-trace thread that :func:`trace` writes the program's phases on
+PHASE_TID = 1_000_000_000
+
+
 @contextlib.contextmanager
 def trace(log_dir: str, device="cuda"):
     """Profile the block with ``torch.profiler`` and write ``trace.json``,
     a Chrome trace, into ``log_dir``: host and card activity for a CUDA
     ``device`` (raising when there is no card), host activity alone for
-    ``device="cpu"``. Yields the profiler, whose ``key_averages()`` are
-    readable after the block. A failure of the profiler or of the block
-    propagates: nothing is swallowed."""
+    ``device="cpu"``, and the program's phases (the process-wide
+    :class:`Recorder`, switched on for the block) as ``X`` events of
+    category ``program`` on a thread of their own, on the same clock.
+    Yields the profiler, whose ``key_averages()`` are readable after the
+    block. A failure of the profiler or of the block propagates: nothing
+    is swallowed."""
     from torch.profiler import ProfilerActivity, profile
 
     from .state import check_device
@@ -135,9 +148,35 @@ def trace(log_dir: str, device="cuda"):
     if check_device(device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    prev = set_recording(True)
+    t0 = time.time_ns()
+    try:
+        with profile(activities=activities) as prof:
+            yield prof
+    finally:
+        set_recording(prev)
+    t1 = time.time_ns()
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _write_phases(path, [p for p in phases() if p[1] >= t0 and p[2] <= t1])
+
+
+def _write_phases(path: str, spans) -> None:
+    """Add ``spans`` ((name, start_ns, end_ns)) to the Chrome trace at
+    ``path`` as ``X`` events of category ``program``."""
+    with open(path) as f:
+        data = json.load(f)
+    base = data.get("baseTimeNanoseconds")
+    pid = os.getpid()
+    events = data["traceEvents"]
+    events.append(dict(ph="M", name="thread_name", pid=pid, tid=PHASE_TID,
+                       args=dict(name="program phases")))
+    for name, a, b in spans:
+        events.append(dict(ph="X", cat="program", name=name, pid=pid,
+                           tid=PHASE_TID, ts=trace_us(a, base),
+                           dur=(b - a) * 1e-3))
+    with open(path, "w") as f:
+        json.dump(data, f)
 
 
 def trace_device_spans(path: str) -> list[dict]:
@@ -235,27 +274,153 @@ def device_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return 0.5 * (times[(reps - 1) // 2] + times[reps // 2])
 
 
-class EventClock:
-    """Device time by phase: ``clock(name)`` records a CUDA event that ends
-    a phase (``"start"`` marks the beginning of the timed work), and
-    ``ms()`` gives the milliseconds spent in each name, summed. Usable as
-    the ``probe`` of the Barnes–Hut pass."""
+class CallRecord(NamedTuple):
+    """One ``Engine.step`` call on the recorder's clock (ns,
+    ``time.time_ns``): its entry, the host's wait in its stats read (the
+    last retune round's, :meth:`Engine._record_stats`), its steps, its
+    retune redos and whether the recorder was active during it."""
+    t_enter: int
+    t_sync_start: int
+    t_sync_end: int
+    steps: int
+    rounds: int
+    profiled: bool
 
-    def __init__(self):
-        self.marks = []
 
-    def __call__(self, name: str):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.marks.append((name, ev))
+# the recorder's bounds: phase marks, and call records (a 20 s window of
+# the frames cell makes about 360 calls)
+MARKS_KEPT = 1 << 18
+CALLS_KEPT = 1 << 14
+# Kineto rounds a Chrome trace's ``baseTimeNanoseconds`` down to a
+# multiple of this many seconds of Unix time; host events are written as
+# microseconds after it
+TRACE_BASE_S = 7_889_238
+
+
+class Recorder:
+    """Phase marks and call records: the port's one tracing system.
+
+    Calling the recorder, ``rec(name)``, is the ``probe(name)`` protocol
+    every phase site reports by: a mark ``(name, t_ns)`` at the end of a
+    phase, on the host clock that ``torch.profiler`` writes into its
+    Chrome trace (:func:`trace_us`). A call begins with a ``"start"``
+    mark; each later mark ends a phase that runs from the previous mark
+    of its call (:meth:`phases`), so a call's phases are contiguous.
+    Both buffers are bounded (the oldest entries go).
+
+    :data:`RECORDER` is the process-wide one: ``Engine.step``,
+    ``render_frame`` and ``to_uint8`` ask it once a call for a probe
+    (:meth:`call_probe`), which is None unless it is active: switched on
+    by :func:`set_recording` or while a ``torch.profiler`` session runs.
+    ``Engine.step`` also keeps a :class:`CallRecord` of every call,
+    active or not.
+
+    ``events=True`` also records a CUDA event at each mark, and
+    :meth:`ms` gives the device milliseconds spent in each phase name: the
+    device-time clock of ``bench`` and ``chip_smoke`` (a recorder of their
+    own, never the process-wide one). A probe with a ``pairs`` method
+    (``bench._PairClock``) also gets a Barnes–Hut pass's pair counts;
+    the recorder has none, so tracing never switches a kernel to its
+    counting variant."""
+
+    def __init__(self, events: bool = False, marks: int = MARKS_KEPT,
+                 calls: int = CALLS_KEPT):
+        self.events = events
+        self.on = False
+        self.marks = deque(maxlen=marks)
+        self.device_events = deque(maxlen=marks)
+        self.calls = deque(maxlen=calls)
+
+    def __call__(self, name: str) -> None:
+        self.marks.append((name, time.time_ns()))
+        if self.events:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.device_events.append(ev)
+
+    def active(self) -> bool:
+        return self.on or _autograd_profiler._is_profiler_enabled
+
+    def call_probe(self):
+        """The probe of one call: this recorder, after a ``"start"``
+        mark, while it is active; else None."""
+        if not self.active():
+            return None
+        self("start")
+        return self
+
+    def record_call(self, t_enter: int, syncs, steps: int,
+                    profiled: bool) -> None:
+        """Keep a call's record; ``syncs`` are the (start, end) of each
+        retune round's stats read."""
+        s0, s1 = syncs[-1]
+        self.calls.append(CallRecord(t_enter, s0, s1, steps,
+                                     len(syncs) - 1, profiled))
+
+    def phases(self) -> list:
+        """(name, start_ns, end_ns) of every phase in the buffer."""
+        out, prev = [], None
+        for name, t in self.marks:
+            if name == "start":
+                prev = t
+                continue
+            if prev is not None:
+                out.append((name, prev, t))
+            prev = t
+        return out
 
     def ms(self) -> dict:
-        self.marks[-1][1].synchronize()
+        """Device milliseconds spent in each phase name, summed
+        (``events=True``): from each mark's CUDA event to the next."""
+        evs = list(self.device_events)
+        evs[-1].synchronize()
+        names = [name for name, _ in self.marks]
         out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
+        for a, b, name in zip(evs, evs[1:], names[1:]):
             if name != "start":
                 out[name] = out.get(name, 0.0) + a.elapsed_time(b)
         return out
+
+    def clear(self) -> None:
+        self.marks.clear()
+        self.device_events.clear()
+        self.calls.clear()
+
+
+RECORDER = Recorder()
+
+
+def set_recording(on: bool) -> bool:
+    """Switch the process-wide recorder's phase marks on or off (they are
+    also on while a ``torch.profiler`` session runs); returns the previous
+    setting. Call records are kept either way."""
+    prev, RECORDER.on = RECORDER.on, bool(on)
+    return prev
+
+
+def phases() -> list:
+    """(name, start_ns, end_ns) of the process-wide recorder's phases."""
+    return RECORDER.phases()
+
+
+def call_records() -> list:
+    """The process-wide recorder's :class:`CallRecord` list, oldest
+    first."""
+    return list(RECORDER.calls)
+
+
+def trace_base_ns(t_ns: int) -> int:
+    """The ``baseTimeNanoseconds`` of a Chrome trace written at ``t_ns``
+    (Unix ns): Kineto's rule, rounded down to :data:`TRACE_BASE_S`."""
+    s = TRACE_BASE_S * 1_000_000_000
+    return t_ns // s * s
+
+
+def trace_us(t_ns: int, base_ns: int | None = None) -> float:
+    """A recorder time as a Chrome trace's ``ts`` (microseconds after the
+    trace's base, by default :func:`trace_base_ns` of ``t_ns``)."""
+    base = trace_base_ns(t_ns) if base_ns is None else base_ns
+    return (t_ns - base) * 1e-3
 
 
 def bounds(work: dict, ms: float, n_sm: int | None = None,
