@@ -41,9 +41,13 @@ n2 = 200,000):
   3440 x 1440. A PhaseTimer times its phases;
 * render: that frame and a frame of the main path's stepped N = 1M state
   (the 2400 x 800 world at 1200 x 400, speed and classic colors) are not
-  all black, agree between two renders and with the same splat on the CPU
-  (the additive sums before the clip, within RENDER_TOL of the brightest
-  pixel; the 3D projection within 1e-3 px), timed with CUDA events; a
+  all black, one launch of csrc/render.cu a frame, and the kernel's splat
+  agrees between two renders and with the plain splat on the CPU, sprites
+  off and at SPRITE_SCALE (the additive sums before the clip, within
+  RENDER_TOL of the brightest pixel; the 3D projection within 1e-3 px),
+  timed with CUDA events; the kernel at the frames cell's shape (the
+  world at 2400 x 800, its sprites) against its bound, the plain version
+  and the 21-pass index_add_ render it replaced (``_splat_row``); a
   render_movie of the main path's configuration (8 frames of 4 steps)
   leaves uint8 frames on the card that differ from first to last;
 * drift: ``tpu_nbody_torch.examples.drift_benchmark`` for solver="allpairs"
@@ -79,7 +83,8 @@ n2 = 200,000):
   tests/test_torch_bh_pairs.py
   tests/test_torch_bh_hier.py tests/test_torch_merge_kernel.py
   tests/test_torch_interp_kernel.py tests/test_torch_deposit_kernel.py
-  tests/test_torch_fd_kernel.py -q`` in a child process, which must
+  tests/test_torch_fd_kernel.py tests/test_torch_render_kernel.py -q``
+  in a child process, which must
   pass.
 
 On the way it
@@ -251,6 +256,8 @@ SPHERE_VIEW = (430, 180)    # its frame, width x height
 BIG_VIEW = (3440, 1440)     # the frame of the 2^20-body sphere
 MAIN_VIEW = (1200, 400)     # the frame of the 2400 x 800 two-disk world
 RENDER_TOL = 1e-4   # splat sums: max |diff| <= this * the brightest pixel
+SPRITE_SCALE = 1e-4  # the viewer's and the frames cell's size_mass_scale
+FRAMES_VIEW = (2400, 800)   # the frames cell's frame: the world at zoom 1
 MOMENTUM_TOL = 1e-4  # path E: |p - p0| <= this * sum m |v|
 COM_TOL = 1e-2      # path E: |com - (com0 + t p0 / M)| in px
 DRIFT_LIMIT = 1e-3  # relative energy and L_z drift of the all-pairs run
@@ -294,7 +301,8 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_merge_kernel.py",
               "tests/test_torch_interp_kernel.py",
               "tests/test_torch_deposit_kernel.py",
-              "tests/test_torch_fd_kernel.py", "-q"]
+              "tests/test_torch_fd_kernel.py",
+              "tests/test_torch_render_kernel.py", "-q"]
 # the launch counter of each kernel: (module of tpu_nbody_torch.ops,
 # attribute)
 COUNTERS = {"band": ("band", "LAUNCHES"),
@@ -308,7 +316,8 @@ COUNTERS = {"band": ("band", "LAUNCHES"),
             "merge": ("merge", "LAUNCHES"),
             "interp": ("mesh", "INTERP_LAUNCHES"),
             "deposit": ("mesh", "DEPOSIT_LAUNCHES"),
-            "fd": ("mesh", "FD_LAUNCHES")}
+            "fd": ("mesh", "FD_LAUNCHES"),
+            "render": ("render", "LAUNCHES")}
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
 # the kernels every fresh P3M force pass launches once
@@ -1691,46 +1700,99 @@ def _gif_frame_count(raw: bytes) -> int:
     return frames
 
 
-def _check_splat(name, bodies, view, mode="speed", gain=1.0):
-    """One frame of ``bodies`` = (pos2, vel, mass, alive) on the card: the
-    additive splat rendered twice and once more on the CPU from the same
-    arrays (the pixel indices are then equal and only the order of the
-    adds differs), each within RENDER_TOL of the brightest pixel; the
-    clipped frame not all black; render_frame timed with CUDA events."""
+def _check_splat(paths, path, name, bodies, view, mode="speed", gain=1.0):
+    """One frame of ``bodies`` = (pos2, vel, mass, alive) on the card, with
+    sprites off and at SPRITE_SCALE: the kernel's additive splat
+    (``render._splat_launch``, csrc/render.cu) rendered twice and the
+    plain one once on the CPU from the same arrays (the pixel indices are
+    then equal and only the order of the adds differs), each within
+    RENDER_TOL of the brightest pixel; render_frame, run as ``path`` (and
+    ``path``_sprites) of ``paths``, one kernel launch and no other, not
+    all black, its uint8 frame within 1 level of the CPU's; the frame
+    without sprites timed with CUDA events."""
     import torch
     from tpu_nbody_torch.ops import render
-    kw = dict(width=view["width"], height=view["height"],
-              view_x=view.get("view_x", 0.0), view_y=view.get("view_y", 0.0),
-              zoom=view.get("zoom", 1.0), mode=mode,
-              speed_scale=view["speed_scale"], gain=gain)
-    sums = [render._splat_sum(*bodies, size_base=1.0, size_mass_scale=0.0,
-                              **kw) for _ in range(2)]
-    cpu = render._splat_sum(*[x.cpu() for x in bodies], size_base=1.0,
-                            size_mass_scale=0.0, **kw)
-    peak = float(cpu.max())
-    again = float((sums[0] - sums[1]).abs().max())
-    host = float((sums[0].cpu() - cpu).abs().max())
-    frame = render.to_uint8(render.render_frame(*bodies, **kw))
-    lit = int((frame.sum(dim=2) > 0).sum())
-    if not (frame.device == bodies[0].device and lit > 0
-            and torch.isfinite(sums[0]).all()):
-        raise AssertionError(f"{name}: the frame is black, not finite or "
-                             f"not on the bodies' device")
-    if not (again <= RENDER_TOL * peak and host <= RENDER_TOL * peak):
-        raise AssertionError(
-            f"{name}: splat sums differ: two renders {again:.3e}, card "
-            f"against CPU {host:.3e} > {RENDER_TOL} x {peak:.3e}")
-    levels = int((frame.cpu().int() - render.to_uint8(
-        torch.clamp(cpu, 0.0, 1.0)).int()).abs().max())
-    if levels > 1:
-        raise AssertionError(f"{name}: uint8 frame {levels} levels from "
-                             f"the CPU's")
-    ms = timed_ms(lambda: render.render_frame(*bodies, **kw))
-    print(f"render {name} {kw['width']}x{kw['height']} {mode}: {ms:.3f} ms, "
-          f"{lit} lit pixels, brightest sum {peak:.1f}, two renders differ "
-          f"by {again:.3e}, card against CPU {host:.3e}, uint8 within "
-          f"{levels}", flush=True)
+    for sprites in (0.0, SPRITE_SCALE):
+        kw = dict(width=view["width"], height=view["height"],
+                  view_x=view.get("view_x", 0.0),
+                  view_y=view.get("view_y", 0.0), zoom=view.get("zoom", 1.0),
+                  mode=mode, speed_scale=view["speed_scale"], gain=gain,
+                  size_base=1.0, size_mass_scale=sprites)
+        sums = [render._splat_launch(*bodies, **kw) for _ in range(2)]
+        cpu = render._splat_sum(*[x.cpu() for x in bodies], **kw)
+        peak = float(cpu.max())
+        again = float((sums[0] - sums[1]).abs().max())
+        host = float((sums[0].cpu() - cpu).abs().max())
+        run = f"{path}_sprites" if sprites else path
+        frame = paths.run(run, lambda: render.to_uint8(
+            render.render_frame(*bodies, **kw)), need=("render",))
+        lit = int((frame.sum(dim=2) > 0).sum())
+        if paths.counts[run] != _only(render=1):
+            raise AssertionError(f"{name}: render_frame launched "
+                                 f"{paths.counts[run]}, expected one splat "
+                                 f"kernel and no other")
+        if not (frame.device == bodies[0].device and lit > 0
+                and torch.isfinite(sums[0]).all()):
+            raise AssertionError(f"{name}: the frame is black, not finite or "
+                                 f"not on the bodies' device")
+        if not (again <= RENDER_TOL * peak and host <= RENDER_TOL * peak):
+            raise AssertionError(
+                f"{name}: splat sums differ: two renders {again:.3e}, card "
+                f"against CPU {host:.3e} > {RENDER_TOL} x {peak:.3e} "
+                f"(size_mass_scale {sprites})")
+        levels = int((frame.cpu().int() - render.to_uint8(
+            torch.clamp(cpu, 0.0, 1.0)).int()).abs().max())
+        if levels > 1:
+            raise AssertionError(f"{name}: uint8 frame {levels} levels from "
+                                 f"the CPU's (size_mass_scale {sprites})")
+        if not sprites:
+            ms = timed_ms(lambda: render.render_frame(*bodies, **kw))
+        print(f"render {name} {kw['width']}x{kw['height']} {mode}, "
+              f"size_mass_scale {sprites}: {lit} lit pixels, brightest sum "
+              f"{peak:.1f}, two renders differ by {again:.3e}, card against "
+              f"CPU {host:.3e}, uint8 within {levels}", flush=True)
+    print(f"render {name}: {ms:.3f} ms a frame without sprites", flush=True)
     return ms
+
+
+def _splat_row(bodies):
+    """The kernel's row at the frames cell's shape (2400 x 800 at zoom 1,
+    speed mode, size_mass_scale SPRITE_SCALE) on ``bodies`` (the stepped
+    main path's state, in slot order, as the engine returns it): the
+    kernel's device time (the memset and the kernel) against its bound
+    (``render.splat_work``); render_frame a call on an idle card; and the
+    plain version on the card, the 21-pass index_add_ render_frame the
+    port ran before the kernel (``_splat_sum`` and its clip). No library
+    call computes the splat: ``library_ms`` is that same retired plain
+    path, the yardstick the port no longer calls, not a timing of its
+    own."""
+    import torch
+    from tpu_nbody_torch.ops import render
+    w, h = FRAMES_VIEW
+    kw = dict(width=w, height=h, view_x=0.0, view_y=0.0, zoom=1.0,
+              mode="speed", speed_scale=1.0 / 300.0, gain=1.0, size_base=1.0,
+              size_mass_scale=SPRITE_SCALE)
+    cap = bodies[0].shape[0]
+    work = render.splat_work(cap, w, h, bodies[1].shape[1])
+    out = dict(kernel_ms=device_ms(lambda: render._splat_launch(*bodies,
+                                                                **kw)),
+               frame_ms=timed_ms(lambda: render.render_frame(*bodies, **kw)),
+               plain_ms=timed_ms(lambda: torch.clamp(
+                   render._splat_sum(*bodies, **kw), 0.0, 1.0)))
+    out.update(library_ms=out["plain_ms"],
+               library="none: the plain 21-pass index_add_ render_frame "
+                       "(plain_ms), which the port no longer calls on a card")
+    b = bounds(work, out["kernel_ms"])
+    out.update(bound_ms=b["bound_ms"], pct_of_bound=b["pct_of_bound"])
+    print(f"render splat kernel {cap} slots {w}x{h} speed, size_mass_scale "
+          f"{SPRITE_SCALE}: {out['kernel_ms']:.4f} ms on the device (memset "
+          f"and kernel), bound {b['bound_ms']:.5f} ms ({b['bound_by']}: "
+          f"{work['bytes']} B, {work['flops']} flops), "
+          f"{b['pct_of_bound']:.1f}% of it; render_frame "
+          f"{out['frame_ms']:.4f} ms a call; the plain 21-pass index_add_ "
+          f"render_frame (_splat_sum and its clip; library_ms) "
+          f"{out['plain_ms']:.4f} ms", flush=True)
+    return out
 
 
 def _moments(st):
@@ -1773,10 +1835,12 @@ def _path_e(paths, params3, dev, bodies, n_sm, max_clock_hz):
     eng, frames, raw = paths.run("sphere3d_demo", demo, need=("allpairs",))
     count = _gif_frame_count(raw)
     st = eng.state
-    if paths.counts["sphere3d_demo"] != _only(allpairs=SPHERE_FRAMES):
+    if paths.counts["sphere3d_demo"] != _only(allpairs=SPHERE_FRAMES,
+                                              render=SPHERE_FRAMES):
         raise AssertionError(f"sphere3d_demo: launches "
                              f"{paths.counts['sphere3d_demo']}, expected "
-                             f"{SPHERE_FRAMES} all-pairs and no band")
+                             f"{SPHERE_FRAMES} all-pairs and splats and "
+                             f"no other")
     if not (frames.device.type == dev.type and frames.dtype == torch.uint8
             and tuple(frames.shape) == (SPHERE_FRAMES, h, w, 3)
             and count == SPHERE_FRAMES and int(frames[0].sum()) > 0
@@ -1863,8 +1927,8 @@ def _path_e(paths, params3, dev, bodies, n_sm, max_clock_hz):
               flush=True)
         view = dict(width=bw, height=bh_, speed_scale=1.0 / 10_000.0)
         out["splat_ms"] = _check_splat(
-            f"sphere N={cap}", (pos2, st.vel, st.mass, st.alive), view,
-            gain=0.6)
+            paths, "render_sphere", f"sphere N={cap}",
+            (pos2, st.vel, st.mass, st.alive), view, gain=0.6)
         fb = render.render_frame_3d(st.pos, st.vel, st.mass, st.alive,
                                     gain=0.6, **cam)
         if int((fb.sum(dim=2) > 0).sum()) == 0:
@@ -1892,9 +1956,11 @@ def _render_main(paths, cfg, params, dev, st0, stepped):
     view = dict(width=w, height=h, zoom=zoom,
                 view_y=-(h / zoom - cfg.world_h) / 2, speed_scale=1.0 / 300.0)
     bodies = (stepped.pos, stepped.vel, stepped.mass, stepped.alive)
-    out = {mode: _check_splat(f"pm_main N={int(stepped.n_alive())}", bodies,
+    out = {mode: _check_splat(paths, f"render_pm_main_{mode}",
+                              f"pm_main N={int(stepped.n_alive())}", bodies,
                               view, mode=mode)
            for mode in ("speed", "classic")}
+    out["splat_row"] = _splat_row(bodies)
 
     step_once = engine.make_step_fn(cfg, engine.Caps.from_config(cfg), "pm",
                                     "kdk_reuse", False, 64, device=dev)
@@ -1907,13 +1973,14 @@ def _render_main(paths, cfg, params, dev, st0, stepped):
         torch.cuda.synchronize()
         return final, frames, time.perf_counter() - t0
 
-    final, frames, sec = paths.run("render_movie_pm", movie, need=("band",))
-    if paths.counts["render_movie_pm"] != _only(merge=32,
+    final, frames, sec = paths.run("render_movie_pm", movie,
+                                   need=("band", "render"))
+    if paths.counts["render_movie_pm"] != _only(merge=32, render=8,
                                                 **dict.fromkeys(P3M_PASS, 64)):
         raise AssertionError(f"render_movie_pm: launches "
                              f"{paths.counts['render_movie_pm']}, expected "
                              f"64 of each of {P3M_PASS} (two passes a single "
-                             f"step) and 32 merge")
+                             f"step), 32 merge and 8 splats (one a frame)")
     if not (frames.device.type == dev.type and frames.dtype == torch.uint8
             and tuple(frames.shape) == (8, h, w, 3)
             and int(final.step) == 32 and int(frames[0].sum()) > 0
@@ -3040,6 +3107,13 @@ def main() -> int:
                            "and _fd_force_window (no Pallas original)",
              launches=launches["fd"],
              launches_by_path=paths.of("fd"), **results["fd"]),
+        dict(name="render_splat", route="cuda",
+             source="tpu_nbody_torch/csrc/render.cu",
+             replaces="tpu_nbody/ops/render.py:91",
+             replaces_kind="XLA scatter of the splat (no Pallas original; "
+                           "the port's plain _splat_sum before it)",
+             launches=paths.counts["render_movie_pm"]["render"],
+             launches_by_path=paths.of("render"), **render_ms["splat_row"]),
     ]
     print(f"render ms: 3D frame {e['frame3d_ms']:.3f} (splat alone "
           f"{e['splat_ms']:.3f}), pm_main speed {render_ms['speed']:.3f}, "

@@ -385,10 +385,11 @@ def test_engine3d_on_card_matches_cpu(cuda_device, integrator, launches):
 @pytest.mark.parametrize("mode,sprites", [("speed", 0.0), ("classic", 0.0),
                                           ("speed", 1e-3)])
 def test_render_on_card_matches_cpu(cuda_device, mode, sprites):
-    """The splat on the card (atomic adds) against the CPU's on the same
-    bodies, off-screen, negative and non-finite coordinates included: the
-    sums before the clip within 1e-4 of the brightest pixel, two renders
-    on the card likewise, the uint8 frames within 1 level."""
+    """The splat on the card (csrc/render.cu's atomic adds) against the
+    CPU's plain splat on the same bodies, off-screen, negative and
+    non-finite coordinates included: the sums before the clip within 1e-4
+    of the brightest pixel, two renders on the card likewise, the uint8
+    frames within 1 level."""
     from tpu_nbody_torch.ops import render
     g = torch.Generator().manual_seed(9)
     n = 200_000
@@ -403,8 +404,8 @@ def test_render_on_card_matches_cpu(cuda_device, mode, sprites):
               size_mass_scale=sprites)
     want = render._splat_sum(pos, vel, mass, alive, **kw)
     on_card = [t.to(cuda_device) for t in (pos, vel, mass, alive)]
-    got = render._splat_sum(*on_card, **kw)
-    again = render._splat_sum(*on_card, **kw)
+    got = render._splat_launch(*on_card, **kw)
+    again = render._splat_launch(*on_card, **kw)
     torch.cuda.synchronize()
     assert got.is_cuda and float(want.max()) > 1.0
     tol = 1e-4 * float(want.max())

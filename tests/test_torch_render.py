@@ -227,6 +227,34 @@ def test_render3d_runs():
     assert fb.shape == (16, 32, 3)
 
 
+@pytest.mark.parametrize("mode,sprites", [("speed", 0.0), ("classic", 0.0),
+                                          ("speed", 1e-3)])
+def test_render_frame_on_cpu_launches_no_kernel(mode, sprites):
+    """CPU tensors take the plain splat: no launch of csrc/render.cu is
+    counted, and the frame is the JAX package's."""
+    arrays = _bodies(6, 2000)
+    kw = dict(width=100, height=60, mode=mode, speed_scale=1 / 3000.0,
+              size_mass_scale=sprites, gain=0.3)
+    before = trender.LAUNCHES
+    got, want = _both("render_frame", arrays, **kw)
+    assert trender.LAUNCHES == before
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert got.max() > 0.0
+
+
+@pytest.mark.parametrize("vel_dim,flops,nbytes", [
+    (2, 47 * 2**20, 21 * 2**20 + 23_040_000),
+    (3, 49 * 2**20, 25 * 2**20 + 23_040_000)])
+def test_splat_work_at_the_frames_cell(vel_dim, flops, nbytes):
+    """The kernel's bound at the frames cell's shape (2^20 slots, a 2400 x
+    800 frame): a slot's 8 bytes of coordinates, 4 a velocity component,
+    4 of mass and 1 alive flag read once (22,020,096 B at vel_dim 2), the
+    2400 x 800 x 3 float32 frame written once (23,040,000 B)."""
+    work = trender.splat_work(2**20, 2400, 800, vel_dim)
+    assert work == dict(flops=flops, bytes=nbytes)
+    assert trender.splat_work(2**20, 2400, 800, 2)["bytes"] == 45_060_096
+
+
 def test_to_uint8_matches_jax():
     fb = np.linspace(-0.2, 1.2, 4001, dtype=np.float32).reshape(-1, 1)
     got, want = _both("to_uint8", (fb,))

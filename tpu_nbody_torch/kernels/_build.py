@@ -95,6 +95,9 @@ SIGNATURES = {
     "tnt_deposit_given": [_P, _P, _I, _P, _P] + [_I] * 5 + [_P],
     # src, R, W, rows, cols, c1, c2, c3, fx, fy, stream
     "tnt_fd_gradient": [_P, _I, _I, _I, _I, _F, _F, _F, _P, _P, _P],
+    # pos, vel, mass, alive, fb, n, pd, vd, width, height, mode, params
+    # (13 host floats), stream
+    "tnt_render_splat": [_P] * 5 + [_I] * 6 + [_P, _P],
 }
 
 _lib = None

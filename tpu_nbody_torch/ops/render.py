@@ -3,8 +3,22 @@
 Both reference render paths become a scatter-add into an RGB framebuffer
 on the bodies' device; only the final image crosses to the host (the
 reference GPU demo reads back ALL per-body data every frame,
-``src/main/kotlin/gpu/GPU.kt:390-411``). Plain torch: the JAX package has
-no kernel here either, and its ``.at[].add`` is ``index_add_``.
+``src/main/kotlin/gpu/GPU.kt:390-411``).
+
+On a card the splat is the hand-written ``csrc/render.cu`` (the JAX
+package has no kernel here: its ``.at[].add`` is an XLA scatter). It
+replaces :func:`_splat_sum`'s 21 ``index_add_`` passes of every slot, in
+which each slot off screen, dead or too light for a sprite ring added
+into one dummy row: on the card those were float atomics on three
+addresses, 38 ms of a 2^20-slot frame. The kernel is bound by bytes (each
+slot read once, the frame written once; :func:`splat_work`): a thread a
+slot draws only its own on-screen pixels, and the lanes of a warp that hit
+one pixel are summed before their atomics, which keeps a crowded pixel's
+float32 sum within 1e-4 of its total. A memset zeroes the frame first and a
+``clamp_`` clips it after: three device operations a frame, counted in
+:data:`LAUNCHES` once a call. CPU tensors take :func:`_splat_sum`, the
+plain version; a tensor on any other device gets the kernel or an
+exception.
 
 Color modes:
 
@@ -25,9 +39,17 @@ order: two renders of the same bodies agree to rounding, not to the bit.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from tpu_nbody_torch import profiling
+from tpu_nbody_torch.kernels import _build
+from tpu_nbody_torch.ops import band as band_ops
+
+LAUNCHES = 0        # csrc/render.cu launches: one a frame rendered on a card
+_MODES = {"speed": 0, "classic": 1}     # csrc/render.cu's Mode
 
 # 5x5 circular sprite tiers (gpu/GPU.kt:226 point size + :242-243 round
 # sprite discard): ring 1 completes a 3x3 disc for point size >= 3, ring 2
@@ -44,17 +66,32 @@ def _smoothstep(e0, e1, x):
     return t * t * (3.0 - 2.0 * t)
 
 
-def speed_colors(vel, speed_scale=1.0 / 10_000.0):
-    """Per-body RGB from the GPU shader's white->cyan->purple ramp."""
+def _palette(dtype, device):
+    """The speed ramp's white, mid (toward cyan) and fast (toward purple)
+    colours, each mixed toward white with W = 0.77."""
     def rgb(*c):
-        return torch.tensor(c, dtype=vel.dtype, device=vel.device)
+        return torch.tensor(c, dtype=dtype, device=device)
 
-    sp = torch.linalg.norm(vel, dim=-1)
-    t = torch.clamp(sp * speed_scale, 0.0, 1.0) * 5.0
     W = 0.77
     white = rgb(1.0, 1.0, 1.0)
     mid = white * W + rgb(0.0, 1.0, 1.0) * (1.0 - W)
     fast = white * W + rgb(0.65, 0.0, 0.95) * (1.0 - W)
+    return white, mid, fast
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_palette() -> tuple:
+    """mid and fast of :func:`_palette` in float32, as the six floats the
+    kernel takes (float32 products and sums: the card's are the same)."""
+    _, mid, fast = _palette(torch.float32, "cpu")
+    return tuple(mid.tolist() + fast.tolist())
+
+
+def speed_colors(vel, speed_scale=1.0 / 10_000.0):
+    """Per-body RGB from the GPU shader's white->cyan->purple ramp."""
+    sp = torch.linalg.norm(vel, dim=-1)
+    t = torch.clamp(sp * speed_scale, 0.0, 1.0) * 5.0
+    white, mid, fast = _palette(vel.dtype, vel.device)
     s1 = _smoothstep(0.0, 0.5, t)[:, None]
     s2 = _smoothstep(0.5, 1.0, t)[:, None]
     return (white * (1 - s1) + mid * s1) * (1 - s2) + fast * s2
@@ -110,6 +147,58 @@ def _splat_sum(pos, vel, mass, alive, *, width, height, view_x, view_y, zoom,
     return fb[:-1].reshape(height, width, 3)
 
 
+def _splat_launch(pos, vel, mass, alive, *, width, height, view_x, view_y,
+                  zoom, mode, speed_scale, gain, size_base, size_mass_scale):
+    """:func:`_splat_sum` by one launch of ``csrc/render.cu`` (a memset
+    of the new frame, then the kernel): the (height, width, 3) additive
+    splat before the clip, on the bodies' card. Raises on anything the
+    kernel does not take (a CPU tensor among them)."""
+    global LAUNCHES
+    if mode not in _MODES:
+        raise ValueError(f"unknown color mode {mode!r}")
+    if pos.dim() != 2 or pos.shape[1] < 2:
+        raise ValueError(f"render: pos of shape {tuple(pos.shape)}, expected "
+                         f"(n, >= 2)")
+    n, pd = pos.shape
+    vd = vel.shape[-1]
+    if vd not in (2, 3):
+        raise ValueError(f"render: vel of shape {tuple(vel.shape)}, expected "
+                         f"(n, 2) or (n, 3)")
+    if width < 0 or height < 0 or 3 * width * height >= 2**31:
+        raise ValueError(f"render: a {width} x {height} frame is past the "
+                         f"kernel's int32 pixel index")
+    dev = pos.device
+    _build.check_tensor("pos", pos, (n, pd))
+    _build.check_tensor("vel", vel, (n, vd), device=dev)
+    _build.check_tensor("mass", mass, (n,), device=dev)
+    _build.check_tensor("alive", alive, (n,), device=dev, align=1,
+                        dtype=torch.bool)
+    fb = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
+    params = (ctypes.c_float * 13)(
+        float(view_x), float(view_y), float(zoom), float(speed_scale),
+        float(gain), float(size_base), float(size_mass_scale),
+        *_kernel_palette())
+    rc = _build.library().tnt_render_splat(
+        pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), alive.data_ptr(),
+        fb.data_ptr(), n, pd, vd, width, height, _MODES[mode], params,
+        _build.stream(dev))
+    _build.check_launch("render_splat", rc)
+    with band_ops._COUNT_LOCK:
+        LAUNCHES += 1
+    return fb
+
+
+def splat_work(cap: int, width: int, height: int, vel_dim: int) -> dict:
+    """Flops and bytes of one speed-mode splat of ``cap`` slots into a
+    (height, width) frame on the card (:func:`_splat_launch`): each slot's
+    two coordinates, ``vel_dim`` velocity components, mass and alive flag
+    read once, and the float32 RGB frame written once; a slot's pixel,
+    |v|, ramp, size and centre adds, 43 + 2 ``vel_dim`` flops (the few
+    sprite rings' adds left out)."""
+    return dict(flops=(43 + 2 * vel_dim) * cap,
+                bytes=cap * (8 + 4 * vel_dim + 4 + 1) + 12 * width * height)
+
+
 def render_frame(pos, vel, mass, alive, *, width: int, height: int,
                  view_x=0.0, view_y=0.0, zoom=1.0, mode: str = "speed",
                  speed_scale=1.0 / 10_000.0, gain=1.0,
@@ -121,17 +210,19 @@ def render_frame(pos, vel, mass, alive, *, width: int, height: int,
     clamp(size_base + size_mass_scale * mass, 1, 5) — the GPU vertex
     shader's mass-scaled ``gl_PointSize`` (``gpu/GPU.kt:226``) — and heavy
     bodies splat as circular 3x3 / 5x5 sprites (the fragment shader's round
-    discard, ``gpu/GPU.kt:242-243``). 0 (default) keeps the 1-pixel splat
-    and its single-scatter cost. A body at a non-finite coordinate is off
-    screen. While :data:`profiling.RECORDER` is active the call is one
-    ``"render"`` phase there.
+    discard, ``gpu/GPU.kt:242-243``). 0 (default) keeps the 1-pixel splat.
+    A body at a non-finite coordinate is off screen. CPU tensors take the
+    plain :func:`_splat_sum`; any other device one :func:`_splat_launch`
+    (``csrc/render.cu``) or an exception. The clip is in place. While
+    :data:`profiling.RECORDER` is active the call is one ``"render"`` phase
+    there.
     """
     probe = profiling.RECORDER.call_probe()
-    fb = torch.clamp(_splat_sum(
-        pos, vel, mass, alive, width=width, height=height, view_x=view_x,
-        view_y=view_y, zoom=zoom, mode=mode, speed_scale=speed_scale,
-        gain=gain, size_base=size_base, size_mass_scale=size_mass_scale),
-        0.0, 1.0)
+    splat = _splat_sum if pos.device.type == "cpu" else _splat_launch
+    fb = splat(pos, vel, mass, alive, width=width, height=height,
+               view_x=view_x, view_y=view_y, zoom=zoom, mode=mode,
+               speed_scale=speed_scale, gain=gain, size_base=size_base,
+               size_mass_scale=size_mass_scale).clamp_(0.0, 1.0)
     if probe is not None:
         probe("render")
     return fb
