@@ -34,6 +34,10 @@ def _engine(kind):
         eng = Engine(SimConfig(**PM_CFG), Params.default(), solver="pm",
                      integrator="kdk_reuse", device="cpu")
         eng.reset_default_scene(n1=1500, n2=400)
+    elif kind == "allpairs":
+        eng = Engine(SimConfig(capacity=256), solver="allpairs",
+                     integrator="kdk_reuse", device="cpu")
+        eng.reset_default_scene(n1=150, n2=50)
     else:
         eng = Engine(SimConfig(bh_traversal=kind, **BH_CFG), solver="bh",
                      integrator="kdk_reuse", device="cpu")
@@ -51,9 +55,10 @@ def _expected(kind, n):
             if (i + 1) % PM_CFG["pm_resort_every"] == 0:
                 out.append("resort")
         return out + ["unsort", "stats"]
-    out = list(BH_PASS)
+    force = ["allpairs"] if kind == "allpairs" else BH_PASS
+    out = list(force)
     for _ in range(n):
-        out += ["kick_drift"] + BH_PASS + ["kick", "merge"]
+        out += ["kick_drift"] + force + ["kick", "merge"]
     return out + ["stats"]
 
 
@@ -80,7 +85,7 @@ def test_off_by_default_a_step_keeps_its_call_record_alone():
 
 
 @pytest.mark.parametrize("how", ["profiler", "switch"])
-@pytest.mark.parametrize("kind", ["pm", "dense", "hier"])
+@pytest.mark.parametrize("kind", ["pm", "dense", "hier", "allpairs"])
 def test_a_step_marks_its_phases_in_order(kind, how):
     eng = _engine(kind)
     profiling.RECORDER.clear()
@@ -109,7 +114,7 @@ def test_a_step_marks_its_phases_in_order(kind, how):
     assert getattr(profiling.RECORDER, "pairs", None) is None
 
 
-@pytest.mark.parametrize("kind", ["pm", "hier"])
+@pytest.mark.parametrize("kind", ["pm", "hier", "allpairs"])
 def test_the_state_is_bit_identical_with_the_recorder_on_and_off(kind):
     out = []
     for on in (False, True):

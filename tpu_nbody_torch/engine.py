@@ -276,16 +276,21 @@ def make_pm_accel(cfg: SimConfig, device):
 
 
 def make_allpairs_accel(implementation: str = "auto"):
-    """accel(pos, mass, alive, params) -> (acc, None), exact: dead masses
-    zeroed, then :func:`forces.accel_allpairs` (the kernel on the card).
-    Dead slots still receive a force, as in the JAX engine."""
+    """accel(pos, mass, alive, params, probe=None) -> (acc, None), exact:
+    dead masses zeroed, then :func:`forces.accel_allpairs` (the kernel on
+    the card). Dead slots still receive a force, as in the JAX engine.
+    ``probe``, where given, is called with ``"allpairs"`` once the pass is
+    enqueued."""
     if implementation not in ALLPAIRS_IMPLS:
         raise ValueError(f"allpairs implementation {implementation!r}: "
                          f"expected one of {ALLPAIRS_IMPLS}")
 
     def accel(pos, mass, alive, params, probe=None):
         mass = torch.where(alive, mass, 0.0)
-        return forces.accel_allpairs(pos, mass, params.G, params.soft2), None
+        acc = forces.accel_allpairs(pos, mass, params.G, params.soft2)
+        if probe is not None:
+            probe("allpairs")
+        return acc, None
 
     return accel
 
@@ -454,7 +459,8 @@ def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
     ``device`` is where the pm kernel hats are built. ``probe(name)``,
     where given, is called at the end of each phase: the generic step's
     ``"hats"`` (pm), each force pass's own (bh: ``"build"`` and the
-    traversal's; pm: :func:`mesh_lib.pm_accel`'s), ``"kick_drift"`` as a
+    traversal's; pm: :func:`mesh_lib.pm_accel`'s; allpairs:
+    ``"allpairs"``), ``"kick_drift"`` as a
     step's force pass begins (none before the kdk_reuse seed), ``"kick"``
     when the integrator returns and ``"merge"`` with the stats' maxima.
     """

@@ -11,7 +11,8 @@ pairs instead of N².
 
 :func:`accel_allpairs` launches ``csrc/allpairs.cu`` for CUDA tensors and
 runs :func:`accel_allpairs_ref` for CPU tensors; any other device raises.
-:data:`LAUNCHES` counts the kernel launches. :func:`_split_plan` chooses the
+:data:`LAUNCHES` counts the kernel launches and :data:`PAIRS` the target x
+source pairs evaluated, on either device. :func:`_split_plan` chooses the
 kernel's launch shape and :func:`pair_work` counts the work of one call.
 """
 
@@ -26,6 +27,7 @@ import torch
 from tpu_nbody_torch.kernels import _build
 
 LAUNCHES = 0
+PAIRS = 0
 # sharded ranks run as threads of one process and launch concurrently
 _COUNT_LOCK = threading.Lock()
 
@@ -94,7 +96,9 @@ def accel_allpairs(pos, mass, G, soft2, *, targets=None):
     same inputs give the same bits on every call."""
     tgt = pos if targets is None else targets
     if all(t.device.type == "cpu" for t in (pos, mass, tgt)):
-        return accel_allpairs_ref(pos, mass, G, soft2, targets=targets)
+        acc = accel_allpairs_ref(pos, mass, G, soft2, targets=targets)
+        _count(0, tgt.shape[0] * pos.shape[0])
+        return acc
     ns, dim = pos.shape
     if dim not in (2, 3):
         raise ValueError(f"dim must be 2 or 3, got {dim}")
@@ -119,7 +123,6 @@ def _card_plan(nt: int, ns: int, dim: int, device) -> SplitPlan:
 def _launch(pos, mass, soft2, tgt, plan: SplitPlan):
     """Launch the kernel with ``plan`` on checked arguments; returns the
     sums without G."""
-    global LAUNCHES
     ns, dim = pos.shape
     nt = tgt.shape[0]
     out = torch.empty((nt, dim), dtype=pos.dtype, device=pos.device)
@@ -132,9 +135,15 @@ def _launch(pos, mass, soft2, tgt, plan: SplitPlan):
         out.data_ptr(), nt, ns, dim, ctypes.c_float(float(soft2)),
         plan.splits, _build.stream(pos.device))
     _build.check_launch("allpairs", rc)
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+    _count(1, nt * ns)
     return out
+
+
+def _count(launches: int, pairs: int):
+    global LAUNCHES, PAIRS
+    with _COUNT_LOCK:
+        LAUNCHES += launches
+        PAIRS += pairs
 
 
 def potential_energy(pos, mass, G, soft2, chunk=1024):
