@@ -81,7 +81,8 @@ n2 = 200,000):
   tests/test_torch_package.py tests/test_torch_rescue_kernel.py
   tests/test_torch_rescue_select.py tests/test_torch_rescue_cull.py
   tests/test_torch_bh_pairs.py
-  tests/test_torch_bh_hier.py tests/test_torch_merge_kernel.py
+  tests/test_torch_bh_hier.py tests/test_torch_bh_lists.py
+  tests/test_torch_merge_kernel.py
   tests/test_torch_interp_kernel.py tests/test_torch_deposit_kernel.py
   tests/test_torch_fd_kernel.py tests/test_torch_render_kernel.py -q``
   in a child process, which must
@@ -131,7 +132,10 @@ On the way it
    its per-group counts of accepted nodes and direct bodies against the
    masks' exactly, its sums against the plain version (one run of the
    whole pass, seconds) and on the chunk with the most direct bodies,
-   within the same 1e-5, timed over the whole pass; the interpolation
+   within the same 1e-5, timed over the whole pass; the lists kernel at
+   the Barnes–Hut cell's shape (BH_CELL) against its plain version bit for
+   bit, timed on the device beside its bytes bound and the plain
+   version's time; the interpolation
    kernel against its plain version bit for bit on the sorted scene (the
    fresh pass from the force-grid windows in CIC, NGP and TSC, and path
    B's carried table of [T | dT] lanes with frac), the CIC pass timed
@@ -160,8 +164,9 @@ On the way it
    launch set a step of an engine that merges, two rescues, two block-box
    builds and three selections a rank's pass on the sharded P3M and two
    merge launch sets a rank's step, one all-pairs launch per all-pairs
-   force pass, hier and merge kernel launches and no other in the
-   Barnes–Hut steps), finite state and no growth of n_alive;
+   force pass, hier, lists and merge kernel launches and no other in the
+   Barnes–Hut steps, and on every path one lists launch a hier pass,
+   lists-only passes included), finite state and no growth of n_alive;
 6. measures the force error against the exact all-pairs kernel on 4096
    sampled alive bodies (tpu_nbody_torch.accuracy), failing where a mean
    is over its limit.
@@ -281,7 +286,7 @@ BENCH_RUNS = {
                 "deposit", "fd", "merge", "allpairs"), ERR_LIMIT),
     "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
     "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
-           ("allpairs", "bh_hier"), BH_ERR_LIMIT),
+           ("allpairs", "bh_hier", "bh_lists"), BH_ERR_LIMIT),
 }
 # the first words of each per-phase row the bench must print
 BENCH_PHASES = {
@@ -298,6 +303,7 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_rescue_select.py",
               "tests/test_torch_rescue_cull.py",
               "tests/test_torch_bh_pairs.py", "tests/test_torch_bh_hier.py",
+              "tests/test_torch_bh_lists.py",
               "tests/test_torch_merge_kernel.py",
               "tests/test_torch_interp_kernel.py",
               "tests/test_torch_deposit_kernel.py",
@@ -313,11 +319,18 @@ COUNTERS = {"band": ("band", "LAUNCHES"),
             "allpairs": ("forces", "LAUNCHES"),
             "bh_pairs": ("traverse", "LAUNCHES"),
             "bh_hier": ("traverse", "HIER_LAUNCHES"),
+            "bh_lists": ("traverse", "LIST_LAUNCHES"),
             "merge": ("merge", "LAUNCHES"),
             "interp": ("mesh", "INTERP_LAUNCHES"),
             "deposit": ("mesh", "DEPOSIT_LAUNCHES"),
             "fd": ("mesh", "FD_LAUNCHES"),
             "render": ("render", "LAUNCHES")}
+# the Barnes–Hut cell's configuration (its caps, groups and scene size),
+# the shape of the lists kernel's line
+BH_CELL = "nbody_bench/configs/collide1m_bh.json"
+# hier passes of the running path (traverse._hier_accel calls, lists-only
+# passes too): each launches csrc/bh_lists.cu once (``_count_hier_passes``)
+HIER_PASSES = [0]
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
 # the kernels every fresh P3M force pass launches once
@@ -389,13 +402,19 @@ class Paths:
 
     def run(self, path, fn, need=()):
         """Run ``fn()`` as ``path``; fail if a kernel named in ``need`` was
-        not launched in it."""
+        not launched in it, or the lists kernel other than once a hier
+        pass."""
         import torch
         for mod, attr in COUNTERS.values():
             setattr(_module(mod), attr, 0)
+        HIER_PASSES[0] = 0
         out = fn()
         torch.cuda.synchronize()
         self.counts[path] = launch_counts()
+        if self.counts[path]["bh_lists"] != HIER_PASSES[0]:
+            raise AssertionError(
+                f"{path}: {self.counts[path]['bh_lists']} launches of the "
+                f"lists kernel in {HIER_PASSES[0]} hier passes")
         for name in need:
             if self.counts[path][name] < 1:
                 raise AssertionError(f"{path}: the {name} kernel was never "
@@ -416,6 +435,22 @@ def launch_counts() -> dict:
     """Every kernel's launch count now."""
     return {k: getattr(_module(mod), attr)
             for k, (mod, attr) in COUNTERS.items()}
+
+
+def _count_hier_passes():
+    """Count every hier pass (a call of ``traverse._hier_accel``, lists-only
+    passes too) in HIER_PASSES, by a wrapper installed once."""
+    from tpu_nbody_torch.ops import traverse
+    real = traverse._hier_accel
+    if getattr(real, "counts_passes", False):
+        return
+
+    def counted(*args, **kw):
+        HIER_PASSES[0] += 1
+        return real(*args, **kw)
+
+    counted.counts_passes = True
+    traverse._hier_accel = counted
 
 
 def _only(**counts) -> dict:
@@ -1464,6 +1499,91 @@ def _bh_hier_shape(st, cfg, params, caps, n_sm, max_clock_hz):
     return out
 
 
+def _bh_lists_shape(dev):
+    """The lists kernel at the Barnes–Hut cell's shape (BH_CELL: its node
+    table, groups, hier sizes and candidate caps; N = 1M on the two-disk
+    scene, seed 3): on the arguments a lists-only pass hands
+    ``traverse.hier_lists``, the kernel against the plain version bit for
+    bit (the final lists, their validity and every need), the kernel per
+    call (``_per_call``: 2 + 3 x levels device operations, counted after
+    the bench) against its bytes bound (``traverse.lists_work``) and the
+    plain version's time (median of 3)."""
+    import torch
+    from tpu_nbody_torch import engine
+    from tpu_nbody_torch.config import Params, SimConfig
+    from tpu_nbody_torch.ops import traverse
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, BH_CELL)) as f:
+        cell = json.load(f)
+    sim = {k: tuple(v) if isinstance(v, list) else v
+           for k, v in cell["sim_config"].items()}
+    cfg = SimConfig(capacity=cell["capacity"], world_w=cell["world_w"],
+                    world_h=cell["world_h"], **sim)
+    params = Params.default(**cell["params"])
+    eng = _engine(cfg, params, dev, cell["n_bodies"], solver="bh",
+                  integrator="kdk_reuse")
+    seen = {}
+    real = traverse.hier_lists
+
+    def keep(*args, **kw):
+        seen.update(args=args, kw=kw)
+        return real(*args, **kw)
+
+    traverse.hier_lists = keep
+    try:
+        st = eng.state
+        engine.make_bh_accel(cfg, eng.caps, evaluate=False)(
+            st.pos, st.mass, st.alive, params)
+    finally:
+        traverse.hier_lists = real
+    args, kw = seen["args"], seen["kw"]
+    tree, gmin, gmax, theta2, soft2 = args
+    levels = traverse._lists_plan(tree.node_rows.shape[0], gmin.shape[0],
+                                  kw["sizes"], kw["kcaps"])
+
+    def kernel():
+        return traverse._lists_launch(
+            tree.node_rows, tree.n_nodes, gmin, gmax, theta2, soft2, levels,
+            kw["slots"], kw["n_slots"],
+            min(kw["leaf_list_cap"], levels[-1].K))
+
+    def plain():
+        return traverse.hier_lists_ref(*args, **kw)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    for name, g, w in zip(("ids", "cvalid", "leaf_need", "direct_need",
+                           "cand_need"),
+                          (got.ids[-1], got.cvalid, got.leaf_need,
+                           got.direct_need, got.cand_need), want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"bh_lists at the cell's shape: {name} "
+                                 f"differs from the plain version's")
+    del want
+    call = _per_call("bh_lists", kernel, 2 + 3 * len(levels))
+    plain_ms = timed_ms(plain, reps=3, warmup=1)
+    work = traverse.lists_work(levels, got.totals, int(tree.n_nodes),
+                               gmin.shape[0])
+    out = dict(ms=call["device_ms"], plain_ms=plain_ms, call=call,
+               **bounds(work, call["device_ms"]), bytes=work["bytes"],
+               flops=work["flops"], levels=[lv._asdict() for lv in levels],
+               totals_max=[int(t.max()) for t in got.totals],
+               leaf_need=int(got.leaf_need),
+               direct_need=int(got.direct_need))
+    print(f"bh_lists at the cell's shape (N={cell['n_bodies']}, levels "
+          f"{[tuple(lv) for lv in levels]}): lists, validity and needs equal "
+          f"the plain version's; {call['device_ms']:.4f} ms on the device, "
+          f"{call['call_ms']:.4f} a call, {call['host_enqueue_ms']:.4f} to "
+          f"enqueue; plain {plain_ms:.2f} ms; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}, {work['bytes'] / 1e9:.3f} GB), "
+          f"{out['pct_of_bound']:.2f}% of it; largest totals "
+          f"{out['totals_max']}, leaf_need {out['leaf_need']}, direct_need "
+          f"{out['direct_need']}", flush=True)
+    del eng, got
+    torch.cuda.empty_cache()
+    return out
+
+
 def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
     """Barnes–Hut end to end at N = 1M, then its checks (module
     docstring). Returns the timed seconds a step. Its force errors draw
@@ -1500,11 +1620,13 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
     sec, n0, n1 = paths.run("bh_engine", run, need=("bh_hier", "merge"))
     counts = paths.counts["bh_engine"]
     steps = sum(n for _, n in BH_STEPS)
-    if (counts != _only(bh_hier=counts["bh_hier"], merge=counts["merge"])
+    if (counts != _only(bh_hier=counts["bh_hier"],
+                        bh_lists=counts["bh_hier"], merge=counts["merge"])
             or counts["merge"] < steps):
         raise AssertionError(f"Barnes–Hut steps launched another kernel "
-                             f"than the hier and merge kernels, or fewer "
-                             f"than {steps} merges: {counts}")
+                             f"than the hier, lists and merge kernels, the "
+                             f"lists other than once an evaluated pass, or "
+                             f"fewer than {steps} merges: {counts}")
     st = bh.state
     if not all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel,
                                                         st.mass)):
@@ -1523,7 +1645,7 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
     results["bh_hier"] = paths.run(
         "bh_hier_check", lambda: _bh_hier_shape(st, cfg, params, bh.caps,
                                                 n_sm, max_clock_hz),
-        need=("bh_hier", "bh_pairs"))
+        need=("bh_hier", "bh_pairs", "bh_lists"))
 
     # force error of a fresh pass of the initial scene (the JAX package's
     # measurement point), from the engine's caps, against the exact
@@ -1538,8 +1660,10 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
         if not e["mean"] <= BH_ERR_LIMIT:
             raise AssertionError(f"bh: mean force error {e['mean']:.3e} > "
                                  f"{BH_ERR_LIMIT:.3e}")
-    paths.run("bh_force_error", bh_error, need=("allpairs", "bh_hier"))
+    paths.run("bh_force_error", bh_error,
+              need=("allpairs", "bh_hier", "bh_lists"))
     del bh
+    results["bh_lists"] = _bh_lists_shape(dev)
 
     # the needs of one pass on three scenes at N = 1M, caps grown to fit
     # (the lists are built and measured; no pair block is evaluated)
@@ -1552,12 +1676,16 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
               f"group_size_need {need.group_size_need}; fitted {caps}",
               flush=True)
 
-    sg = torch.Generator(device=dev).manual_seed(3)
-    needs("two-disk", st0)
-    for name, pvm in (
-            ("uniform cloud", scenes.make_uniform_cloud(sg, N)),
-            ("4-galaxy merger", scenes.multi_galaxy_merger(sg, n_total=N))):
-        needs(name, state_lib.from_arrays(*pvm, cfg.capacity, device=dev))
+    def three_scenes():
+        sg = torch.Generator(device=dev).manual_seed(3)
+        needs("two-disk", st0)
+        for name, pvm in (
+                ("uniform cloud", scenes.make_uniform_cloud(sg, N)),
+                ("4-galaxy merger",
+                 scenes.multi_galaxy_merger(sg, n_total=N))):
+            needs(name, state_lib.from_arrays(*pvm, cfg.capacity,
+                                              device=dev))
+    paths.run("bh_needs", three_scenes, need=("bh_lists",))
 
     # N = 65,536: theta = 1e-3 opens every cell, so BH is the exact sum;
     # and the dense traversal against hier
@@ -1598,7 +1726,7 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
 
     accs = {}
     paths.run("bh_dense_vs_hier", dense_and_hier,
-              need=("bh_pairs", "bh_hier"))
+              need=("bh_pairs", "bh_hier", "bh_lists"))
     diff = float((accs["hier"] - accs["dense"]).abs().max())
     scale = float(accs["dense"].abs().max())
     print(f"bh dense vs hier N={N_SMALL}: max|diff| {diff:.3e} (max|a| "
@@ -2650,6 +2778,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     t_start = time.perf_counter()
+    _count_hier_passes()
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3000,6 +3129,7 @@ def main() -> int:
                 "allpairs": paths.counts["sphere3d_engine"]["allpairs"],
                 "bh_pairs": paths.counts["bh_small_force_error"]["bh_pairs"],
                 "bh_hier": paths.counts["bh_engine"]["bh_hier"],
+                "bh_lists": paths.counts["bh_engine"]["bh_lists"],
                 "merge": paths.counts["pm_main"]["merge"],
                 "interp": paths.counts["pm_main"]["interp"],
                 "deposit": paths.counts["pm_main"]["deposit"],
@@ -3070,6 +3200,16 @@ def main() -> int:
              launches=launches["bh_hier"],
              launches_by_path=paths.of("bh_hier"), library_ms=None,
              **results["bh_hier"]),
+        dict(name="bh_lists", route="cuda",
+             source="tpu_nbody_torch/csrc/bh_lists.cu",
+             replaces="tpu_nbody/ops/traverse.py:339",
+             replaces_also="tpu_nbody/ops/traverse.py:410",
+             replaces_kind="XLA candidate refinement of _hier_lists and "
+                           "the leaf and direct needs of _hier_accel (no "
+                           "Pallas original)",
+             launches=launches["bh_lists"],
+             launches_by_path=paths.of("bh_lists"), library_ms=None,
+             **results["bh_lists"]),
         dict(name="merge", route="cuda",
              source="tpu_nbody_torch/csrc/merge.cu",
              replaces="tpu_nbody/ops/merge.py:43",

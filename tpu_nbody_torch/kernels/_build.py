@@ -61,6 +61,11 @@ SIGNATURES = {
     # gvalid, gmin, gmax, out, counts (or null), walked (or null), groups,
     # K, CH, GS, cap, NC, stage, theta2, soft2, stream
     "tnt_bh_hier": [_P] * 14 + [_I] * 7 + [_F, _F, _P],
+    # rows, n_nodes, gmin, gmax, plan (host ints), levels, ids (host
+    # pointers), totals, cvalid, needs, slots (host ints), n_slots,
+    # scratch, scratch_bytes, NC, g_pad, LC, theta2, soft2, stream
+    "tnt_bh_lists": [_P] * 5 + [_I] + [_P] * 5 + [_I, _P, _L] + [_I] * 3
+                    + [_F, _F, _P],
     # tbox, cbox, cuni, cgid (or null), cvalid (or null), mval, midx, cnt,
     # stats, count, tgid0, M, C, kh, kthr, rcut2, warps, tile, bufcap,
     # smem, grid, stream

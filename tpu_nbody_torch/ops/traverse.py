@@ -53,9 +53,14 @@ What differs from the JAX package, whose results it reproduces:
   temporary, and ``group_chunk`` and ``hier_batch`` are upper bounds. The
   kernels need no pair temporary, so on the card the budget counts the
   lists alone, and the hier kernel runs once a pass.
-* List compaction (:func:`_compact_rows`) is a cumsum and one scatter into
-  a buffer one slot wider than the list, every refused write aimed at the
-  extra slot, in place of ``top_k``: the same ascending ids.
+* The hier candidate lists and their needs (:func:`hier_lists`) are one
+  hand-written kernel on the card, ``csrc/bh_lists.cu`` (counted in
+  :data:`LIST_LAUNCHES`): per level a count, a scan and a write over
+  fixed segments of the parent lists, the needs folded into the last
+  level's write. On the CPU, and in the dense and bfs traversals
+  everywhere, list compaction (:func:`_compact_rows`) is a cumsum and one
+  scatter into a buffer one slot wider than the list, every refused write
+  aimed at the extra slot, in place of ``top_k``: the same ascending ids.
 * The partner flatten inverts the leaf-count cumsum with an integer
   ``searchsorted`` in place of the dense membership mask and its matmul, so
   the slot offsets are exact whatever the matmul precision flags are.
@@ -84,6 +89,7 @@ TRAVERSALS = ("dense", "bfs", "hier")
 
 LAUNCHES = 0    # csrc/bh_pairs.cu
 HIER_LAUNCHES = 0   # csrc/bh_hier.cu
+LIST_LAUNCHES = 0   # csrc/bh_lists.cu: one a pass's lists
 # sharded ranks run as threads of one process and launch concurrently
 _COUNT_LOCK = threading.Lock()
 _PAIRS_THREADS = 256     # threads a CTA of csrc/bh_pairs.cu aims at
@@ -94,6 +100,9 @@ _PAIRS_MAX_SPLITS = 8    # CTAs a set: its last CTA adds that many sums
 _PAIRS_SCRATCH = 32 << 20   # bytes of a call's partial sums, at most
 _HIER_MAX_GS = 2048      # targets a group csrc/bh_hier.cu holds
 _HIER_STAGE = 2048       # STAGE in csrc/bh_hier.cu: leaf bodies staged
+_LISTS_SEG = 1024        # SEG in csrc/bh_lists.cu: parent entries a CTA
+_LISTS_KIDS = 32         # KIDS in csrc/bh_lists.cu: children a CTA
+_LISTS_MAX_LEVELS = 8    # MAX_LEVELS in csrc/bh_lists.cu
 
 
 # the cap each need of :class:`TraversalStats` is held to, in field order
@@ -536,6 +545,203 @@ def _hier_needs(rows_all, ids, cvalid, bmn, bmx, theta2, soft2, *, LC: int,
     return torch.cat(l_tots).max(), torch.cat(d_tots).max()
 
 
+class ListsLevel(NamedTuple):
+    """One refinement level of ``csrc/bh_lists.cu``: ``C`` chunks, ``r``
+    of them a parent chunk, parent lists ``Kp`` wide (the node table on
+    the first level), lists ``K`` wide (``min(kcap, Kp)`` past the first
+    level, as :func:`_hier_lists` clips them), ``nseg`` segments of
+    :data:`_LISTS_SEG` parent entries and ``nblk`` blocks of
+    :data:`_LISTS_KIDS` children: a CTA each (parent, block, segment)."""
+    C: int
+    r: int
+    Kp: int
+    K: int
+    nseg: int
+    nblk: int
+
+
+def _lists_plan(NC: int, g_pad: int, sizes, kcaps) -> list:
+    """The :class:`ListsLevel` of each level of ``g_pad`` groups refined
+    at ``sizes`` groups a chunk with caps ``kcaps``, over a node table of
+    ``NC`` rows. Raises where a size does not divide the groups or the
+    size before it, or the levels are none or more than the kernel
+    holds."""
+    if not 1 <= len(sizes) == len(kcaps) <= _LISTS_MAX_LEVELS:
+        raise ValueError(f"sizes {tuple(sizes)} and kcaps {tuple(kcaps)}: "
+                         f"1 to {_LISTS_MAX_LEVELS} levels, one cap each")
+    out, Cp, Kp, prev = [], 1, NC, g_pad
+    for i, (sz, kcap) in enumerate(zip(sizes, kcaps)):
+        if sz < 1 or prev % sz or kcap < 0:
+            raise ValueError(f"level {i}: chunks of {sz} groups with cap "
+                             f"{kcap} do not refine chunks of {prev} (of "
+                             f"{g_pad} groups)")
+        C = g_pad // sz
+        K = kcap if i == 0 else min(kcap, Kp)
+        r = C // Cp
+        out.append(ListsLevel(C, r, Kp, K, -(-Kp // _LISTS_SEG),
+                              -(-r // _LISTS_KIDS)))
+        Cp, Kp, prev = C, K, sz
+    return out
+
+
+def _lists_scratch(levels) -> int:
+    """Bytes of scratch a pass of ``csrc/bh_lists.cu`` takes: every
+    level's chunk boxes (16 bytes) and segment counts, the last level's
+    direct-leaf counts and its per-chunk leaf and direct sums (4 bytes
+    each)."""
+    last = levels[-1]
+    return 16 * sum(lv.C for lv in levels) + 4 * (
+        sum(lv.C * lv.nseg for lv in levels) + last.C * (last.nseg + 2))
+
+
+class HierLists(NamedTuple):
+    """Everything ``csrc/bh_lists.cu`` writes in a pass: each level's
+    lists (C, K) int32 and exact totals (C,) int32, the last level's
+    validity (C, K) bool, the 0-dim int32 ``leaf_need`` and
+    ``direct_need`` and ``cand_need`` (n_slots,) int32."""
+    ids: tuple
+    totals: tuple
+    cvalid: torch.Tensor
+    leaf_need: torch.Tensor
+    direct_need: torch.Tensor
+    cand_need: torch.Tensor
+
+
+def hier_lists(tree: Tree, gmin, gmax, theta2, soft2, *, sizes, kcaps,
+               slots, n_slots: int, leaf_list_cap: int, hier_batch: int):
+    """The hier traversal's candidate lists and their needs.
+
+    ``gmin`` / ``gmax`` (g_pad, 2) are the group boxes padded to a whole
+    number of first-level chunks; ``sizes`` / ``kcaps`` the effective
+    levels of :func:`_hier_levels` and ``slots`` each one's entry of
+    ``cand_need`` (``n_slots`` entries, the others 0). Returns (ids (C, K)
+    int32 and cvalid (C, K) bool, the final chunks' candidates;
+    leaf_need and direct_need, 0-dim int32; cand_need (n_slots,) int32):
+    :func:`_hier_lists` and :func:`_hier_needs` (``leaf_list_cap`` leaves
+    a chunk summed, ``hier_batch`` chunks at a time).
+
+    CPU tensors take :func:`hier_lists_ref`; CUDA tensors launch
+    ``csrc/bh_lists.cu`` (:func:`_lists_launch`, counted in
+    :data:`LIST_LAUNCHES`), which gives the same bits. Dtypes, shapes,
+    levels and slots are checked on any device."""
+    rows, n_nodes = tree.node_rows, tree.n_nodes
+    f32 = torch.float32
+    for name, t, dtype in (("node_rows", rows, f32), ("gmin", gmin, f32),
+                           ("gmax", gmax, f32),
+                           ("n_nodes", n_nodes, torch.int32)):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    g_pad = gmin.shape[0]
+    for name, t, shape in (("node_rows", rows, (rows.shape[0], 14)),
+                           ("gmin", gmin, (g_pad, 2)),
+                           ("gmax", gmax, (g_pad, 2)),
+                           ("n_nodes", n_nodes, ())):
+        if t.dim() != len(shape) or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    levels = _lists_plan(rows.shape[0], g_pad, sizes, kcaps)
+    if len(slots) != len(levels) or not all(0 <= s < n_slots
+                                            for s in slots):
+        raise ValueError(f"slots {tuple(slots)}: one a level, each below "
+                         f"{n_slots}")
+    if all(t.device.type == "cpu" for t in (rows, n_nodes, gmin, gmax)):
+        return hier_lists_ref(tree, gmin, gmax, theta2, soft2, sizes=sizes,
+                              kcaps=kcaps, slots=slots, n_slots=n_slots,
+                              leaf_list_cap=leaf_list_cap,
+                              hier_batch=hier_batch)
+    dev = gmin.device
+    for name, t, shape, align in (("node_rows", rows, rows.shape, 4),
+                                  ("n_nodes", n_nodes, (), 4),
+                                  ("gmin", gmin, gmin.shape, 8),
+                                  ("gmax", gmax, gmin.shape, 8)):
+        _build.check_tensor(name, t, shape, device=dev, align=align,
+                            dtype=t.dtype)
+    out = _lists_launch(rows, n_nodes, gmin, gmax, theta2, soft2, levels,
+                        slots, n_slots, min(leaf_list_cap, levels[-1].K))
+    return (out.ids[-1], out.cvalid, out.leaf_need, out.direct_need,
+            out.cand_need)
+
+
+def hier_lists_ref(tree: Tree, gmin, gmax, theta2, soft2, *, sizes, kcaps,
+                   slots, n_slots: int, leaf_list_cap: int,
+                   hier_batch: int):
+    """Plain version of :func:`hier_lists`, same arguments and results:
+    :func:`_hier_lists`, then :func:`_hier_needs` over the final chunks'
+    boxes, and each level's need put in its slot of ``cand_need``."""
+    rows = tree.node_rows
+    ids, cvalid, C, lvl_needs = _hier_lists(
+        tree, gmin, gmax, theta2, soft2, g_pad=gmin.shape[0], sizes=sizes,
+        kcaps=kcaps)
+    CH = sizes[-1]
+    leaf_need, direct_need = _hier_needs(
+        rows, ids, cvalid, gmin.reshape(C, CH, 2).amin(dim=1),
+        gmax.reshape(C, CH, 2).amax(dim=1), theta2, soft2,
+        LC=min(leaf_list_cap, ids.shape[1]), batch=min(hier_batch, C))
+    cand_need = torch.zeros((n_slots,), dtype=torch.int32, device=rows.device)
+    for li, n in zip(slots, lvl_needs):
+        cand_need[li] = n
+    return ids, cvalid, leaf_need, direct_need, cand_need
+
+
+def _lists_launch(rows, n_nodes, gmin, gmax, theta2, soft2, levels, slots,
+                  n_slots: int, LC: int) -> HierLists:
+    """Launch ``csrc/bh_lists.cu`` on checked arguments for the
+    :class:`ListsLevel` s ``levels``: 2 + 3 x levels kernels on the
+    current stream, outputs from ``torch.empty`` (the kernels write every
+    entry), no host sync."""
+    global LIST_LAUNCHES
+    dev = rows.device
+    i32 = torch.int32
+    last = levels[-1]
+    ids = tuple(torch.empty((lv.C, lv.K), dtype=i32, device=dev)
+                for lv in levels)
+    totals = torch.empty((sum(lv.C for lv in levels),), dtype=i32,
+                         device=dev)
+    cvalid = torch.empty((last.C, last.K), dtype=torch.bool, device=dev)
+    needs = torch.empty((2 + n_slots,), dtype=i32, device=dev)
+    nbytes = _lists_scratch(levels)
+    scratch = torch.empty((nbytes // 4,), dtype=i32, device=dev)
+    n = len(levels)
+    rc = _build.library().tnt_bh_lists(
+        rows.data_ptr(), n_nodes.data_ptr(), gmin.data_ptr(),
+        gmax.data_ptr(), (ctypes.c_int * (6 * n))(*sum(levels, ())), n,
+        (ctypes.c_void_p * n)(*(t.data_ptr() for t in ids)),
+        totals.data_ptr(), cvalid.data_ptr(), needs.data_ptr(),
+        (ctypes.c_int * n)(*slots), n_slots, scratch.data_ptr(), nbytes,
+        rows.shape[0], gmin.shape[0], LC, ctypes.c_float(float(theta2)),
+        ctypes.c_float(float(soft2)), _build.stream(dev))
+    _build.check_launch("bh_lists", rc)
+    with _COUNT_LOCK:
+        LIST_LAUNCHES += 1
+    return HierLists(ids, tuple(totals.split([lv.C for lv in levels])),
+                     cvalid, needs[0], needs[1], needs[2:])
+
+
+def lists_work(levels, totals, n_nodes: int, g_pad: int) -> dict:
+    """Flops and bytes of one pass of ``csrc/bh_lists.cu`` over the
+    candidates each level reads and writes: each valid parent entry's id
+    (past the first level, whose parent is the node table) and the 5
+    floats of its node row every test reads (mass, parent cell, root
+    flag), the ``g_pad`` group boxes once a level, and each level's lists
+    at their padded width, its totals and the last level's validity
+    written once; 21 flops a MAC test of an entry against a child box.
+    ``totals`` are the levels' exact totals (host ints or tensors),
+    ``n_nodes`` the nodes in use."""
+    read = written = tests = 0
+    for i, lv in enumerate(levels):
+        if i == 0:
+            entries, per = min(n_nodes, lv.Kp), 20
+        else:
+            entries = int(torch.as_tensor(totals[i - 1]).clamp(max=lv.Kp)
+                          .sum())
+            per = 24
+        read += entries * per + g_pad * 16
+        tests += entries * lv.r
+        written += lv.C * (lv.K + 1) * 4
+    last = levels[-1]
+    return dict(flops=21 * tests, bytes=read + written + last.C * last.K)
+
+
 def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
                 group_size: int, hier_sizes, cand_caps, leaf_list_cap: int,
                 direct_body_cap: int, hier_batch: int, gcount,
@@ -543,14 +749,15 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     """BH force evaluation over hierarchical chunk candidates.
 
     Per final-level chunk (``hier_sizes[-1]`` adjacent groups) the member
-    groups share one candidate list (:func:`_hier_lists`); each group
+    groups share one candidate list (:func:`hier_lists`); each group
     accepts ``pass_g(n) & ~pass_g(parent)`` and takes the leaves with
     ``~pass_g(n)`` direct, the local monotone-MAC tests of
     :func:`_classify_dense`, so the interaction sets are the dense
     traversal's. :func:`hier_accel` evaluates them: ``csrc/bh_hier.cu`` on
     the card, which tests and walks the lists itself, and the masked-dense
-    :func:`hier_accel_ref` on the CPU. The needs are measured here
-    (:func:`_hier_needs`), ``hier_batch`` chunks at a time, whichever
+    :func:`hier_accel_ref` on the CPU. The needs come with the lists
+    (:func:`hier_lists`: ``csrc/bh_lists.cu`` on the card,
+    :func:`_hier_lists` and :func:`_hier_needs` on the CPU), whichever
     evaluates. With ``evaluate`` false no pair is summed and the
     accelerations are zeros: a pass that only measures the needs.
 
@@ -565,7 +772,6 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     tally = getattr(probe, "pairs", None)
 
     sizes, kcaps, lvl_map = _hier_levels(G, NC, hier_sizes, cand_caps)
-    CH = sizes[-1]
     g_pad = -(-G // sizes[0]) * sizes[0]
 
     def padg(x, fill):
@@ -578,14 +784,11 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     gminp = padg(gmin, big)
     gmaxp = padg(gmax, -big)
 
-    ids, cvalid, C, lvl_needs = _hier_lists(
-        tree, gminp, gmaxp, theta2, soft2, g_pad=g_pad, sizes=sizes,
-        kcaps=kcaps)
+    ids, cvalid, leaf_need, direct_need, cand_need = hier_lists(
+        tree, gminp, gmaxp, theta2, soft2, sizes=sizes, kcaps=kcaps,
+        slots=lvl_map, n_slots=len(hier_sizes), leaf_list_cap=leaf_list_cap,
+        hier_batch=hier_batch)
     LC = min(leaf_list_cap, ids.shape[1])  # a chunk's leaves are candidates
-    leaf_need, direct_need = _hier_needs(
-        rows_all, ids, cvalid, gminp.reshape(C, CH, 2).amin(dim=1),
-        gmaxp.reshape(C, CH, 2).amax(dim=1), theta2, soft2, LC=LC,
-        batch=min(hier_batch, C))
     if probe is not None:
         probe("lists")
 
@@ -608,9 +811,6 @@ def _hier_accel(tree: Tree, gstart, gvalid, gmin, gmax, theta2, soft2, *,
     if probe is not None:
         probe("evaluate")
 
-    cand_need = torch.zeros((len(hier_sizes),), dtype=torch.int32, device=dev)
-    for li, n in zip(lvl_map, lvl_needs):
-        cand_need[li] = n
     needs = {"leaf_need": leaf_need, "direct_need": direct_need,
              "cand_need": cand_need}
     return acc_rows, needs
