@@ -224,6 +224,7 @@ import sys
 import tempfile
 import time
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.profiling import (Recorder, bounds, card_info,
                                        device_ms, device_ops, timed_ms)
 
@@ -309,22 +310,6 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_deposit_kernel.py",
               "tests/test_torch_fd_kernel.py",
               "tests/test_torch_render_kernel.py", "-q"]
-# the launch counter of each kernel: (module of tpu_nbody_torch.ops,
-# attribute)
-COUNTERS = {"band": ("band", "LAUNCHES"),
-            "rescue": ("band", "RESCUE_LAUNCHES"),
-            "rescue_select": ("mesh", "SELECT_LAUNCHES"),
-            "select_unions": ("mesh", "UNION_LAUNCHES"),
-            "boxes": ("mesh", "BOXES_LAUNCHES"),
-            "allpairs": ("forces", "LAUNCHES"),
-            "bh_pairs": ("traverse", "LAUNCHES"),
-            "bh_hier": ("traverse", "HIER_LAUNCHES"),
-            "bh_lists": ("traverse", "LIST_LAUNCHES"),
-            "merge": ("merge", "LAUNCHES"),
-            "interp": ("mesh", "INTERP_LAUNCHES"),
-            "deposit": ("mesh", "DEPOSIT_LAUNCHES"),
-            "fd": ("mesh", "FD_LAUNCHES"),
-            "render": ("render", "LAUNCHES")}
 # the Barnes–Hut cell's configuration (its caps, groups and scene size),
 # the shape of the lists kernel's line
 BH_CELL = "nbody_bench/configs/collide1m_bh.json"
@@ -405,12 +390,11 @@ class Paths:
         not launched in it, or the lists kernel other than once a hier
         pass."""
         import torch
-        for mod, attr in COUNTERS.values():
-            setattr(_module(mod), attr, 0)
+        _build.LAUNCHES.clear()
         HIER_PASSES[0] = 0
         out = fn()
         torch.cuda.synchronize()
-        self.counts[path] = launch_counts()
+        self.counts[path] = _only(**_build.LAUNCHES)
         if self.counts[path]["bh_lists"] != HIER_PASSES[0]:
             raise AssertionError(
                 f"{path}: {self.counts[path]['bh_lists']} launches of the "
@@ -423,18 +407,6 @@ class Paths:
 
     def of(self, kernel):
         return {p: c[kernel] for p, c in self.counts.items()}
-
-
-def _module(name):
-    """The module of tpu_nbody_torch.ops that holds a launch counter."""
-    import importlib
-    return importlib.import_module(f"tpu_nbody_torch.ops.{name}")
-
-
-def launch_counts() -> dict:
-    """Every kernel's launch count now."""
-    return {k: getattr(_module(mod), attr)
-            for k, (mod, attr) in COUNTERS.items()}
 
 
 def _count_hier_passes():
@@ -455,7 +427,7 @@ def _count_hier_passes():
 
 def _only(**counts) -> dict:
     """Launch counts that name some kernels, the others 0."""
-    return {k: counts.get(k, 0) for k in COUNTERS}
+    return {k: counts.get(k, 0) for k in _build.KERNELS}
 
 
 def _engine(cfg, params, dev, n, **kw):
@@ -477,13 +449,13 @@ def _run_steps(eng, calls, steps, per_call, kernels, other=None):
     n0 = int(eng.state.n_alive())
     times = []
     for rep in range(calls):
-        before = launch_counts()
+        before = _build.LAUNCHES.copy()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.step(steps[rep])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        after = launch_counts()
+        after = _build.LAUNCHES.copy()
         want = {k: per_call for k in kernels}
         want.update(other or {})
         for kernel, fn in want.items():
@@ -2138,8 +2110,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
     """The sharded P3M main path at N = 1M on P_RANKS thread ranks."""
     import torch
     from tpu_nbody_torch import accuracy, engine
-    from tpu_nbody_torch.ops import band, mesh
-    from tpu_nbody_torch.ops import merge as merge_ops
+    from tpu_nbody_torch.ops import band
     from tpu_nbody_torch.parallel import mesh as pmesh
     from tpu_nbody_torch.parallel import sharded, sharded_pm
     from tpu_nbody_torch.parallel.collectives import run_spmd
@@ -2160,11 +2131,7 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
         n0 = int(se.state.n_alive())
         out = {}
         for label in ("warm-up", "timed"):
-            b0, r0 = band.LAUNCHES, band.RESCUE_LAUNCHES
-            s0, x0 = mesh.SELECT_LAUNCHES, mesh.BOXES_LAUNCHES
-            u0 = mesh.UNION_LAUNCHES
-            i0, m0 = mesh.INTERP_LAUNCHES, merge_ops.LAUNCHES
-            d0, f0 = mesh.DEPOSIT_LAUNCHES, mesh.FD_LAUNCHES
+            c0 = _build.LAUNCHES.copy()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
@@ -2174,15 +2141,10 @@ def _path_f1(paths, cfg, params, dev, grp, g, n_sm, max_clock_hz, results):
             end.record()
             torch.cuda.synchronize()
             host = time.perf_counter() - t0
-            launches = band.LAUNCHES - b0
-            rescues = band.RESCUE_LAUNCHES - r0
-            selects = mesh.SELECT_LAUNCHES - s0
-            unions = mesh.UNION_LAUNCHES - u0
-            boxes = mesh.BOXES_LAUNCHES - x0
-            interps = mesh.INTERP_LAUNCHES - i0
-            merges = merge_ops.LAUNCHES - m0
-            deposits = mesh.DEPOSIT_LAUNCHES - d0
-            fds = mesh.FD_LAUNCHES - f0
+            (launches, rescues, selects, unions, boxes, interps, merges,
+             deposits, fds) = (_build.LAUNCHES[k] - c0[k] for k in (
+                 "band", "rescue", "rescue_select", "select_unions",
+                 "boxes", "interp", "merge", "deposit", "fd"))
             print(f"  step({F_STEPS}) {label}: {host:.3f} s host, "
                   f"{start.elapsed_time(end):.1f} ms device events, "
                   f"{launches} band launches, {rescues} rescue launches, "

@@ -21,6 +21,7 @@ from nbody_bench.system import Program
 from nbody_bench.tests import tiny
 from tpu_nbody_torch.config import SimConfig
 from tpu_nbody_torch.engine import Engine
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import forces
 
 torch.set_num_threads(2)
@@ -164,10 +165,10 @@ def test_a_step_counts_its_pairs(integrator, passes):
     eng = Engine(SimConfig(capacity=cap), solver="allpairs",
                  integrator=integrator, device="cpu")
     eng.reset_default_scene(n1=150, n2=50)
-    p0, l0 = forces.PAIRS, forces.LAUNCHES
+    p0, l0 = _build.LAUNCHES["allpairs_pairs"], _build.LAUNCHES["allpairs"]
     eng.step(3)
-    assert forces.PAIRS - p0 == passes * cap * cap
-    assert forces.LAUNCHES == l0
+    assert _build.LAUNCHES["allpairs_pairs"] - p0 == passes * cap * cap
+    assert _build.LAUNCHES["allpairs"] == l0
 
 
 def test_targets_apart_from_the_sources_count_their_own_pairs():
@@ -175,6 +176,6 @@ def test_targets_apart_from_the_sources_count_their_own_pairs():
     pos = torch.rand((300, 2), generator=g) * 100
     mass = torch.rand((300,), generator=g)
     tgt = torch.rand((37, 2), generator=g) * 100
-    p0 = forces.PAIRS
+    p0 = _build.LAUNCHES["allpairs_pairs"]
     forces.accel_allpairs(pos, mass, 1.0, 1.0, targets=tgt)
-    assert forces.PAIRS - p0 == 37 * 300
+    assert _build.LAUNCHES["allpairs_pairs"] - p0 == 37 * 300

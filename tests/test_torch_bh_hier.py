@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import traverse as ttraverse
 from tpu_nbody_torch.ops import tree as ttree
 
@@ -260,12 +261,12 @@ def test_cpu_tensors_take_the_plain_version():
     """The wrapper's CPU path is hier_accel_ref, bit for bit; no launch."""
     pos, mass, alive = _bodies()
     args, kw = _captured(_torch_tree(pos, mass, alive), 0.5)
-    n0 = ttraverse.HIER_LAUNCHES
+    n0 = _build.LAUNCHES["bh_hier"]
     got = ttraverse.hier_accel(*args, **dict(kw, counts=True))
     want = ttraverse.hier_accel_ref(*args, **dict(kw, counts=True))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[2] == want[2] > 0
-    assert ttraverse.HIER_LAUNCHES == n0
+    assert _build.LAUNCHES["bh_hier"] == n0
 
 
 def _bad(args, i, x):
@@ -290,7 +291,7 @@ def test_hier_accel_refuses_tensors_off_the_cpu_and_the_card():
     """Mixed devices, or no CUDA tensor to launch on, raise; no launch."""
     pos, mass, alive = _bodies(300, 512)
     args, kw = _captured(_torch_tree(pos, mass, alive), 0.5)
-    n0 = ttraverse.HIER_LAUNCHES
+    n0 = _build.LAUNCHES["bh_hier"]
     with pytest.raises(ValueError, match="CUDA tensor"):
         ttraverse.hier_accel(*_bad(args, 0, args[0].to("meta")), **kw)
     meta = tuple(a.to("meta") if torch.is_tensor(a) else a for a in args)
@@ -298,7 +299,7 @@ def test_hier_accel_refuses_tensors_off_the_cpu_and_the_card():
         ttraverse.hier_accel(*meta, **kw)
     with pytest.raises(ValueError, match="group_size"):
         ttraverse.hier_accel(*meta, **dict(kw, group_size=4096))
-    assert ttraverse.HIER_LAUNCHES == n0
+    assert _build.LAUNCHES["bh_hier"] == n0
 
 
 def test_hier_pair_work_counts_members_times_sources():
@@ -352,11 +353,11 @@ def test_kernel_matches_plain_on_card(cuda_device, theta, group_size, n,
     the bodies in pieces whose boundaries fall inside leaves."""
     args, kw = _card_case(cuda_device, theta, group_size, n, cap)
     want, wcnt, _ = _plain(args, kw)
-    n0 = ttraverse.HIER_LAUNCHES
+    n0 = _build.LAUNCHES["bh_hier"]
     got, cnt, walked = ttraverse._hier_launch(*args, group_size, True,
                                               stage=stage)
     torch.cuda.synchronize()
-    assert ttraverse.HIER_LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["bh_hier"] == n0 + 1
     assert torch.equal(cnt, wcnt)
     _assert_close_to(got, want)
     gstart, gcount, gvalid = args[5:8]

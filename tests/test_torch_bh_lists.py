@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import traverse as ttraverse
 from tpu_nbody_torch.ops import tree as ttree
 
@@ -157,10 +158,10 @@ def test_lists_work_counts_entries_lists_and_validity():
 def test_cpu_tensors_take_the_plain_version():
     """The wrapper's CPU path is hier_lists_ref, bit for bit; no launch."""
     args, kw = _small_case()
-    n0 = ttraverse.LIST_LAUNCHES
+    n0 = _build.LAUNCHES["bh_lists"]
     got = ttraverse.hier_lists(*args, **kw)
     want = ttraverse.hier_lists_ref(*args, **kw)
-    assert ttraverse.LIST_LAUNCHES == n0
+    assert _build.LAUNCHES["bh_lists"] == n0
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
@@ -190,10 +191,10 @@ def test_cpu_tensors_take_the_plain_version():
 def test_hier_lists_refuses_bad_arguments(what, change, err):
     """Dtypes and shapes are checked on any device, before any path."""
     args, kw = _small_case()
-    n0 = ttraverse.LIST_LAUNCHES
+    n0 = _build.LAUNCHES["bh_lists"]
     with pytest.raises(err):
         ttraverse.hier_lists(*change(args), **kw)
-    assert ttraverse.LIST_LAUNCHES == n0
+    assert _build.LAUNCHES["bh_lists"] == n0
 
 
 @pytest.mark.parametrize("kw_change", [
@@ -214,12 +215,12 @@ def test_hier_lists_refuses_mixed_devices():
     """A tensor off the CPU sends the call to the kernel's checks, which
     refuse a CPU tensor beside it; the plain version is not taken."""
     args, kw = _small_case()
-    n0 = ttraverse.LIST_LAUNCHES
+    n0 = _build.LAUNCHES["bh_lists"]
     for bad in ((args[0], args[1].to("meta")) + args[2:],
                 (_meta_tree(args[0]),) + args[1:]):
         with pytest.raises(ValueError, match="CUDA tensor"):
             ttraverse.hier_lists(*bad, **kw)
-    assert ttraverse.LIST_LAUNCHES == n0
+    assert _build.LAUNCHES["bh_lists"] == n0
 
 
 def test_hier_lists_refuses_tensors_off_the_cpu_without_a_card():
@@ -228,10 +229,10 @@ def test_hier_lists_refuses_tensors_off_the_cpu_without_a_card():
     args, kw = _small_case()
     meta = (_meta_tree(args[0]), args[1].to("meta"),
             args[2].to("meta")) + args[3:]
-    n0 = ttraverse.LIST_LAUNCHES
+    n0 = _build.LAUNCHES["bh_lists"]
     with pytest.raises(ValueError, match="CUDA tensor"):
         ttraverse.hier_lists(*meta, **kw)
-    assert ttraverse.LIST_LAUNCHES == n0
+    assert _build.LAUNCHES["bh_lists"] == n0
 
 
 # ---- on the card ----
@@ -287,12 +288,12 @@ def _kernel(args, kw):
 def _assert_lists_equal(args, kw):
     """Every level's lists, validity and totals and the needs, bit for
     bit; one launch. Returns the kernel's HierLists."""
-    n0 = ttraverse.LIST_LAUNCHES
+    n0 = _build.LAUNCHES["bh_lists"]
     got = _kernel(args, kw)
     want = _plain_levels(args, kw)
     ids, cvalid, leaf, direct, cand = ttraverse.hier_lists_ref(*args, **kw)
     torch.cuda.synchronize()
-    assert ttraverse.LIST_LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["bh_lists"] == n0 + 1
     for lvl, (g_ids, g_tot, (w_ids, w_valid, w_tot)) in enumerate(
             zip(got.ids, got.totals, want)):
         K = g_ids.shape[1]
@@ -413,9 +414,9 @@ def test_hier_pass_with_kernel_lists_is_the_plain_lists_pass(cuda_device):
               approx_cap=64, leaf_list_cap=4096, direct_body_cap=1 << 16,
               group_chunk=64, traversal="hier", hier_sizes=(128, 16, 4),
               cand_caps=(8192, 4096, 2048), hier_batch=7)
-    n0 = ttraverse.LIST_LAUNCHES
+    n0 = _build.LAUNCHES["bh_lists"]
     acc, stats = ttraverse.bh_accel_from_tree(tree, 0.5, SOFT2, 80.0, **kw)
-    assert ttraverse.LIST_LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["bh_lists"] == n0 + 1
     real = ttraverse.hier_lists
     ttraverse.hier_lists = ttraverse.hier_lists_ref
     try:
@@ -424,6 +425,6 @@ def test_hier_pass_with_kernel_lists_is_the_plain_lists_pass(cuda_device):
     finally:
         ttraverse.hier_lists = real
     torch.cuda.synchronize()
-    assert ttraverse.LIST_LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["bh_lists"] == n0 + 1
     assert torch.equal(acc, acc_p) and bool(acc.abs().max() > 0)
     assert torch.equal(stats.flat(), stats_p.flat())

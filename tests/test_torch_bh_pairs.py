@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import traverse as ttraverse
 from tpu_nbody_torch.ops import tree as ttree
 
@@ -240,9 +241,9 @@ def test_point_accel_refusals():
     with pytest.raises(ValueError, match="CUDA tensor"):
         ttraverse.point_accel(tgt.to("meta"), src.to("meta"),
                               mass.to("meta"), SOFT2)
-    n0 = ttraverse.LAUNCHES
+    n0 = _build.LAUNCHES["bh_pairs"]
     ttraverse.point_accel(tgt, src, mass, SOFT2)
-    assert ttraverse.LAUNCHES == n0
+    assert _build.LAUNCHES["bh_pairs"] == n0
 
 
 @pytest.fixture
@@ -269,11 +270,11 @@ def test_point_accel_kernel_matches_plain_on_card(cuda_device, M, C, NT, S,
     tails the kernel skips, no sources at all; one launch a call."""
     tgt, src, mass = (torch.from_numpy(x).to(cuda_device) for x in
                       _inputs(M, C, NT, S, zero_frac=zero_frac, tail=tail))
-    n0 = ttraverse.LAUNCHES
+    n0 = _build.LAUNCHES["bh_pairs"]
     got = ttraverse.point_accel(tgt, src, mass, SOFT2)
     want = ttraverse._point_accel(tgt, src[:, None], mass, SOFT2)
     torch.cuda.synchronize()
-    assert ttraverse.LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["bh_pairs"] == n0 + 1
     if S == 0:
         assert not got.any()
     else:
@@ -474,14 +475,14 @@ def test_bh_pass_on_card_matches_cpu(cuda_device, trav):
     groups, hier launches csrc/bh_hier.cu once and the pair kernel never."""
     want, st = ttraverse.bh_accel_from_tree(_galaxy_tree(), 0.5, SOFT2,
                                             80.0, traversal=trav, **CAPS)
-    n0, h0 = ttraverse.LAUNCHES, ttraverse.HIER_LAUNCHES
+    n0, h0 = _build.LAUNCHES["bh_pairs"], _build.LAUNCHES["bh_hier"]
     got, st_c = ttraverse.bh_accel_from_tree(
         _galaxy_tree(device=cuda_device), 0.5, SOFT2, 80.0, traversal=trav,
         **CAPS)
     torch.cuda.synchronize()
-    launches = ttraverse.LAUNCHES - n0
+    launches = _build.LAUNCHES["bh_pairs"] - n0
     if trav == "hier":
-        assert launches == 0 and ttraverse.HIER_LAUNCHES == h0 + 1
+        assert launches == 0 and _build.LAUNCHES["bh_hier"] == h0 + 1
     else:
         assert launches >= 2 and launches % 2 == 0
     assert [int(x) for x in st_c.flat()] == [int(x) for x in st.flat()]

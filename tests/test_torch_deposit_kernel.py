@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import mesh as tmesh
 
 torch.set_num_threads(2)
@@ -453,10 +454,10 @@ def _same_bits(got, want):
 def test_cells_kernel_matches_plain_on_card(cuda_device, order, mesh):
     g = _geometry(MESHES[mesh])
     pos = _t(_bodies(MESHES[mesh], n=20000)[0]).to(cuda_device)
-    before = tmesh.DEPOSIT_LAUNCHES
+    before = _build.LAUNCHES["deposit"]
     base, w = tmesh._cic_cells(pos, g["mo"], g["h"], g["nw"], order,
                                ny=g["ny"])
-    assert tmesh.DEPOSIT_LAUNCHES == before + 1
+    assert _build.LAUNCHES["deposit"] == before + 1
     base_p, w_p = tmesh._cic_cells_ref(pos, g["mo"], g["h"], g["nw"], order,
                                        ny=g["ny"])
     _same_bits(base, base_p)
@@ -476,10 +477,10 @@ def test_deposit_cells_kernel_matches_plain_on_card(cuda_device, order, mesh,
     kw = dict(ny=g["ny"], grid_y=g["grid_y"])
     r = (tmesh.occ_rows(g["ny"], order) if rows == "occ"
          else _sharded_rows(g))
-    before = tmesh.DEPOSIT_LAUNCHES
+    before = _build.LAUNCHES["deposit"]
     rho, base, w = tmesh.deposit_cells(pos, mass, g["mo"], g["h"], g["nw"],
                                        g["grid"], order, rows=r, **kw)
-    assert tmesh.DEPOSIT_LAUNCHES == before + 1
+    assert _build.LAUNCHES["deposit"] == before + 1
     assert rho.shape == (r, g["grid"])
     base_p, w_p = tmesh._cic_cells_ref(pos, g["mo"], g["h"], g["nw"], order,
                                        ny=g["ny"])
@@ -570,10 +571,10 @@ def test_deposit_given_kernel_matches_plain_on_card(cuda_device, order,
     base, w = tmesh._cic_cells_ref(pos, g["mo"], g["h"], g["nw"], order,
                                    ny=g["ny"])
     kw = dict(ny=g["ny"], grid_y=g["grid_y"])
-    before = tmesh.DEPOSIT_LAUNCHES
+    before = _build.LAUNCHES["deposit"]
     got = tmesh._deposit_packed(mass, base.to(dtype), w, g["nw"], g["grid"],
                                 run_compress=mode, **kw)
-    assert tmesh.DEPOSIT_LAUNCHES == before + 1
+    assert _build.LAUNCHES["deposit"] == before + 1
     want = tmesh._deposit_packed_ref(mass, base, w, g["nw"], g["grid"], **kw)
     _rho_close(got.cpu().numpy(), want.cpu().numpy())
 
@@ -585,12 +586,12 @@ def test_fresh_pass_launches_on_card(cuda_device):
     g = _geometry(32)
     spos, smass, salive = (x.to(cuda_device) for x in _sorted_scene(32))
     kernel = tuple(k.to(cuda_device) for k in _kernel_hats(g, 2))
-    counts = (tmesh.DEPOSIT_LAUNCHES, tmesh.FD_LAUNCHES,
-              tmesh.INTERP_LAUNCHES)
+    counts = (_build.LAUNCHES["deposit"], _build.LAUNCHES["fd"],
+              _build.LAUNCHES["interp"])
     acc = tmesh._mesh_force(spos, smass, g["mo"], g["h"], g["nw"], g["grid"],
                             SOFT2, g["a"], 2, kernel, ny=g["ny"])
-    assert (tmesh.DEPOSIT_LAUNCHES, tmesh.FD_LAUNCHES,
-            tmesh.INTERP_LAUNCHES) == tuple(c + 1 for c in counts)
+    assert (_build.LAUNCHES["deposit"], _build.LAUNCHES["fd"],
+            _build.LAUNCHES["interp"]) == tuple(c + 1 for c in counts)
     want = tmesh._mesh_force(spos.cpu(), smass.cpu(), g["mo"], g["h"],
                              g["nw"], g["grid"], SOFT2, g["a"], 2,
                              tuple(k.cpu() for k in kernel), ny=g["ny"])

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import mesh as tmesh
 
 torch.set_num_threads(2)
@@ -161,9 +162,9 @@ def _same_bits(got, want):
 def test_fd_kernel_matches_plain_on_card(cuda_device, mesh, reach):
     g = _geometry(MESHES[mesh])
     src = _t(_potential_rows(MESHES[mesh], reach)).to(cuda_device)
-    before = tmesh.FD_LAUNCHES
+    before = _build.LAUNCHES["fd"]
     got = tmesh._fd_gradient(src, g["h"], g["nw"], g["ny"], reach)
-    assert tmesh.FD_LAUNCHES == before + 1
+    assert _build.LAUNCHES["fd"] == before + 1
     want = tmesh._fd_window_ref(src, g["h"], g["ny"] + 1 + reach,
                                 g["nw"] + 1 + reach)
     for a, b in zip(got, want):
@@ -177,9 +178,9 @@ def test_fd_window_kernel_matches_plain_on_card(cuda_device, rows, cols, W):
     rng = np.random.default_rng(rows)
     src = _t(rng.standard_normal((rows + 6, W)).astype(np.float32)).to(
         cuda_device)
-    before = tmesh.FD_LAUNCHES
+    before = _build.LAUNCHES["fd"]
     got = tmesh.fd_window(src, 0.75, rows, cols)
-    assert tmesh.FD_LAUNCHES == before + 1
+    assert _build.LAUNCHES["fd"] == before + 1
     for a, b in zip(got, tmesh._fd_window_ref(src, 0.75, rows, cols)):
         _same_bits(a, b)
 

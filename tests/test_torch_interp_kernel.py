@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import mesh as tmesh
 
 torch.set_num_threads(2)
@@ -190,9 +191,9 @@ def test_interp_windows_kernel_matches_plain_on_card(cuda_device, order,
     fx, fy = _t(g["fx"]).to(cuda_device), _t(g["fy"]).to(cuda_device)
     base = _t(g["base"]).to(cuda_device, dtype)
     w = _t(g["w"]).to(cuda_device)
-    before = tmesh.INTERP_LAUNCHES
+    before = _build.LAUNCHES["interp"]
     got = tmesh._interp_packed(fx, fy, base, w, g["nw"], ny=g["ny"])
-    assert tmesh.INTERP_LAUNCHES == before + 1
+    assert _build.LAUNCHES["interp"] == before + 1
     _same_bits(got, tmesh._interp_packed_ref(fx, fy, base, w, g["nw"],
                                              ny=g["ny"]))
 
@@ -206,9 +207,9 @@ def test_interp_table_kernel_matches_plain_on_card(cuda_device, order,
     _, tt, frac = _tables(g, order, kind)
     T = tt.to(cuda_device)
     base, w = _t(g["base"]).to(cuda_device), _t(g["w"]).to(cuda_device)
-    before = tmesh.INTERP_LAUNCHES
+    before = _build.LAUNCHES["interp"]
     got = tmesh._interp_rows(T, base, w, frac=frac)
-    assert tmesh.INTERP_LAUNCHES == before + 1
+    assert _build.LAUNCHES["interp"] == before + 1
     _same_bits(got, tmesh._interp_rows_ref(T, base, w, frac))
 
 

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from tpu_nbody_torch import config as tconfig
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import merge as tmerge
 from tpu_nbody_torch.state import SimState
 
@@ -312,11 +313,11 @@ def cuda_device():
 
 def _kernel_vs_plain(pos, mass, alive, md, hcap, dev):
     st = _state(pos, mass, alive, dev)
-    before = tmerge.LAUNCHES
+    before = _build.LAUNCHES["merge"]
     got, need = tmerge.merge_bodies(st, _params(md), heavy_cap=hcap)
     want, wneed = tmerge._merge_bodies_ref(st, _params(md), heavy_cap=hcap)
     torch.cuda.synchronize()
-    assert tmerge.LAUNCHES == before + (1 if md > 0 else 0)
+    assert _build.LAUNCHES["merge"] == before + (1 if md > 0 else 0)
     assert int(need) == int(wneed)
     assert torch.equal(got.alive, want.alive)
     torch.testing.assert_close(got.mass, want.mass, rtol=1e-6, atol=0)
@@ -368,10 +369,11 @@ def test_merge_is_one_device_op_on_card(cuda_device, name):
     from tpu_nbody_torch import profiling
     pos, mass, alive, md, hcap = _scene(name)
     st = _state(pos, mass, alive, cuda_device)
-    before = tmerge.LAUNCHES
+    before = _build.LAUNCHES["merge"]
     ops = profiling.device_ops(
         lambda: tmerge.merge_bodies(st, _params(md), heavy_cap=hcap))
-    assert tmerge.LAUNCHES == before + 2      # an untraced call, a traced
+    # an untraced call, a traced
+    assert _build.LAUNCHES["merge"] == before + 2
     assert len(ops) == 1 and "merge_kernel" in ops[0], ops
 
 

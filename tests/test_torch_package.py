@@ -4,7 +4,10 @@ counters. Tests that need a card skip here (marker ``cuda``); they also
 hold the all-pairs engine and the P3M knobs on the card against the same
 calls on the CPU."""
 
+import collections
+import concurrent.futures
 import re
+import sys
 from pathlib import Path
 
 import pytest
@@ -72,13 +75,65 @@ def test_wrappers_refuse_non_cpu_non_cuda_tensors():
         tforces.accel_allpairs(pos, mass, 80.0, 1.0)
 
 
+def test_check_launch_keeps_the_one_launch_table(monkeypatch):
+    """``_build.check_launch`` counts a launch under the kernel's name once
+    its launcher returned 0, and raises without counting on an error;
+    ``launches`` sums names; every launch site of the package passes one
+    of the fourteen names of ``_build.KERNELS`` (a grep of the sources)."""
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
+
+    class Lib:
+        def tnt_error_string(self, rc):
+            return b"invalid configuration argument"
+
+    monkeypatch.setattr(_build, "library", Lib)
+    _build.check_launch("band", 0)
+    _build.check_launch("band", 0)
+    _build.check_launch("fd", 0)
+    with pytest.raises(RuntimeError, match=r"^interp: CUDA launch failed "
+                                           r"\(9\): invalid configuration"):
+        _build.check_launch("interp", 9)
+    _build.count("allpairs_pairs", 12)
+    assert _build.LAUNCHES == {"band": 2, "fd": 1, "allpairs_pairs": 12}
+    assert _build.launches("band", "fd", "interp") == 3
+    assert _build.launches() == 0
+    assert len(set(_build.KERNELS)) == 14
+    calls, names = 0, []
+    for path in sorted(PKG.rglob("*.py")):
+        text = path.read_text()
+        calls += len(re.findall(r"(?<!def )check_launch\(", text))
+        names += re.findall(r"(?<!def )check_launch\(\"(\w+)\", rc\)",
+                            text)
+    assert calls == len(names) == 17
+    assert set(names) == set(_build.KERNELS)
+
+
+def test_the_launch_table_loses_no_count_across_threads(monkeypatch):
+    """Sharded ranks are threads of one process that launch at once: their
+    counts all land in the table."""
+    monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
+    threads, each = 16, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            done = [pool.submit(lambda: [_build.check_launch("merge", 0)
+                                         for _ in range(each)])
+                    for _ in range(threads)]
+            for f in done:
+                f.result(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert _build.launches("merge") == threads * each
+
+
 def test_cpu_calls_do_not_count_launches():
-    n0, m0 = tband.LAUNCHES, tforces.LAUNCHES
+    n0, m0 = _build.LAUNCHES["band"], _build.LAUNCHES["allpairs"]
     pos = torch.rand((100, 2)) * 100
     mass = torch.rand(100)
     tband.band_short_range(pos, mass, 1.0, 3.0, band=32, chunk=64)
     tforces.accel_allpairs(pos, mass, 80.0, 1.0)
-    assert (tband.LAUNCHES, tforces.LAUNCHES) == (n0, m0)
+    assert (_build.LAUNCHES["band"], _build.LAUNCHES["allpairs"]) == (n0, m0)
 
 
 @pytest.mark.parametrize("kw", [
@@ -172,13 +227,13 @@ def test_band_kernel_matches_plain_on_card(cuda_device, switch, band, cap):
     """Band widths 1 to 1024, capacities below one S-block and not a
     multiple of the B S bodies a CTA covers."""
     pos, mass = _sorted_bodies(cuda_device, cap)
-    n0 = tband.LAUNCHES
+    n0 = _build.LAUNCHES["band"]
     got = tband.band_short_range(pos, mass, 1.0, 2.0, band=band,
                                  chunk=16384, switch=switch)
     want = tband.band_short_range_ref(pos, mass, 1.0, 2.0, band=band,
                                       chunk=16384, switch=switch)
     torch.cuda.synchronize()
-    assert tband.LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["band"] == n0 + 1
     _assert_close_to(got, want)
 
 
@@ -249,11 +304,11 @@ def test_engine_on_card_matches_cpu(cuda_device):
     card = tengine.Engine(cfg, seed=4, device=cuda_device, **main)
     card.state = convert.state_from_numpy(*[x.numpy() for x in cpu.state],
                                           device=cuda_device)
-    n0 = tband.LAUNCHES
+    n0 = _build.LAUNCHES["band"]
     cpu.step(10)
     card.step(10)
     torch.cuda.synchronize()
-    assert tband.LAUNCHES == n0 + 11
+    assert _build.LAUNCHES["band"] == n0 + 11
     assert torch.equal(card.state.alive.cpu(), cpu.state.alive)
     alive = cpu.state.alive
     dpos = (card.state.pos.cpu() - cpu.state.pos)[alive].abs().max()
@@ -279,10 +334,10 @@ def test_allpairs_engine_on_card_matches_cpu(cuda_device, integrator,
                           seed=5, device=cuda_device)
     card.state = convert.state_from_numpy(*[x.numpy() for x in cpu.state],
                                           device=cuda_device)
-    n0 = tforces.LAUNCHES
+    n0 = _build.LAUNCHES["allpairs"]
     card.step(2)
     torch.cuda.synchronize()
-    assert tforces.LAUNCHES == n0 + launches
+    assert _build.LAUNCHES["allpairs"] == n0 + launches
     cpu.step(2)
     assert torch.equal(card.state.alive.cpu(), cpu.state.alive)
     alive = cpu.state.alive
@@ -309,11 +364,11 @@ def test_pm_accel_knobs_on_card_match_cpu(cuda_device, knobs):
               **knobs)
     args = (80.0, 1.0, (-2.0, -802.0), 2404.0)
     want, st_cpu = tmesh.pm_accel(p, m, alive, *args, **kw)
-    n0 = tband.LAUNCHES
+    n0 = _build.LAUNCHES["band"]
     got, st = tmesh.pm_accel(p.to(cuda_device), m.to(cuda_device),
                              alive.to(cuda_device), *args, **kw)
     torch.cuda.synchronize()
-    assert tband.LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["band"] == n0 + 1
     assert {k: int(v) for k, v in st.items()} == \
         {k: int(v) for k, v in st_cpu.items()}
     torch.testing.assert_close(got.cpu(), want, rtol=0,
@@ -338,12 +393,12 @@ def test_bh_pass_on_card_matches_cpu(cuda_device, traversal):
     pos[:15_000], mass[:15_000] = p, m
     alive = torch.arange(16384) < 15_000
     want, st_cpu = tengine.make_bh_accel(cfg, caps)(pos, mass, alive, params)
-    n0 = (tband.LAUNCHES, tforces.LAUNCHES)
+    n0 = (_build.LAUNCHES["band"], _build.LAUNCHES["allpairs"])
     got, st = tengine.make_bh_accel(cfg, caps)(
         pos.to(cuda_device), mass.to(cuda_device), alive.to(cuda_device),
         params)
     torch.cuda.synchronize()
-    assert (tband.LAUNCHES, tforces.LAUNCHES) == n0
+    assert (_build.LAUNCHES["band"], _build.LAUNCHES["allpairs"]) == n0
     assert st.flat().tolist() == st_cpu.flat().tolist()
     assert not st.on_host(st.flat().tolist()).overflowed(caps.as_dict())
     torch.testing.assert_close(got.cpu(), want, rtol=0,
@@ -367,10 +422,11 @@ def test_engine3d_on_card_matches_cpu(cuda_device, integrator, launches):
     cpu.set_bodies(*bodies)
     card = tengine.Engine(cfg, params, device=cuda_device, **kw)
     card.set_bodies(*bodies)
-    n0 = (tband.LAUNCHES, tforces.LAUNCHES)
+    n0 = (_build.LAUNCHES["band"], _build.LAUNCHES["allpairs"])
     card.step(2)
     torch.cuda.synchronize()
-    assert (tband.LAUNCHES, tforces.LAUNCHES) == (n0[0], n0[1] + launches)
+    assert (_build.LAUNCHES["band"], _build.LAUNCHES["allpairs"]) == (
+        n0[0], n0[1] + launches)
     cpu.step(2)
     assert card.state.pos.shape == (8192, 3) and card.state.pos.is_cuda
     assert int(card.state.n_alive()) == 8192
@@ -449,13 +505,13 @@ def test_ring_tile_sums_on_card_match_plain(cuda_device, P):
     pos = torch.rand((n, 2), generator=g, device=cuda_device) * 1000
     mass = torch.rand((n,), generator=g, device=cuda_device)
     grp = ThreadGroup(P, cuda_device)
-    n0 = tforces.LAUNCHES
+    n0 = _build.LAUNCHES["allpairs"]
     got = torch.cat(run_spmd(
         grp, lambda p, m: sharded.ring_allpairs_accel(p, m, 80.0, 1.0,
                                                       group=grp),
         list(pos.chunk(P)), list(mass.chunk(P))))
     torch.cuda.synchronize()
-    assert tforces.LAUNCHES - n0 == P * P
+    assert _build.LAUNCHES["allpairs"] - n0 == P * P
     want = torch.cat([
         80.0 * sum(sharded._accel_vs_tile(p, t, tm, 1.0)
                    for t, tm in zip(pos.chunk(P), mass.chunk(P)))
@@ -474,11 +530,11 @@ def test_let_import_sum_on_card_matches_plain(cuda_device):
     imports[..., :2] *= 1000.0
     imports[1, 3000:, 2] = 0.0                          # unused rows
     pos = torch.rand((5000, 2), generator=g, device=cuda_device) * 1000
-    n0 = tforces.LAUNCHES
+    n0 = _build.LAUNCHES["allpairs"]
     got = sharded_bh._import_sum(pos, imports, 80.0, 1.0)
     want = 80.0 * sharded_bh._import_accel(pos, imports, 1.0)
     torch.cuda.synchronize()
-    assert tforces.LAUNCHES - n0 == 1
+    assert _build.LAUNCHES["allpairs"] - n0 == 1
     _assert_close_to(got, want)
 
 
@@ -500,7 +556,7 @@ def test_sharded_pm_pass_on_card_matches_cpu(cuda_device):
         grp = pmesh.make_mesh(4, device=dev)
         local = sharded_pm.reshard_by_hilbert(eng.state, grp, cfg)
         origin, side = tengine._root(cfg)
-        n0 = tband.LAUNCHES
+        n0 = _build.LAUNCHES["band"]
         res = run_spmd(grp, lambda s: sharded_pm._pm_accel_local_sorted(
             s.pos, s.mass, s.alive, 80.0, 1.0, origin, side,
             mesh_level=10, split_cells=cfg.mesh_split, band=128,
@@ -508,7 +564,7 @@ def test_sharded_pm_pass_on_card_matches_cpu(cuda_device):
             xrescue_export=64, switch="poly4"), local)
         if dev != "cpu":
             torch.cuda.synchronize()
-            assert tband.LAUNCHES - n0 == 4
+            assert _build.LAUNCHES["band"] - n0 == 4
         out[str(dev)] = (torch.cat([r[0] for r in res]).cpu(),
                          [[int(x) for x in r[1]] for r in res])
     (a_cpu, n_cpu), (a_card, n_card) = out["cpu"], out[str(cuda_device)]

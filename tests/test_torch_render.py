@@ -19,6 +19,7 @@ from tpu_nbody.state import from_arrays as jfrom_arrays
 from tpu_nbody_torch import config as tconfig
 from tpu_nbody_torch import engine as tengine
 from tpu_nbody_torch import state as tstate
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import integrate as tintegrate
 from tpu_nbody_torch.ops import render as trender
 
@@ -235,9 +236,9 @@ def test_render_frame_on_cpu_launches_no_kernel(mode, sprites):
     arrays = _bodies(6, 2000)
     kw = dict(width=100, height=60, mode=mode, speed_scale=1 / 3000.0,
               size_mass_scale=sprites, gain=0.3)
-    before = trender.LAUNCHES
+    before = _build.LAUNCHES["render"]
     got, want = _both("render_frame", arrays, **kw)
-    assert trender.LAUNCHES == before
+    assert _build.LAUNCHES["render"] == before
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     assert got.max() > 0.0
 

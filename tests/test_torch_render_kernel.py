@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import render as trender
 
 torch.set_num_threads(2)
@@ -100,10 +101,10 @@ def test_render_frame_off_the_cpu_takes_no_plain_path(case, kw, match):
     kw = dict(kw)
     shape = dict(n=8, pd=kw.pop("pd", 2), vd=kw.pop("vd", 2))
     args = dict(dict(width=16, height=8), **kw)
-    before = trender.LAUNCHES
+    before = _build.LAUNCHES["render"]
     with pytest.raises(ValueError, match=match):
         trender.render_frame(*_meta(**shape), **args)
-    assert trender.LAUNCHES == before
+    assert _build.LAUNCHES["render"] == before
 
 
 # -- on the card -----------------------------------------------------------
@@ -143,9 +144,9 @@ def test_splat_kernel_matches_plain_on_card(cuda_device, mode, sprites,
               mode=mode, speed_scale=1 / 3000.0, gain=0.7, size_base=1.0,
               size_mass_scale=sprites)
     kw.update(VIEWS[view])
-    before = trender.LAUNCHES
+    before = _build.LAUNCHES["render"]
     got = trender._splat_launch(*bodies, **kw)
-    assert trender.LAUNCHES == before + 1
+    assert _build.LAUNCHES["render"] == before + 1
     _close(got, trender._splat_sum(*bodies, **kw))
 
 
@@ -154,9 +155,9 @@ def test_render_frame_launches_once_a_frame_on_card(cuda_device):
     bodies = [t.to(cuda_device) for t in _scene(2, 20_000)]
     kw = dict(width=100, height=60, mode="speed", speed_scale=1 / 3000.0,
               size_mass_scale=1e-3)
-    before = trender.LAUNCHES
+    before = _build.LAUNCHES["render"]
     frames = [trender.render_frame(*bodies, **kw) for _ in range(3)]
-    assert trender.LAUNCHES == before + 3
+    assert _build.LAUNCHES["render"] == before + 3
     want = torch.clamp(trender._splat_sum(
         *bodies, view_x=0.0, view_y=0.0, zoom=1.0, gain=1.0, size_base=1.0,
         **kw), 0.0, 1.0)
@@ -207,10 +208,10 @@ def test_render_frame_3d_on_card(cuda_device):
     pos, vel, mass, alive = (t.to(cuda_device) for t in _scene(
         4, 30_000, dim=3, span=(0.0, 100.0)))
     cam = dict(width=120, height=80, cam_angle=0.3)
-    before = trender.LAUNCHES
+    before = _build.LAUNCHES["render"]
     got = trender.render_frame_3d(pos, vel, mass, alive, gain=0.2,
                                   speed_scale=1 / 3000.0, **cam)
-    assert trender.LAUNCHES == before + 1
+    assert _build.LAUNCHES["render"] == before + 1
     pos2 = trender._project_3d(pos, mass, alive, **cam)
     want = torch.clamp(trender._splat_sum(
         pos2, vel, mass, alive, width=120, height=80, view_x=0.0,

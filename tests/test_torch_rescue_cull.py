@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import band as tband
 from tpu_nbody_torch.ops import mesh as tmesh
 
@@ -330,11 +331,11 @@ def test_block_boxes_ref_matches_jax_rule(S):
 
 def test_block_boxes_wrapper_takes_the_plain_version_on_cpu():
     spos, smass, salive = _scene("random", 500, 577)
-    n0 = tmesh.BOXES_LAUNCHES
+    n0 = _build.LAUNCHES["boxes"]
     X, box = tmesh._block_boxes(spos, smass, salive, 64)
     wX, wbox = tmesh._block_boxes_ref(spos, smass, salive, 64)
     assert torch.equal(X, wX) and torch.equal(box, wbox)
-    assert tmesh.BOXES_LAUNCHES == n0
+    assert _build.LAUNCHES["boxes"] == n0
     with pytest.raises(ValueError, match="CUDA tensor"):
         tmesh._block_boxes(*(t.to("meta") for t in (spos, smass, salive)),
                            64)
@@ -444,9 +445,9 @@ def test_block_boxes_on_card(cuda_device, S, n, cap):
                               & (rng.uniform(size=cap) < 0.9))
     salive[S:2 * S] = False
     want = tmesh._block_boxes_ref(spos, smass, salive, S)
-    n0 = tmesh.BOXES_LAUNCHES
+    n0 = _build.LAUNCHES["boxes"]
     got = tmesh._block_boxes(*_on((spos, smass, salive), cuda_device), S)
     torch.cuda.synchronize()
-    assert tmesh.BOXES_LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["boxes"] == n0 + 1
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])

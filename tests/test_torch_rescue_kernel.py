@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import band as tband
 from tpu_nbody_torch.ops import mesh as tmesh
 
@@ -201,11 +202,11 @@ def test_rescue_wrapper_refusals():
     with pytest.raises(ValueError, match="disagree"):
         tband.rescue_pair_sum(rows, tid, torch.zeros((4, 48)), pidx, pvalid,
                               SOFT2, 2.0)
-    n0 = tband.RESCUE_LAUNCHES
+    n0 = _build.LAUNCHES["rescue"]
     out = tband.rescue_pair_sum(rows, tid, rows, pidx[:, :0],
                                 pvalid[:, :0], SOFT2, 2.0)
     assert out.shape == (4, 32, 2) and not out.any()
-    assert tband.RESCUE_LAUNCHES == n0
+    assert _build.LAUNCHES["rescue"] == n0
 
 
 @pytest.fixture
@@ -234,11 +235,11 @@ def test_rescue_kernel_matches_plain_on_card(cuda_device, form, switch, S,
     a = 12.0
     forms, _ = _forms(spos, smass, salive, S, k, a)
     args = forms[form]
-    n0 = tband.RESCUE_LAUNCHES
+    n0 = _build.LAUNCHES["rescue"]
     got = tband.rescue_pair_sum(*args, SOFT2, a, switch)
     want = tband.rescue_pair_sum_ref(*args, SOFT2, a, switch, chunk=64)
     torch.cuda.synchronize()
-    assert tband.RESCUE_LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["rescue"] == n0 + 1
     _assert_close_to(got, want)
 
 
@@ -249,19 +250,19 @@ def test_rescue_kernel_all_invalid_and_empty_on_card(cuda_device):
     spos, smass, salive = _scene(3000, 4096, device=cuda_device)
     forms, _ = _forms(spos, smass, salive, 128, 8, 12.0)
     trows, tid, prows, pidx, pvalid = forms["base"]
-    n0 = tband.RESCUE_LAUNCHES
+    n0 = _build.LAUNCHES["rescue"]
     got = tband.rescue_pair_sum(trows, tid, prows, pidx,
                                 torch.zeros_like(pvalid), SOFT2, 12.0,
                                 "poly4")
     torch.cuda.synchronize()
-    assert tband.RESCUE_LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["rescue"] == n0 + 1
     assert got.shape == (tid.shape[0], 128, 2) and not got.any()
     for sl in (pidx[:, :0], pidx[:0]):
         out = tband.rescue_pair_sum(trows, tid[:sl.shape[0]], prows, sl,
                                     pvalid[:sl.shape[0], :sl.shape[1]],
                                     SOFT2, 12.0, "poly4")
         assert not out.any()
-    assert tband.RESCUE_LAUNCHES == n0 + 1
+    assert _build.LAUNCHES["rescue"] == n0 + 1
 
 
 @pytest.mark.cuda
@@ -287,11 +288,11 @@ def test_block_rescue_on_card_matches_cpu(cuda_device):
               switch="poly4")
     want, need, hot = tmesh._block_rescue(spos, smass, salive, SOFT2, 12.0,
                                           **kw)
-    n0 = tband.RESCUE_LAUNCHES
+    n0 = _build.LAUNCHES["rescue"]
     got, need_c, hot_c = tmesh._block_rescue(
         spos.to(cuda_device), smass.to(cuda_device), salive.to(cuda_device),
         SOFT2, 12.0, **kw)
     torch.cuda.synchronize()
-    assert tband.RESCUE_LAUNCHES == n0 + 2
+    assert _build.LAUNCHES["rescue"] == n0 + 2
     assert (int(need_c), int(hot_c)) == (int(need), int(hot))
     _assert_close_to(got.cpu(), want)

@@ -36,6 +36,7 @@ import torch
 from tpu_nbody_torch import config as tconfig
 from tpu_nbody_torch import engine as tengine
 from tpu_nbody_torch.config import SimConfig
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.models import scenes as tscenes
 from tpu_nbody_torch.ops import band as tband
 from tpu_nbody_torch.ops import mesh as tmesh
@@ -268,11 +269,11 @@ def test_block_rescue_uses_the_selection_wrapper(monkeypatch):
     monkeypatch.setattr(tmesh, "rescue_select", spy)
     monkeypatch.setattr(tmesh, "_rescue_select_ref", ref_spy)
     spos, smass, salive, a, S, k, k_hot, chunk = _scene("bench_16k_two_tier")
-    n0 = tmesh.SELECT_LAUNCHES
+    n0 = _build.LAUNCHES["rescue_select"]
     tmesh._block_rescue(spos, smass, salive, SOFT2, a, band=S, k=k,
                         chunk=chunk, k_hot=k_hot, hot_cap=8)
     assert calls == [k_hot] and ref_devices == ["cpu"]
-    assert tmesh.SELECT_LAUNCHES == n0
+    assert _build.LAUNCHES["rescue_select"] == n0
 
 
 def test_cross_shard_rescue_uses_the_selection_wrapper(monkeypatch):
@@ -572,10 +573,10 @@ def test_select_wrapper_refusals():
     box = torch.zeros((8, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tmesh.rescue_select(box.to("meta"), box.to("meta"), 1.0, 2)
-    n0 = tmesh.SELECT_LAUNCHES
+    n0 = _build.LAUNCHES["rescue_select"]
     sel = tmesh.rescue_select(box, box, 1.0, 2)
     assert sel.mval.shape == (8, 2) and int(sel.need) == 6
-    assert tmesh.SELECT_LAUNCHES == n0
+    assert _build.LAUNCHES["rescue_select"] == n0
 
 
 @pytest.fixture
@@ -606,11 +607,12 @@ def test_select_kernel_matches_plain_on_card(cuda_device, name):
     want = tmesh._rescue_select_ref(bbox, bbox, tmesh._rcut2(a), kh, k=k,
                                     chunk=cb)
     box = bbox.to(cuda_device)
-    n0, u0 = tmesh.SELECT_LAUNCHES, tmesh.UNION_LAUNCHES
+    n0, u0 = _build.LAUNCHES["rescue_select"], _build.LAUNCHES["select_unions"]
     got = tmesh.rescue_select(box, box, tmesh._rcut2(a), kh, k=k)
     _assert_bits(got, want)
-    assert tmesh.SELECT_LAUNCHES == n0 + 1
-    assert tmesh.UNION_LAUNCHES == u0 + 1     # the wrapper's own table
+    assert _build.LAUNCHES["rescue_select"] == n0 + 1
+    # the wrapper's own table
+    assert _build.LAUNCHES["select_unions"] == u0 + 1
 
 
 @pytest.mark.cuda
@@ -625,8 +627,8 @@ def test_select_kernel_given_unions_on_card(cuda_device, name):
     rcut2 = tmesh._rcut2(a)
     want = tmesh._rescue_select_ref(bbox, bbox, rcut2, kh, k=k, chunk=cb,
                                     count_groups=True)
-    n0, u0, b0 = (tmesh.SELECT_LAUNCHES, tmesh.UNION_LAUNCHES,
-                  tmesh.BOXES_LAUNCHES)
+    n0, u0, b0 = (_build.LAUNCHES["rescue_select"],
+                  _build.LAUNCHES["select_unions"], _build.LAUNCHES["boxes"])
     _, box, table = tmesh._block_boxes(
         *(t.to(cuda_device) for t in (spos, smass, salive)), S, unions=True)
     got = tmesh.rescue_select(box, box, rcut2, kh, k=k, count_groups=True,
@@ -635,8 +637,8 @@ def test_select_kernel_given_unions_on_card(cuda_device, name):
     assert int(got.groups) == int(want.groups)
     assert torch.equal(box.cpu(), bbox)
     assert torch.equal(table.boxes.cpu(), tmesh._union_boxes(bbox))
-    assert (tmesh.SELECT_LAUNCHES, tmesh.UNION_LAUNCHES,
-            tmesh.BOXES_LAUNCHES) == (n0 + 1, u0, b0 + 1)
+    assert (_build.LAUNCHES["rescue_select"], _build.LAUNCHES["select_unions"],
+            _build.LAUNCHES["boxes"]) == (n0 + 1, u0, b0 + 1)
 
 
 @pytest.mark.cuda
@@ -757,10 +759,10 @@ def test_select_unions_and_odd_boxes_on_card(cuda_device, name):
     counter equal to the plain count."""
     box = torch.from_numpy(_odd_boxes(name))
     dev = cuda_device
-    u0 = tmesh.UNION_LAUNCHES
+    u0 = _build.LAUNCHES["select_unions"]
     table = tmesh.select_unions(box.to(dev))
     torch.cuda.synchronize()
-    assert tmesh.UNION_LAUNCHES == u0 + 1
+    assert _build.LAUNCHES["select_unions"] == u0 + 1
     np.testing.assert_array_equal(table.boxes.cpu().numpy(),
                                   _numpy_unions(box.numpy()))
     assert table.stats.cpu().tolist() == [0, 0, 0, 0]
@@ -824,10 +826,11 @@ def test_cross_shard_selection_on_card(cuda_device, P, monkeypatch):
 
     want = run("cpu")
     monkeypatch.setattr(tmesh, "rescue_select", held)
-    n0 = tmesh.SELECT_LAUNCHES
+    n0 = _build.LAUNCHES["rescue_select"]
     got = run(cuda_device)
     torch.cuda.synchronize()
-    assert tmesh.SELECT_LAUNCHES == n0 + 2 * P and len(checked) == 2 * P
+    assert _build.LAUNCHES["rescue_select"] == n0 + 2 * P
+    assert len(checked) == 2 * P
     for g_, w_ in zip(got, want):
         scale = float(w_[0].abs().max())
         assert float((g_[0].cpu() - w_[0]).abs().max()) <= 1e-5 * scale
@@ -846,13 +849,13 @@ def test_block_rescue_selection_on_card(cuda_device, name):
               switch="poly4")
     want, need, hot = tmesh._block_rescue(spos, smass, salive, SOFT2, a,
                                           **kw)
-    s0, r0 = tmesh.SELECT_LAUNCHES, tband.RESCUE_LAUNCHES
+    s0, r0 = _build.LAUNCHES["rescue_select"], _build.LAUNCHES["rescue"]
     got, need_c, hot_c = tmesh._block_rescue(
         spos.to(cuda_device), smass.to(cuda_device), salive.to(cuda_device),
         SOFT2, a, **kw)
     torch.cuda.synchronize()
-    assert tmesh.SELECT_LAUNCHES == s0 + 1
-    assert tband.RESCUE_LAUNCHES == r0 + 2
+    assert _build.LAUNCHES["rescue_select"] == s0 + 1
+    assert _build.LAUNCHES["rescue"] == r0 + 2
     assert (int(need_c), int(hot_c)) == (int(need), int(hot))
     scale = float(want.abs().max())
     assert math.isfinite(scale) and scale > 0

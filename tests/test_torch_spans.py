@@ -14,12 +14,16 @@ from torch.profiler import ProfilerActivity, profile
 from tpu_nbody_torch import profiling
 from tpu_nbody_torch.config import Params, SimConfig
 from tpu_nbody_torch.engine import Engine
+from tpu_nbody_torch.models import scenes3d
 from tpu_nbody_torch.ops import render
 
 torch.set_num_threads(2)
 
 PM_CFG = dict(capacity=2048, mesh_level=10, mesh_band=64, mesh_rescue=4,
               mesh_switch="poly4", pm_resort_every=4, mesh_chunk=2048)
+# the subcycled sorted carry: carried grids refreshed every 2nd step, the
+# 2 heaviest bodies summed directly, and a re-sort that permutes the grids
+SUB_CFG = dict(PM_CFG, pm_mesh_every=2, pm_heavy_cap=2, pm_resort_every=2)
 BH_CFG = dict(capacity=256, max_depth=7, group_chunk=16, approx_cap=1024,
               direct_body_cap=2048, frontier_cap=512, leaf_list_cap=256,
               group_cap=16)
@@ -30,17 +34,30 @@ BH_PASS = ["build", "groups", "lists", "evaluate", "assemble"]
 
 
 def _engine(kind):
-    if kind == "pm":
-        eng = Engine(SimConfig(**PM_CFG), Params.default(), solver="pm",
-                     integrator="kdk_reuse", device="cpu")
+    """An engine of ``kind``: "pm" (the sorted carry), "pm_sub" (the
+    subcycled sorted carry), "pm_kdk" (the generic pm step), "allpairs",
+    "allpairs3d" (euler, dim=3), a bh traversal ("dense", "hier"), or
+    "dense_kdk" / "dense_strict" (kdk; kdk_reuse with strict parity)."""
+    if kind in ("pm", "pm_sub", "pm_kdk"):
+        cfg = SUB_CFG if kind == "pm_sub" else PM_CFG
+        eng = Engine(SimConfig(**cfg), Params.default(), solver="pm",
+                     integrator="kdk" if kind == "pm_kdk" else "kdk_reuse",
+                     device="cpu")
         eng.reset_default_scene(n1=1500, n2=400)
     elif kind == "allpairs":
         eng = Engine(SimConfig(capacity=256), solver="allpairs",
                      integrator="kdk_reuse", device="cpu")
         eng.reset_default_scene(n1=150, n2=50)
+    elif kind == "allpairs3d":
+        eng = Engine(SimConfig(capacity=256, dim=3), solver="allpairs",
+                     integrator="euler", device="cpu")
+        eng.set_bodies(*scenes3d.generate_sphere(eng.generator, 200))
     else:
-        eng = Engine(SimConfig(bh_traversal=kind, **BH_CFG), solver="bh",
-                     integrator="kdk_reuse", device="cpu")
+        traversal, _, how = kind.partition("_")
+        eng = Engine(SimConfig(bh_traversal=traversal, **BH_CFG),
+                     solver="bh",
+                     integrator="kdk" if how == "kdk" else "kdk_reuse",
+                     strict_parity=how == "strict", device="cpu")
         eng.reset_default_scene(n1=150, n2=50)
     eng.step(1)              # grows any cap before the call under test
     return eng
@@ -48,14 +65,29 @@ def _engine(kind):
 
 def _expected(kind, n):
     """The phase names of one step(n) call from the sorted state."""
-    if kind == "pm":
-        out = ["hats", "sort"] + PM_PASS
+    if kind in ("pm", "pm_sub"):
+        cfg = SUB_CFG if kind == "pm_sub" else PM_CFG
+        # a carried grid's long range is one "interp"
+        force = ["interp"] + SHORT if kind == "pm_sub" else PM_PASS
+        out = ["hats", "sort"] + force
         for i in range(n):
-            out += ["kick_drift"] + PM_PASS + ["kick", "merge"]
-            if (i + 1) % PM_CFG["pm_resort_every"] == 0:
+            out += ["kick_drift"] + force + ["kick", "merge"]
+            if (i + 1) % cfg["pm_resort_every"] == 0:
                 out.append("resort")
         return out + ["unsort", "stats"]
-    force = ["allpairs"] if kind == "allpairs" else BH_PASS
+    if kind == "pm_kdk":
+        force = ["sort"] + PM_PASS + ["unsort"]
+        out = ["hats"]
+        for _ in range(n):
+            out += (["kick_drift"] + force) * 2 + ["kick", "merge"]
+        return out + ["stats"]
+    force = ["allpairs"] if kind.startswith("allpairs") else BH_PASS
+    if kind in ("allpairs3d", "dense_kdk"):      # no seed pass
+        passes = 2 if kind == "dense_kdk" else 1
+        out = []
+        for _ in range(n):
+            out += (["kick_drift"] + force) * passes + ["kick", "merge"]
+        return out + ["stats"]
     out = list(force)
     for _ in range(n):
         out += ["kick_drift"] + force + ["kick", "merge"]
@@ -85,11 +117,13 @@ def test_off_by_default_a_step_keeps_its_call_record_alone():
 
 
 @pytest.mark.parametrize("how", ["profiler", "switch"])
-@pytest.mark.parametrize("kind", ["pm", "dense", "hier", "allpairs"])
+@pytest.mark.parametrize("kind", ["pm", "dense", "hier", "allpairs", "pm_kdk",
+                                  "pm_sub", "dense_kdk", "dense_strict",
+                                  "allpairs3d"])
 def test_a_step_marks_its_phases_in_order(kind, how):
     eng = _engine(kind)
     profiling.RECORDER.clear()
-    n = 5 if kind == "pm" else 2
+    n = 5 if kind in ("pm", "pm_sub") else 2
     t0 = time.time_ns()
     if how == "profiler":
         with profile(activities=[ProfilerActivity.CPU]):
@@ -114,7 +148,9 @@ def test_a_step_marks_its_phases_in_order(kind, how):
     assert getattr(profiling.RECORDER, "pairs", None) is None
 
 
-@pytest.mark.parametrize("kind", ["pm", "hier", "allpairs"])
+@pytest.mark.parametrize("kind", ["pm", "hier", "allpairs", "pm_kdk", "pm_sub",
+                                  "dense_kdk", "dense_strict",
+                                  "allpairs3d"])
 def test_the_state_is_bit_identical_with_the_recorder_on_and_off(kind):
     out = []
     for on in (False, True):

@@ -14,10 +14,10 @@ The BH traversal uses fixed list caps (:class:`Caps`); when a ``step(n)``
 reports that a list overflowed, the engine grows the caps, rebuilds its
 step function and redoes the call from the state it started with.
 
-``solver="pm"`` with ``kdk_reuse`` and ``pm_persistent_sort`` runs the
-sorted-carry step (:func:`_make_pm_sorted_step`), which also carries the
-long-range grids for F_long subcycling and heavy-direct summation; every
-other combination runs the generic step of :func:`make_step_fn`. A
+Every solver and integrator runs the one step loop of
+:func:`make_step_fn`; pm with kdk_reuse and ``pm_persistent_sort`` runs it
+with the sorted carry (:class:`_SortedCarry`), which keeps the state
+Hilbert-sorted and carries the long-range grids of F_long subcycling. A
 ``step(n)`` call runs its seed force pass (kdk_reuse) and ``n`` steps as a
 Python loop of eager device work with no host sync inside; the stats are
 max-reduced on the device and read to the host once per call, as the JAX
@@ -295,22 +295,15 @@ def make_allpairs_accel(implementation: str = "auto"):
     return accel
 
 
-def _split_aux(st, device) -> dict:
-    """A force pass's stats (TraversalStats, pm dict or None) as the step
-    stats dict: ``"trav"`` and the :data:`STAT_KEYS`, the merge's
-    ``heavy_need`` still 0."""
-    zero = torch.zeros((), dtype=torch.int32, device=device)
+def _fold(stats: dict, st):
+    """Fold a force pass's stats (a TraversalStats, a dict of some
+    :data:`STAT_KEYS` or None) or the merge's ``{"heavy_need": n}`` into
+    the running maxima ``stats``."""
     if isinstance(st, traverse.TraversalStats):
-        return {"trav": st, **{k: zero for k in STAT_KEYS}}
-    st = st or {}
-    return {"trav": None, **{k: st.get(k, zero) for k in STAT_KEYS}}
-
-
-def _max_stats(a, b):
-    """Elementwise max of two step stats dicts."""
-    out = {k: torch.maximum(a[k], b[k]) for k in STAT_KEYS}
-    out["trav"] = traverse.max_stats(a["trav"], b["trav"])
-    return out
+        stats["trav"] = traverse.max_stats(stats["trav"], st)
+        return
+    for k, v in (st or {}).items():
+        stats[k] = v if stats[k] is None else torch.maximum(stats[k], v)
 
 
 def _permute(state: SimState, o) -> SimState:
@@ -318,172 +311,133 @@ def _permute(state: SimState, o) -> SimState:
                           mass=state.mass[o], alive=state.alive[o])
 
 
-def _make_pm_sorted_step(cfg: SimConfig, merge_heavy_cap: int) -> Callable:
-    """step_n for solver="pm" + integrator="kdk_reuse" with persistent
-    Hilbert-sorted state: the JAX package's ``_make_pm_sorted_step`` and,
-    when ``pm_mesh_every > 1`` or ``pm_heavy_cap > 0``, its
-    ``_make_pm_subcycled_step`` (``tpu_nbody/engine.py:260-504``).
+class _Identity:
+    """The carry of every path but the sorted one: the state stays in slot
+    order and nothing is marked."""
 
-    The state is sorted once by the seed pass, integrated and merged in the
-    sorted frame, re-sorted every ``cfg.pm_resort_every`` steps, and
-    returned to its original slot order at the end, so slot identity is
-    unchanged for the caller. Under the sorted carry, merge ties break by
-    lowest Hilbert position, as in the JAX engine.
+    def enter(self, state, probe):
+        return state
 
-    With ``M = pm_mesh_every > 1`` the long-range grids
-    (:func:`mesh_lib.pm_mesh_state`) are carried: refreshed when ``i % M ==
-    0``, ``i`` counted from 0 in every call as the JAX scan counts it, and
-    interpolated stale at the current positions in between (extrapolated
-    by ``(i % M)/M`` with ``pm_mesh_extrapolate``), with the stale
-    self-term cancelled (``pm_self_correct``) and the ``pm_heavy_cap``
-    heaviest bodies summed directly. A re-sort permutes the state's
-    per-body arrays but not the grids. The kernel hats are computed once
-    per call. Returns ``(state, stats)``, stats as 0-dim device tensors
-    max-reduced over the steps; the input state is not modified.
+    leave = enter
 
-    ``probe(name)``, where given, is called at the end of each phase:
-    ``"hats"``, ``"sort"``, the force pass's phases
-    (:func:`mesh_lib.pm_accel_sorted`), then each step's ``"kick_drift"``,
-    force pass, ``"kick"``, ``"merge"`` (with the stats' maxima) and, every
-    ``pm_resort_every`` steps, ``"resort"``; last ``"unsort"``.
-    """
-    M = max(1, cfg.pm_mesh_every)
-    H = cfg.pm_heavy_cap
-    if M > 1 and H <= 0:
-        raise ValueError(
-            "pm_mesh_every > 1 requires pm_heavy_cap > 0: heavy bodies "
-            "riding a stale mesh feel their own deposited image as a "
-            "spurious self-force far exceeding their real acceleration "
-            "(ops/mesh.py pm_mesh_state).")
-    origin, side = _root(cfg)
-    K = max(1, cfg.pm_resort_every)
-    knobs = _pm_knobs(cfg)
-    extrap = cfg.pm_mesh_extrapolate and M > 1
-    self_correct = cfg.pm_self_correct and M > 1
+    def after_step(self, i, state, acc, probe):
+        return state, acc
 
-    def mesh_state(state, params, kernel, prev):
-        return mesh_lib.pm_mesh_state(
-            state.pos, state.mass, state.alive, params.soft2, origin, side,
-            mesh_level=cfg.mesh_level, split_cells=cfg.mesh_split,
-            order=cfg.mesh_order, interlace=cfg.mesh_interlace,
-            mesh_ny=cfg.mesh_ny, heavy_cap=H,
-            deconvolve=cfg.mesh_deconvolve, kernel=kernel, prev=prev,
-            switch=cfg.mesh_switch)
 
-    def accel_sorted(state, params, kernel, ms, probe, frac=None):
-        return mesh_lib.pm_accel_sorted(
-            state.pos, state.mass, state.alive, params.G, params.soft2,
-            origin, side, kernel=kernel, mesh_state=ms,
-            self_correct=self_correct, stale_frac=frac, probe=probe,
-            **knobs)
+class _SortedCarry:
+    """Hilbert-sorted state for pm + kdk_reuse, the JAX package's
+    ``_make_pm_sorted_step`` and ``_make_pm_subcycled_step``
+    (``tpu_nbody/engine.py:260-504``): sorted at enter (``"sort"``) and
+    every ``pm_resort_every`` steps with the carried acceleration and
+    grids (``"resort"``), unsorted at leave (``"unsort"``); merge ties
+    break by lowest Hilbert position. :meth:`accel` is the sorted force
+    pass; with ``M = pm_mesh_every > 1`` it carries the long-range grids
+    (:func:`mesh_lib.pm_mesh_state`), built by the seed pass, refreshed by
+    step ``i``'s pass when ``i % M == 0`` (``i`` from 0 in every call, as
+    the JAX scan counts it) and interpolated stale (extrapolated by
+    ``(i % M)/M`` with ``pm_mesh_extrapolate``) in between."""
 
-    def sort_order(state):
-        codes = morton.hilbert_codes(state.pos, origin, side, state.alive)
+    def __init__(self, cfg: SimConfig):
+        self.M = max(1, cfg.pm_mesh_every)
+        if self.M > 1 and cfg.pm_heavy_cap <= 0:
+            raise ValueError(
+                "pm_mesh_every > 1 requires pm_heavy_cap > 0: heavy bodies "
+                "riding a stale mesh feel their own deposited image as a "
+                "spurious self-force far exceeding their real acceleration "
+                "(ops/mesh.py pm_mesh_state).")
+        self.cfg, (self.origin, self.side) = cfg, _root(cfg)
+        self.extrap = cfg.pm_mesh_extrapolate and self.M > 1
+        self.knobs = dict(_pm_knobs(cfg),
+                          self_correct=cfg.pm_self_correct and self.M > 1)
+
+    def _order(self, state):
+        codes = morton.hilbert_codes(state.pos, self.origin, self.side,
+                                     state.alive)
         return torch.argsort(codes, stable=True)
 
-    def step_n(state: SimState, params: Params, n_steps: int = 1,
-               probe=None):
-        kernel = _kernel_hats(cfg, params, state.pos.device)
-        if probe is not None:
-            probe("hats")
-        perm = sort_order(state)
-        state = _permute(state, perm)
+    def enter(self, state, probe):
+        self.perm, self.ms, self.i = self._order(state), None, -1
+        state = _permute(state, self.perm)
         if probe is not None:
             probe("sort")
-        ms = None
-        if M > 1:
-            ms = mesh_state(state, params, kernel,
-                            "zero" if extrap else None)
-        acc, (resc, hot, oob) = accel_sorted(state, params, kernel, ms,
-                                             probe)
-        heavy = torch.zeros_like(resc)
-        half = params.dt * 0.5
-        for i in range(n_steps):
-            vel = state.vel + acc * half
-            state = state._replace(pos=state.pos + vel * params.dt)
-            if probe is not None:
-                probe("kick_drift")
-            frac = None
-            if M > 1:
-                if i % M == 0:
-                    ms = mesh_state(state, params, kernel,
-                                    ms[0] if extrap else None)
-                frac = f32((i % M) / M)
-            acc, (need, h, o) = accel_sorted(state, params, kernel, ms,
-                                             probe, frac)
-            state = state._replace(vel=vel + acc * half, step=state.step + 1)
-            if probe is not None:
-                probe("kick")
-            state, hv = merge_bodies(state, params, heavy_cap=merge_heavy_cap)
-            heavy = torch.maximum(heavy, hv)
-            resc = torch.maximum(resc, need)
-            hot = torch.maximum(hot, h)
-            oob = torch.maximum(oob, o)
-            if probe is not None:
-                probe("merge")
-            if (i + 1) % K == 0:
-                o_ = sort_order(state)
-                state, acc, perm = _permute(state, o_), acc[o_], perm[o_]
-                if ms is not None:
-                    grids, dep_pos, dep_wmass, heavy_mask = ms
-                    ms = grids, dep_pos[o_], dep_wmass[o_], heavy_mask[o_]
-                if probe is not None:
-                    probe("resort")
-        unsort = torch.empty_like(perm)
-        unsort[perm] = torch.arange(perm.shape[0], device=perm.device)
+        return state
+
+    def accel(self, pos, mass, alive, params, kernel=None, probe=None):
+        """The pass after :meth:`enter` is the seed's (``i`` -1)."""
+        cfg, M, i = self.cfg, self.M, self.i
+        self.i += 1
+        if M > 1 and (i < 0 or i % M == 0):
+            prev = (self.ms[0] if i >= 0 else "zero") if self.extrap else None
+            self.ms = mesh_lib.pm_mesh_state(
+                pos, mass, alive, params.soft2, self.origin, self.side,
+                mesh_level=cfg.mesh_level, split_cells=cfg.mesh_split,
+                order=cfg.mesh_order, interlace=cfg.mesh_interlace,
+                mesh_ny=cfg.mesh_ny, heavy_cap=cfg.pm_heavy_cap,
+                deconvolve=cfg.mesh_deconvolve, kernel=kernel, prev=prev,
+                switch=cfg.mesh_switch)
+        acc, st = mesh_lib.pm_accel_sorted(
+            pos, mass, alive, params.G, params.soft2, self.origin, self.side,
+            kernel=kernel, mesh_state=self.ms, probe=probe,
+            stale_frac=f32((i % M) / M) if M > 1 and i >= 0 else None,
+            **self.knobs)
+        return acc, dict(zip(STAT_KEYS[1:], st))
+
+    def after_step(self, i, state, acc, probe):
+        if (i + 1) % max(1, self.cfg.pm_resort_every):
+            return state, acc
+        o = self._order(state)
+        state, acc, self.perm = _permute(state, o), acc[o], self.perm[o]
+        if self.ms is not None:
+            grids, dep_pos, dep_wmass, heavy_mask = self.ms
+            self.ms = grids, dep_pos[o], dep_wmass[o], heavy_mask[o]
+        if probe is not None:
+            probe("resort")
+        return state, acc
+
+    def leave(self, state, probe):
+        unsort = torch.empty_like(self.perm)
+        unsort[self.perm] = torch.arange(self.perm.shape[0],
+                                         device=self.perm.device)
         state = _permute(state, unsort)
         if probe is not None:
             probe("unsort")
-        return state, {"trav": None, "heavy_need": heavy,
-                       "rescue_need": resc, "rescue_hot": hot,
-                       "mesh_oob": oob}
-
-    return step_n
+        return state
 
 
 def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
                  strict_parity: bool, merge_heavy_cap: int,
                  allpairs_impl: str = "auto", device="cuda") -> Callable:
-    """Build step_n(state, params, n_steps, probe=None) -> (state, stats).
-
-    ``stats`` holds ``"trav"`` (a TraversalStats for bh, else None) and the
-    :data:`STAT_KEYS`, all 0-dim device tensors max-reduced over the force
-    passes and steps. pm + kdk_reuse + persistent sort takes
-    :func:`_make_pm_sorted_step`; everything else the generic step, which
-    runs ``_INTEGRATORS[integrator]`` (or kdk_reuse with a seed force pass
-    and the carried acceleration) and merges after every step. With bh and
-    ``strict_parity`` the reference's coincident-body nudge
-    (:func:`tree_lib.strict_parity_nudge`) moves the positions once per
-    step before the force pass; under kdk_reuse the carried acceleration is
-    then that of the un-nudged positions, an O(1e-3 px) mismatch.
-    ``device`` is where the pm kernel hats are built. ``probe(name)``,
-    where given, is called at the end of each phase: the generic step's
-    ``"hats"`` (pm), each force pass's own (bh: ``"build"`` and the
-    traversal's; pm: :func:`mesh_lib.pm_accel`'s; allpairs:
-    ``"allpairs"``), ``"kick_drift"`` as a
-    step's force pass begins (none before the kdk_reuse seed), ``"kick"``
-    when the integrator returns and ``"merge"`` with the stats' maxima.
-    """
-    if (solver == "pm" and integrator == "kdk_reuse"
-            and cfg.pm_persistent_sort):
-        return _make_pm_sorted_step(cfg, merge_heavy_cap)
-    if solver == "pm" and max(1, cfg.pm_mesh_every) > 1:
-        raise ValueError(
-            "pm_mesh_every > 1 (F_long subcycling) is only supported on "
-            "the pm + kdk_reuse persistent-sort path (the carried grids "
-            "live in its loop); use integrator='kdk_reuse' with "
-            "pm_persistent_sort=True.")
-    if solver == "bh":
-        accel_stats = make_bh_accel(cfg, caps, strict_parity)
-    elif solver == "allpairs":
-        accel_stats = make_allpairs_accel(allpairs_impl)
-    elif solver == "pm":
+    """Build step_n(state, params, n_steps, probe=None) -> (state, stats),
+    the one step loop of every solver and integrator: the pm kernel hats
+    on ``device`` (``"hats"``), the carry's enter, the kdk_reuse seed
+    pass, then per step the strict-parity nudge (bh; under kdk_reuse the
+    carried acceleration is then that of the un-nudged positions), the
+    integrator, :func:`merge_bodies` (``"kick"`` before it, ``"merge"``
+    after the stats fold) and the carry's after-step; last its leave. The
+    carry is :class:`_SortedCarry` for pm + kdk_reuse +
+    ``pm_persistent_sort``, the one path that takes ``pm_mesh_every > 1``,
+    else :class:`_Identity`. Each force pass but the seed is preceded by
+    ``"kick_drift"`` and marks its own phases. ``stats``: ``"trav"`` (a
+    TraversalStats for bh, else None) and the :data:`STAT_KEYS`, 0-dim
+    device tensors max-reduced over the passes and steps."""
+    check_ported(cfg, solver, integrator, allpairs_impl=allpairs_impl)
+    carry, prepare = _Identity(), None
+    if solver == "pm":
         accel_stats = make_pm_accel(cfg, device)
+        prepare = accel_stats.prepare
+        if integrator == "kdk_reuse" and cfg.pm_persistent_sort:
+            carry = _SortedCarry(cfg)
+            accel_stats = carry.accel
+        elif max(1, cfg.pm_mesh_every) > 1:
+            raise ValueError(
+                "pm_mesh_every > 1 (F_long subcycling) is only supported on "
+                "the pm + kdk_reuse persistent-sort path (the carried grids "
+                "live in its carry); use integrator='kdk_reuse' with "
+                "pm_persistent_sort=True.")
+    elif solver == "bh":
+        accel_stats = make_bh_accel(cfg, caps, strict_parity)
     else:
-        raise ValueError(f"unknown solver {solver!r}")
-    if integrator not in (*_INTEGRATORS, "kdk_reuse"):
-        raise ValueError(f"unknown integrator {integrator!r}")
-    prepare = getattr(accel_stats, "prepare", None)
+        accel_stats = make_allpairs_accel(allpairs_impl)
     nudge = None
     if solver == "bh" and strict_parity:
         origin, side = _root(cfg)
@@ -492,13 +446,15 @@ def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
 
     def step_n(state: SimState, params: Params, n_steps: int = 1,
                probe=None):
-        dev = state.pos.device
-        extra = {} if prepare is None else {"kernel": prepare(params)}
-        if prepare is not None and probe is not None:
-            probe("hats")
-        passes = []
+        extra = {}
+        if prepare is not None:
+            extra["kernel"] = prepare(params)
+            if probe is not None:
+                probe("hats")
+        state = carry.enter(state, probe)
+        stats, passes, acc = dict.fromkeys(("trav", *STAT_KEYS)), [], None
 
-        def seed(pos, mass, alive, params):
+        def force(pos, mass, alive, params):
             acc, st = accel_stats(pos, mass, alive, params, probe=probe,
                                   **extra)
             passes.append(st)
@@ -507,20 +463,15 @@ def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
         def accel(pos, mass, alive, params):
             if probe is not None:
                 probe("kick_drift")
-            return seed(pos, mass, alive, params)
+            return force(pos, mass, alive, params)
 
-        def pass_stats():
-            st = functools.reduce(_max_stats,
-                                  [_split_aux(p, dev) for p in passes],
-                                  _split_aux(None, dev))
-            passes.clear()
-            return st
-
-        agg = _split_aux(None, dev)
         if integrator == "kdk_reuse":
-            acc = seed(state.pos, state.mass, state.alive, params)
-            agg = pass_stats()
-        for _ in range(n_steps):
+            acc = force(state.pos, state.mass, state.alive, params)
+            _fold(stats, passes.pop())
+        # one 0 for the stats no pass has given (heavy_need at least)
+        zero = torch.zeros((), dtype=torch.int32, device=state.pos.device)
+        stats.update({k: zero for k in STAT_KEYS if stats[k] is None})
+        for i in range(n_steps):
             if nudge is not None:
                 state = state._replace(pos=nudge(state.pos, state.alive))
             if integrator == "kdk_reuse":
@@ -530,13 +481,15 @@ def make_step_fn(cfg: SimConfig, caps: Caps, solver: str, integrator: str,
                 state = _INTEGRATORS[integrator](state, params, accel)
             if probe is not None:
                 probe("kick")
-            st = pass_stats()
-            state, st["heavy_need"] = merge_bodies(
-                state, params, heavy_cap=merge_heavy_cap)
-            agg = _max_stats(agg, st)
+            state, heavy = merge_bodies(state, params,
+                                        heavy_cap=merge_heavy_cap)
+            for st in [{"heavy_need": heavy}, *passes]:
+                _fold(stats, st)
+            passes.clear()
             if probe is not None:
                 probe("merge")
-        return state, agg
+            state, acc = carry.after_step(i, state, acc, probe)
+        return carry.leave(state, probe), stats
 
     return step_n
 
@@ -629,9 +582,6 @@ class Engine:
         self.last_mesh_oob = rec["mesh_oob"]
         return rec
 
-    def _overflowed(self, stats) -> bool:
-        return bool(self._overflow_list(stats))
-
     def _run_with_retune(self, run: Callable):
         """Run ``run() -> (state, recorded_stats)``; on overflow, grow the
         caps, rebuild the step function and redo from the pre-run state (up
@@ -643,7 +593,7 @@ class Engine:
         that names the caps and the needs."""
         new_state, stats = run()
         rounds = 0
-        while self.auto_retune and rounds < 6 and self._overflowed(stats):
+        while self.auto_retune and rounds < 6 and self._overflow_list(stats):
             progressed = False
             if stats["trav"] is not None:
                 grown = self.caps.grown(stats["trav"])
@@ -659,7 +609,7 @@ class Engine:
             self._build_step()
             new_state, stats = run()
             rounds += 1
-        if self._overflowed(stats):
+        if self._overflow_list(stats):
             warnings.warn(
                 f"Engine.step: a cap overflows after {rounds} retune "
                 f"rounds, so interactions or merge absorbers were dropped: "

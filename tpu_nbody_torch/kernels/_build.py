@@ -12,6 +12,7 @@ runs at import time.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -238,13 +239,36 @@ def stream_counters(device: torch.device, name: str, n: int) -> torch.Tensor:
     return t
 
 
+# the kernels, each the name its launches pass to check_launch
+KERNELS = ("band", "rescue", "rescue_select", "select_unions", "boxes",
+           "allpairs", "bh_pairs", "bh_hier", "bh_lists", "merge", "interp",
+           "deposit", "fd", "render")
+# launches of each of KERNELS, and "allpairs_pairs", the target x source
+# pairs of every all-pairs pass on either device
+LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCHES_LOCK = threading.Lock()   # sharded ranks launch from threads
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the tally ``name`` of :data:`LAUNCHES`."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += n
+
+
+def launches(*names: str) -> int:
+    """The sum of the tallies ``names`` of :data:`LAUNCHES`."""
+    with _LAUNCHES_LOCK:
+        return sum(LAUNCHES[n] for n in names)
+
+
 def check_launch(name: str, rc: int):
     """Raise if a launcher returned a CUDA error (checked right after the
     launch: a refused launch never runs and a later synchronize would not
-    report it)."""
+    report it); else count one launch of the kernel ``name``."""
     if rc != 0:
         msg = library().tnt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}): {msg}")
+    count(name)
 
 
 def check_tensor(name: str, t: torch.Tensor, shape: tuple, device=None,

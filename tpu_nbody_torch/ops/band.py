@@ -9,22 +9,21 @@ of the array carry mass 0, so there are no wrap-around pairs. The rescues
 (``mesh._block_rescue``, ``sharded_pm._cross_shard_rescue``) sum the same
 pair force from listed partner blocks further away.
 
-:func:`band_short_range` launches ``csrc/band.cu`` for a CUDA tensor and
-runs :func:`band_short_range_ref` for a CPU tensor; :func:`rescue_pair_sum`
-launches ``csrc/rescue.cu`` or runs :func:`rescue_pair_sum_ref` alike; any
-other device raises. :data:`LAUNCHES` and :data:`RESCUE_LAUNCHES` count the
-two kernels' launches. :func:`_band_plan` and :func:`_rescue_plan` choose
-the launch shapes; :func:`pair_work` and :func:`rescue_pair_work` count the
-work of one call, :func:`band_cutoff_pairs` and :func:`rescue_cutoff_pairs`
-the pairs within the poly4 cutoff that it needs, and
-:func:`rescue_near_tiles` the sub-tiles the rescue kernel walks.
+:func:`band_short_range` launches ``csrc/band.cu`` for a CUDA tensor and runs
+:func:`band_short_range_ref` for a CPU tensor; :func:`rescue_pair_sum` launches
+``csrc/rescue.cu`` or runs :func:`rescue_pair_sum_ref` alike; any other device
+raises. ``_build.LAUNCHES`` counts the two kernels' launches as ``"band"`` and
+``"rescue"``. :func:`_band_plan` and :func:`_rescue_plan` choose the launch
+shapes; :func:`pair_work` and :func:`rescue_pair_work` count the work of one
+call, :func:`band_cutoff_pairs` and :func:`rescue_cutoff_pairs` the pairs
+within the poly4 cutoff that it needs, and :func:`rescue_near_tiles` the
+sub-tiles the rescue kernel walks.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import NamedTuple
 
 import torch
@@ -32,11 +31,6 @@ import torch.nn.functional as F
 
 from tpu_nbody_torch.config import f32
 from tpu_nbody_torch.kernels import _build
-
-LAUNCHES = 0           # csrc/band.cu
-RESCUE_LAUNCHES = 0    # csrc/rescue.cu
-# sharded ranks run as threads of one process and launch concurrently
-_COUNT_LOCK = threading.Lock()
 
 MAX_BAND = 1024
 SWITCHES = ("exp4", "poly4")
@@ -226,7 +220,6 @@ def band_short_range(spos, smass, soft2, a, *, band: int, chunk: int,
 
 def _launch(spos, smass, soft2, a, band: int, switch: str, plan: BandPlan):
     """Launch the kernel with ``plan`` on checked arguments."""
-    global LAUNCHES
     out = torch.empty_like(spos)
     cap = spos.shape[0]
     if cap == 0:
@@ -237,9 +230,7 @@ def _launch(spos, smass, soft2, a, band: int, switch: str, plan: BandPlan):
         ctypes.c_float(float(soft2)), ctypes.c_float(inv_scale),
         _SWITCH_IDS[switch], plan.T, plan.B,
         _build.stream(spos.device))
-    _build.check_launch("band_short_range", rc)
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+    _build.check_launch("band", rc)
     return out
 
 
@@ -482,7 +473,6 @@ def _rescue_launch(trows, tid, prows, pidx, pvalid, soft2, a, switch: str,
                    plan: RescuePlan, *, walked=None, cull: bool = True):
     """Launch the rescue kernel with ``plan`` on checked arguments;
     ``cull=False`` skips no sub-tile (the same bits, walked in full)."""
-    global RESCUE_LAUNCHES
     m, k = pidx.shape
     S = trows.shape[1] // 3
     out = torch.empty((m, S, 2), dtype=trows.dtype, device=trows.device)
@@ -495,7 +485,5 @@ def _rescue_launch(trows, tid, prows, pidx, pvalid, soft2, a, switch: str,
         ctypes.c_float(float(soft2)), ctypes.c_float(inv_scale),
         ctypes.c_float(cut), _SWITCH_IDS[switch], plan.T, plan.R,
         _build.stream(trows.device))
-    _build.check_launch("rescue_pair_sum", rc)
-    with _COUNT_LOCK:
-        RESCUE_LAUNCHES += 1
+    _build.check_launch("rescue", rc)
     return out

@@ -9,27 +9,22 @@ and dead (mass-0) bodies contribute exactly zero. Targets may differ from
 the sources, so exact forces on a sample of bodies cost (samples x N)
 pairs instead of N².
 
-:func:`accel_allpairs` launches ``csrc/allpairs.cu`` for CUDA tensors and
-runs :func:`accel_allpairs_ref` for CPU tensors; any other device raises.
-:data:`LAUNCHES` counts the kernel launches and :data:`PAIRS` the target x
-source pairs evaluated, on either device. :func:`_split_plan` chooses the
-kernel's launch shape and :func:`pair_work` counts the work of one call.
+:func:`accel_allpairs` launches ``csrc/allpairs.cu`` for CUDA tensors and runs
+:func:`accel_allpairs_ref` for CPU tensors; any other device raises.
+``_build.LAUNCHES`` counts the kernel launches (``"allpairs"``) and the target
+x source pairs evaluated on either device (``"allpairs_pairs"``).
+:func:`_split_plan` chooses the kernel's launch shape and :func:`pair_work`
+counts the work of one call.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple
 
 import torch
 
 from tpu_nbody_torch.kernels import _build
-
-LAUNCHES = 0
-PAIRS = 0
-# sharded ranks run as threads of one process and launch concurrently
-_COUNT_LOCK = threading.Lock()
 
 THREADS = 128   # threads per block, THREADS in csrc/allpairs.cu
 TILE = 256      # sources per staged tile, TILE in csrc/allpairs.cu
@@ -97,7 +92,7 @@ def accel_allpairs(pos, mass, G, soft2, *, targets=None):
     tgt = pos if targets is None else targets
     if all(t.device.type == "cpu" for t in (pos, mass, tgt)):
         acc = accel_allpairs_ref(pos, mass, G, soft2, targets=targets)
-        _count(0, tgt.shape[0] * pos.shape[0])
+        _build.count("allpairs_pairs", tgt.shape[0] * pos.shape[0])
         return acc
     ns, dim = pos.shape
     if dim not in (2, 3):
@@ -135,15 +130,8 @@ def _launch(pos, mass, soft2, tgt, plan: SplitPlan):
         out.data_ptr(), nt, ns, dim, ctypes.c_float(float(soft2)),
         plan.splits, _build.stream(pos.device))
     _build.check_launch("allpairs", rc)
-    _count(1, nt * ns)
+    _build.count("allpairs_pairs", nt * ns)
     return out
-
-
-def _count(launches: int, pairs: int):
-    global LAUNCHES, PAIRS
-    with _COUNT_LOCK:
-        LAUNCHES += launches
-        PAIRS += pairs
 
 
 def potential_energy(pos, mass, G, soft2, chunk=1024):

@@ -17,7 +17,7 @@ host sync) and runs :func:`_merge_bodies_ref` for CPU tensors; the sharded
 merge (``parallel/sharded.py``) goes through :func:`heavy_table` and
 :func:`absorb`, the same file's two halves (a memset and two kernels
 each; plain versions :func:`_heavy_table_ref`, :func:`_absorb_ref`). Any
-other device raises. :data:`LAUNCHES` counts the wrapper's launches: one a
+other device raises. ``_build.LAUNCHES["merge"]`` counts the launch sets: one a
 :func:`merge_bodies` call, one each a :func:`heavy_table` and an
 :func:`absorb` call.
 """
@@ -30,11 +30,9 @@ import functools
 import torch
 
 from tpu_nbody_torch.kernels import _build
-from tpu_nbody_torch.ops import band as band_ops
 from tpu_nbody_torch.ops.mesh import _topk_lowest_index
 from tpu_nbody_torch.state import SimState
 
-LAUNCHES = 0                            # csrc/merge.cu launch sets
 BIG = torch.iinfo(torch.int32).max      # id of an empty heavy slot
 FLOPS_PER_TEST = 6                      # a 2D distance test: 2 -, 2 *, +, <
 MERGE_THREADS = 1024                    # a CTA of the one-launch merge, as
@@ -139,7 +137,6 @@ def merge_bodies(state: SimState, params,
         mass.data_ptr(), alive.data_ptr(), need.data_ptr(),
         _build.stream(dev))
     _build.check_launch("merge", rc)
-    _count()
     return state._replace(mass=mass, alive=alive), need
 
 
@@ -182,8 +179,7 @@ def heavy_table(pos, mass, alive, max_mass, H, gid0=0):
         ctypes.c_float(max_mass), H, gid0, scratch.data_ptr(),
         scratch.numel(), hpos.data_ptr(), hgid.data_ptr(), hvalid.data_ptr(),
         _build.stream(dev))
-    _build.check_launch("merge_heavies", rc)
-    _count()
+    _build.check_launch("merge", rc)
     return scratch[:4].view(torch.int32)[0], hpos, hgid, hvalid
 
 
@@ -236,8 +232,7 @@ def absorb(pos, mass, alive, hpos, hgid, hvalid, md2, gid0=0):
         hvalid.data_ptr(), nH, scratch.data_ptr(), scratch.numel(),
         mass_out.data_ptr(), alive_out.data_ptr(), gained.data_ptr(),
         _build.stream(dev))
-    _build.check_launch("merge_apply", rc)
-    _count()
+    _build.check_launch("merge", rc)
     return mass_out, alive_out, gained
 
 
@@ -286,9 +281,3 @@ def _check_bodies(pos, mass, alive):
     _build.check_tensor("mass", mass, (n,), device=pos.device)
     _build.check_tensor("alive", alive, (n,), device=pos.device, align=1,
                         dtype=torch.bool)
-
-
-def _count():
-    global LAUNCHES
-    with band_ops._COUNT_LOCK:
-        LAUNCHES += 1

@@ -27,24 +27,25 @@ heavy-direct sum and the self-term are plain torch in this port so far.
 The assignment cells and the deposit, :func:`_cic_cells`,
 :func:`_deposit_packed` and both at once (:func:`deposit_cells`, the
 fresh pass, whose cells the interpolation reuses), launch
-``csrc/deposit.cu`` for CUDA tensors (:data:`DEPOSIT_LAUNCHES`) and run
+``csrc/deposit.cu`` for CUDA tensors (counted as ``"deposit"`` in
+``_build.LAUNCHES``) and run
 :func:`_cic_cells_ref` and :func:`_deposit_packed_ref` for CPU tensors;
 the FD gradient, :func:`_fd_gradient` and the general
-:func:`fd_window`, launches ``csrc/fd.cu`` (:data:`FD_LAUNCHES`) and runs
+:func:`fd_window`, launches ``csrc/fd.cu`` (``"fd"``) and runs
 :func:`_fd_window_ref` for CPU tensors.
 The rescue's block rows and boxes, :func:`_block_boxes`, launch
-``csrc/block_boxes.cu`` for CUDA tensors (:data:`BOXES_LAUNCHES`), which
+``csrc/block_boxes.cu`` for CUDA tensors (``"boxes"``), which
 also builds the selection's :class:`UnionTable` when asked, and run
 :func:`_block_boxes_ref` for CPU tensors;
 :func:`rescue_select` launches ``csrc/rescue_select.cu`` for CUDA tensors
 and runs :func:`_rescue_select_ref` for CPU tensors;
-:data:`SELECT_LAUNCHES` counts its launches, :func:`_select_plan` chooses
+``"rescue_select"`` counts its launches, :func:`_select_plan` chooses
 its launch shape and :func:`select_work` counts the work a run's data
 needs of it; a caller that brings no union table gets one from
 :func:`select_unions` (the same file's union kernel,
-:data:`UNION_LAUNCHES`). The interpolation, :func:`_interp_packed` from
+``"select_unions"``). The interpolation, :func:`_interp_packed` from
 the force-grid windows and :func:`_interp_rows` from a carried table, launches
-``csrc/interp.cu`` for CUDA tensors (:data:`INTERP_LAUNCHES`) and runs
+``csrc/interp.cu`` for CUDA tensors (``"interp"``) and runs
 :func:`_interp_packed_ref` and :func:`_interp_rows_ref` for CPU tensors.
 """
 
@@ -68,12 +69,6 @@ from tpu_nbody_torch.ops.band import (  # noqa: F401
     SWITCHES, _block_bounds, _check_switch, _pair_sum, _short_weight)
 
 ORDERS = (1, 2, 3)          # NGP, CIC, TSC
-SELECT_LAUNCHES = 0         # csrc/rescue_select.cu, the selection
-UNION_LAUNCHES = 0          # csrc/rescue_select.cu, the union table alone
-INTERP_LAUNCHES = 0         # csrc/interp.cu
-DEPOSIT_LAUNCHES = 0        # csrc/deposit.cu, every entry
-FD_LAUNCHES = 0             # csrc/fd.cu
-BOXES_LAUNCHES = 0          # csrc/block_boxes.cu
 INTERP_TAPS = {1: 0, 4: 1, 9: 2}   # cells a body -> its reach past the base
 # flops a body of the cells (by taps: NGP, CIC, TSC), counted from
 # _cic_cells_ref: scale 4, floor 2, then the weights
@@ -261,10 +256,9 @@ def _block_boxes(spos, smass, salive, band, unions=False):
     """Block rows and boxes (:func:`_block_boxes_ref`), and with
     ``unions`` also the selection's :class:`UnionTable` of the boxes. CPU
     tensors take the plain versions; CUDA tensors launch
-    ``csrc/block_boxes.cu`` once (:data:`BOXES_LAUNCHES`), which reads the
+    ``csrc/block_boxes.cu`` once (``"boxes"``), which reads the
     bodies once and writes the same bits, the unions and the zeroed stats
     included."""
-    global BOXES_LAUNCHES
     if all(t.device.type == "cpu" for t in (spos, smass, salive)):
         X, bbox = _block_boxes_ref(spos, smass, salive, band)
         return (X, bbox, _plain_unions(bbox)) if unions else (X, bbox)
@@ -296,9 +290,7 @@ def _block_boxes(spos, smass, salive, band, unions=False):
         bbox.data_ptr(), None if table is None else table.boxes.data_ptr(),
         None if table is None else table.stats.data_ptr(), cap, S,
         _build.stream(dev))
-    _build.check_launch("block_boxes", rc)
-    with band_ops._COUNT_LOCK:
-        BOXES_LAUNCHES += 1
+    _build.check_launch("boxes", rc)
     return (X, bbox, table) if unions else (X, bbox)
 
 
@@ -477,8 +469,7 @@ def select_unions(cbox) -> UnionTable:
     """The :class:`UnionTable` of the candidate boxes ``cbox`` (C, 4), its
     stats zeroed. CPU tensors take :func:`_union_boxes`; CUDA tensors
     launch ``csrc/rescue_select.cu``'s union kernel once
-    (:data:`UNION_LAUNCHES`), the same bits."""
-    global UNION_LAUNCHES
+    (``"select_unions"``), the same bits."""
     if cbox.device.type == "cpu":
         return _plain_unions(cbox)
     C = cbox.shape[0]
@@ -492,8 +483,6 @@ def select_unions(cbox) -> UnionTable:
         cbox.data_ptr(), table.boxes.data_ptr(), table.stats.data_ptr(), C,
         _build.stream(dev))
     _build.check_launch("select_unions", rc)
-    with band_ops._COUNT_LOCK:
-        UNION_LAUNCHES += 1
     return table
 
 
@@ -550,7 +539,6 @@ def _select_launch(tbox, cbox, rcut2, kh, k, tgid0, cgid, cvalid,
     """Launch the selection kernel with ``plan`` on checked arguments,
     with the union table ``unions`` (made here when None; taken, so it
     serves no other selection)."""
-    global SELECT_LAUNCHES
     M, C = tbox.shape[0], cbox.shape[0]
     dev = tbox.device
     if unions is None:
@@ -577,8 +565,6 @@ def _select_launch(tbox, cbox, rcut2, kh, k, tgid0, cgid, cvalid,
         plan.warps, plan.tile, plan.bufcap, plan.smem, grid,
         _build.stream(dev))
     _build.check_launch("rescue_select", rc)
-    with band_ops._COUNT_LOCK:
-        SELECT_LAUNCHES += 1
     return Selection(mval=mval, midx=midx, cnt=cnt, need=stats[0],
                      hot=stats[1],
                      groups=(stats[2:].view(torch.int64)[0] if count_groups
@@ -774,7 +760,6 @@ def _deposit_packed(smass, base, w, nw, grid, run_compress=False,
         return _deposit_packed_ref(smass, base, w, nw, grid,
                                    run_compress=run_compress, ny=ny,
                                    grid_y=grid_y)
-    global DEPOSIT_LAUNCHES
     n, K = w.shape
     dev = smass.device
     if int(run_compress) > 1 and n % int(run_compress):
@@ -795,9 +780,7 @@ def _deposit_packed(smass, base, w, nw, grid, run_compress=False,
         smass.data_ptr(), base.data_ptr(), int(base.dtype == torch.int64),
         w.data_ptr(), rho.data_ptr(), n, K, nw, grid, grid_y,
         _build.stream(dev))
-    _build.check_launch("deposit_given", rc)
-    with band_ops._COUNT_LOCK:
-        DEPOSIT_LAUNCHES += 1
+    _build.check_launch("deposit", rc)
     return rho
 
 
@@ -858,7 +841,6 @@ def _deposit_launch(spos, smass, origin, h, nw, order, ny, grid=None,
     """Launch ``csrc/deposit.cu``'s cells entry: ``(rho, base, w)``, rho
     the zeroed and filled (rows, grid) block, None without ``smass``
     (cells only)."""
-    global DEPOSIT_LAUNCHES
     _check_order(order)
     n = spos.shape[0]
     dev = spos.device
@@ -880,9 +862,7 @@ def _deposit_launch(spos, smass, origin, h, nw, order, ny, grid=None,
         n, order, ctypes.c_float(ox), ctypes.c_float(oy),
         ctypes.c_float(float(h)), nw, ny, 0 if grid is None else grid,
         0 if rho is None else rows, _build.stream(dev))
-    _build.check_launch("deposit_cells", rc)
-    with band_ops._COUNT_LOCK:
-        DEPOSIT_LAUNCHES += 1
+    _build.check_launch("deposit", rc)
     return rho, base, w
 
 
@@ -1090,7 +1070,6 @@ def interp_work(base, K: int, nw: int, ld: int) -> dict:
 def _interp_launch(fn, grid, base, w, args):
     """Check the bodies' arguments, launch ``fn`` of the kernel library
     with ``args(out, base, is64)`` and the stream; count the launch."""
-    global INTERP_LAUNCHES
     n, K = w.shape
     dev = grid.device
     if base.dtype not in (torch.int32, torch.int64):
@@ -1101,9 +1080,7 @@ def _interp_launch(fn, grid, base, w, args):
     rc = getattr(_build.library(), fn)(
         *args(out.data_ptr(), base.data_ptr(), int(base.dtype == torch.int64)),
         _build.stream(dev))
-    _build.check_launch(fn, rc)
-    with band_ops._COUNT_LOCK:
-        INTERP_LAUNCHES += 1
+    _build.check_launch("interp", rc)
     return out
 
 
@@ -1192,7 +1169,6 @@ def fd_window(src, h, rows, cols):
     take :func:`_fd_window_ref`; CUDA tensors launch ``csrc/fd.cu``."""
     if src.device.type == "cpu":
         return _fd_window_ref(src, h, rows, cols)
-    global FD_LAUNCHES
     R, W = src.shape
     if R < rows + 6 or not 1 <= cols <= W - 3:
         raise ValueError(f"fd_window: ({rows}, {cols}) windows from "
@@ -1206,9 +1182,7 @@ def fd_window(src, h, rows, cols):
         src.data_ptr(), R, W, rows, cols, ctypes.c_float(c1),
         ctypes.c_float(c2), ctypes.c_float(c3), fx.data_ptr(), fy.data_ptr(),
         _build.stream(src.device))
-    _build.check_launch("fd_gradient", rc)
-    with band_ops._COUNT_LOCK:
-        FD_LAUNCHES += 1
+    _build.check_launch("fd", rc)
     return fx, fy
 
 

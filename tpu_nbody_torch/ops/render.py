@@ -11,13 +11,13 @@ replaces :func:`_splat_sum`'s 21 ``index_add_`` passes of every slot, in
 which each slot off screen, dead or too light for a sprite ring added
 into one dummy row: on the card those were float atomics on three
 addresses, 38 ms of a 2^20-slot frame. The kernel is bound by bytes (each
-slot read once, the frame written once; :func:`splat_work`): a thread a
-slot draws only its own on-screen pixels, and the lanes of a warp that hit
-one pixel are summed before their atomics, which keeps a crowded pixel's
-float32 sum within 1e-4 of its total. A memset zeroes the frame first and a
-``clamp_`` clips it after: three device operations a frame, counted in
-:data:`LAUNCHES` once a call. CPU tensors take :func:`_splat_sum`, the
-plain version; a tensor on any other device gets the kernel or an
+slot read once, the frame written once; :func:`splat_work`): a thread a slot
+draws only its own on-screen pixels, and the lanes of a warp that hit one pixel
+are summed before their atomics, which keeps a crowded pixel's float32 sum
+within 1e-4 of its total. A memset zeroes the frame first and a ``clamp_``
+clips it after: three device operations a frame, counted in
+``_build.LAUNCHES["render"]`` once a call. CPU tensors take :func:`_splat_sum`,
+the plain version; a tensor on any other device gets the kernel or an
 exception.
 
 Color modes:
@@ -46,9 +46,7 @@ import torch
 
 from tpu_nbody_torch import profiling
 from tpu_nbody_torch.kernels import _build
-from tpu_nbody_torch.ops import band as band_ops
 
-LAUNCHES = 0        # csrc/render.cu launches: one a frame rendered on a card
 _MODES = {"speed": 0, "classic": 1}     # csrc/render.cu's Mode
 
 # 5x5 circular sprite tiers (gpu/GPU.kt:226 point size + :242-243 round
@@ -153,7 +151,6 @@ def _splat_launch(pos, vel, mass, alive, *, width, height, view_x, view_y,
     of the new frame, then the kernel): the (height, width, 3) additive
     splat before the clip, on the bodies' card. Raises on anything the
     kernel does not take (a CPU tensor among them)."""
-    global LAUNCHES
     if mode not in _MODES:
         raise ValueError(f"unknown color mode {mode!r}")
     if pos.dim() != 2 or pos.shape[1] < 2:
@@ -182,9 +179,7 @@ def _splat_launch(pos, vel, mass, alive, *, width, height, view_x, view_y,
         pos.data_ptr(), vel.data_ptr(), mass.data_ptr(), alive.data_ptr(),
         fb.data_ptr(), n, pd, vd, width, height, _MODES[mode], params,
         _build.stream(dev))
-    _build.check_launch("render_splat", rc)
-    with band_ops._COUNT_LOCK:
-        LAUNCHES += 1
+    _build.check_launch("render", rc)
     return fb
 
 

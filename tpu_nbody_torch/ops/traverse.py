@@ -37,13 +37,13 @@ Replaces the reference's per-body recursive traversal
   evaluations are dense and blocked, (group_size x list) pair blocks
   through :func:`point_accel`: the hand-written kernel
   ``csrc/bh_pairs.cu`` for CUDA tensors (launches counted in
-  :data:`LAUNCHES`), its plain version :func:`_point_accel` for CPU
-  tensors. The hier evaluation goes through :func:`hier_accel`: on the
-  card ``csrc/bh_hier.cu`` (:data:`HIER_LAUNCHES`), one launch a pass, a
-  CTA a group that tests its chunk's candidates and walks the accepted
-  nodes and the opened leaves' body ranges itself; on the CPU the
-  masked-dense :func:`hier_accel_ref` (per-group weights on padded pair
-  blocks, direct partners flattened to slots).
+  ``_build.LAUNCHES["bh_pairs"]``), its plain version
+  :func:`_point_accel` for CPU tensors. The hier evaluation goes through
+  :func:`hier_accel`: on the card ``csrc/bh_hier.cu`` (``"bh_hier"``),
+  one launch a pass, a CTA a group that tests its chunk's candidates and
+  walks the accepted nodes and the opened leaves' body ranges itself; on
+  the CPU the masked-dense :func:`hier_accel_ref` (per-group weights on
+  padded pair blocks, direct partners flattened to slots).
 
 What differs from the JAX package, whose results it reproduces:
 
@@ -54,8 +54,8 @@ What differs from the JAX package, whose results it reproduces:
   kernels need no pair temporary, so on the card the budget counts the
   lists alone, and the hier kernel runs once a pass.
 * The hier candidate lists and their needs (:func:`hier_lists`) are one
-  hand-written kernel on the card, ``csrc/bh_lists.cu`` (counted in
-  :data:`LIST_LAUNCHES`): per level a count, a scan and a write over
+  hand-written kernel on the card, ``csrc/bh_lists.cu`` (counted as
+  ``"bh_lists"``): per level a count, a scan and a write over
   fixed segments of the parent lists, the needs folded into the last
   level's write. On the CPU, and in the dense and bfs traversals
   everywhere, list compaction (:func:`_compact_rows`) is a cumsum and one
@@ -73,7 +73,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -87,11 +86,6 @@ from tpu_nbody_torch.ops.tree import Tree
 PAIR_BUDGET = 1 << 27
 TRAVERSALS = ("dense", "bfs", "hier")
 
-LAUNCHES = 0    # csrc/bh_pairs.cu
-HIER_LAUNCHES = 0   # csrc/bh_hier.cu
-LIST_LAUNCHES = 0   # csrc/bh_lists.cu: one a pass's lists
-# sharded ranks run as threads of one process and launch concurrently
-_COUNT_LOCK = threading.Lock()
 _PAIRS_THREADS = 256     # threads a CTA of csrc/bh_pairs.cu aims at
 _PAIRS_TILE = 256        # TILE in csrc/bh_pairs.cu
 _PAIR_FLOPS = 13         # ops/forces.py::_PAIR_FLOPS[2], the same formula
@@ -621,8 +615,8 @@ def hier_lists(tree: Tree, gmin, gmax, theta2, soft2, *, sizes, kcaps,
     a chunk summed, ``hier_batch`` chunks at a time).
 
     CPU tensors take :func:`hier_lists_ref`; CUDA tensors launch
-    ``csrc/bh_lists.cu`` (:func:`_lists_launch`, counted in
-    :data:`LIST_LAUNCHES`), which gives the same bits. Dtypes, shapes,
+    ``csrc/bh_lists.cu`` (:func:`_lists_launch`, counted as
+    ``"bh_lists"``), which gives the same bits. Dtypes, shapes,
     levels and slots are checked on any device."""
     rows, n_nodes = tree.node_rows, tree.n_nodes
     f32 = torch.float32
@@ -689,7 +683,6 @@ def _lists_launch(rows, n_nodes, gmin, gmax, theta2, soft2, levels, slots,
     :class:`ListsLevel` s ``levels``: 2 + 3 x levels kernels on the
     current stream, outputs from ``torch.empty`` (the kernels write every
     entry), no host sync."""
-    global LIST_LAUNCHES
     dev = rows.device
     i32 = torch.int32
     last = levels[-1]
@@ -711,8 +704,6 @@ def _lists_launch(rows, n_nodes, gmin, gmax, theta2, soft2, levels, slots,
         rows.shape[0], gmin.shape[0], LC, ctypes.c_float(float(theta2)),
         ctypes.c_float(float(soft2)), _build.stream(dev))
     _build.check_launch("bh_lists", rc)
-    with _COUNT_LOCK:
-        LIST_LAUNCHES += 1
     return HierLists(ids, tuple(totals.split([lv.C for lv in levels])),
                      cvalid, needs[0], needs[1], needs[2:])
 
@@ -938,7 +929,7 @@ def hier_accel(node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
     walked.
 
     CPU tensors take :func:`hier_accel_ref`; CUDA tensors launch
-    ``csrc/bh_hier.cu`` (counted in :data:`HIER_LAUNCHES`; the walked
+    ``csrc/bh_hier.cu`` (counted as ``"bh_hier"``; the walked
     pairs are then a 0-dim int64 device tensor: each group's sources times
     the target slots of its lanes). The kernel drops nothing at
     ``leaf_list_cap`` and ``direct_body_cap``, which the plain version
@@ -997,7 +988,6 @@ def _hier_launch(node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
                  stage: int = _HIER_STAGE):
     """Launch ``csrc/bh_hier.cu`` on checked arguments, staging ``stage``
     leaf bodies at once (at most :data:`_HIER_STAGE`)."""
-    global HIER_LAUNCHES
     dev = ids.device
     Gp = gstart.shape[0]
     C, K = ids.shape
@@ -1020,8 +1010,6 @@ def _hier_launch(node_rows, body_rows, spos, ids, cvalid, gstart, gcount,
         ctypes.c_float(float(theta2)), ctypes.c_float(float(soft2)),
         _build.stream(dev))
     _build.check_launch("bh_hier", rc)
-    with _COUNT_LOCK:
-        HIER_LAUNCHES += 1
     return (out, cnt, walked) if counts else out
 
 
@@ -1159,7 +1147,6 @@ def point_accel_ref(targets, sources, masses, soft2):
 def _pairs_launch(targets, sources, masses, soft2, plan: PairsPlan):
     """Launch the pair kernel with ``plan`` on checked arguments; a split
     plan whose partial sums pass :data:`_PAIRS_SCRATCH` bytes raises."""
-    global LAUNCHES
     M, C, NT, _ = targets.shape
     S = sources.shape[1]
     dev = targets.device
@@ -1184,8 +1171,6 @@ def _pairs_launch(targets, sources, masses, soft2, plan: PairsPlan):
         M, C, NT, S, ctypes.c_float(float(soft2)), plan.T, plan.tpg,
         plan.lanes, splits, _build.stream(dev))
     _build.check_launch("bh_pairs", rc)
-    with _COUNT_LOCK:
-        LAUNCHES += 1
     return out
 
 
