@@ -82,7 +82,7 @@ n2 = 200,000):
   tests/test_torch_rescue_select.py tests/test_torch_rescue_cull.py
   tests/test_torch_bh_pairs.py
   tests/test_torch_bh_hier.py tests/test_torch_bh_lists.py
-  tests/test_torch_merge_kernel.py
+  tests/test_torch_tree_kernel.py tests/test_torch_merge_kernel.py
   tests/test_torch_interp_kernel.py tests/test_torch_deposit_kernel.py
   tests/test_torch_fd_kernel.py tests/test_torch_render_kernel.py -q``
   in a child process, which must
@@ -135,7 +135,11 @@ On the way it
    within the same 1e-5, timed over the whole pass; the lists kernel at
    the Barnes–Hut cell's shape (BH_CELL) against its plain version bit for
    bit, timed on the device beside its bytes bound and the plain
-   version's time; the interpolation
+   version's time; the tree build at the same state against its plain
+   version (every integer field and the geometry bit for bit, mass and
+   centre of mass within 1e-6), timed on the device whole and without
+   its ``argsort``, beside its bytes bound (``tree.build_work``) and the
+   plain build's time; the interpolation
    kernel against its plain version bit for bit on the sorted scene (the
    fresh pass from the force-grid windows in CIC, NGP and TSC, and path
    B's carried table of [T | dT] lanes with frac), the CIC pass timed
@@ -164,9 +168,10 @@ On the way it
    launch set a step of an engine that merges, two rescues, two block-box
    builds and three selections a rank's pass on the sharded P3M and two
    merge launch sets a rank's step, one all-pairs launch per all-pairs
-   force pass, hier, lists and merge kernel launches and no other in the
-   Barnes–Hut steps, and on every path one lists launch a hier pass,
-   lists-only passes included), finite state and no growth of n_alive;
+   force pass, tree, hier, lists and merge kernel launches and no other in
+   the Barnes–Hut steps, and on every path one lists launch a hier pass,
+   lists-only passes included, and one tree launch a tree build), finite
+   state and no growth of n_alive;
 6. measures the force error against the exact all-pairs kernel on 4096
    sampled alive bodies (tpu_nbody_torch.accuracy), failing where a mean
    is over its limit.
@@ -176,19 +181,21 @@ selection, block-box, interpolation, deposit, FD-gradient and merge
 kernels the main path's three step(20) calls; for the
 all-pairs kernel path E's run at 2^20 bodies, the path it carries: the
 P3M main path launches it only in the force error after its steps; for
-the hier kernel path D's steps; for the pair kernel the dense force
+the hier, lists and tree kernels path D's steps; for the pair kernel the
+dense force
 error at N = 65,536, the Barnes–Hut main path being hier; for the union
 kernel path F1, whose export and import selections take their tables
 from it, the main path's from the block-box kernel) and
 ``launches_by_path``, which holds path G's runs as ``bench_pm``,
 ``bench_allpairs`` and ``bench_bh`` (warm-up, timed repeats, force error
-and phase table). The three rescue kernels, both Barnes–Hut kernels, the
-merge, the interpolation, the deposit and the FD gradient have no Pallas
-original: ``replaces`` names the XLA code they stand for. The
+and phase table). The three rescue kernels, the four Barnes–Hut kernels,
+the merge, the interpolation, the deposit and the FD gradient have no
+Pallas original: ``replaces`` names the XLA code they stand for. The
 interpolation's ``library_ms`` is ``grid_sample``'s time on the same
 windows and positions, the deposit's one ``index_add_`` into the zeroed
 block, the FD gradient's one ``conv2d``: yardsticks the port never calls;
-the merge's is null (no PyTorch call computes it).
+the merge's is null (no PyTorch call computes it); the tree build's
+repeats its plain build on the card (no PyTorch call computes it either).
 Each kernel's bound_ms is the larger of its flops over the float32 peak and its
 bytes over the memory rate (``pair_work``, ``rescue_pair_work`` in its
 module, ``hier_pair_work`` in traverse, ``select_work`` and
@@ -222,6 +229,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 from tpu_nbody_torch.kernels import _build
@@ -287,7 +295,7 @@ BENCH_RUNS = {
                 "deposit", "fd", "merge", "allpairs"), ERR_LIMIT),
     "allpairs": (["--solver", "allpairs"], ("allpairs",), TOL),
     "bh": (["--solver", "bh", "--steps", "2", "--repeats", "3"],
-           ("allpairs", "bh_hier", "bh_lists"), BH_ERR_LIMIT),
+           ("allpairs", "bh_tree", "bh_hier", "bh_lists"), BH_ERR_LIMIT),
 }
 # the first words of each per-phase row the bench must print
 BENCH_PHASES = {
@@ -305,6 +313,7 @@ CUDA_TESTS = [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda",
               "tests/test_torch_rescue_cull.py",
               "tests/test_torch_bh_pairs.py", "tests/test_torch_bh_hier.py",
               "tests/test_torch_bh_lists.py",
+              "tests/test_torch_tree_kernel.py",
               "tests/test_torch_merge_kernel.py",
               "tests/test_torch_interp_kernel.py",
               "tests/test_torch_deposit_kernel.py",
@@ -316,6 +325,11 @@ BH_CELL = "nbody_bench/configs/collide1m_bh.json"
 # hier passes of the running path (traverse._hier_accel calls, lists-only
 # passes too): each launches csrc/bh_lists.cu once (``_count_hier_passes``)
 HIER_PASSES = [0]
+# tree builds of the running path (tree.build_tree calls; sharded ranks
+# build from their threads): each launches csrc/bh_tree.cu's build once
+# (``_count_builds``)
+BUILDS = [0]
+BUILDS_LOCK = threading.Lock()
 DEVICE = "cuda"     # the card (a CPU rehearsal of the control flow
                     # patches this and the sizes above)
 # the kernels every fresh P3M force pass launches once
@@ -387,11 +401,12 @@ class Paths:
 
     def run(self, path, fn, need=()):
         """Run ``fn()`` as ``path``; fail if a kernel named in ``need`` was
-        not launched in it, or the lists kernel other than once a hier
-        pass."""
+        not launched in it, the lists kernel other than once a hier pass
+        or the tree kernel other than once a tree build."""
         import torch
         _build.LAUNCHES.clear()
         HIER_PASSES[0] = 0
+        BUILDS[0] = 0
         out = fn()
         torch.cuda.synchronize()
         self.counts[path] = _only(**_build.LAUNCHES)
@@ -399,6 +414,10 @@ class Paths:
             raise AssertionError(
                 f"{path}: {self.counts[path]['bh_lists']} launches of the "
                 f"lists kernel in {HIER_PASSES[0]} hier passes")
+        if self.counts[path]["bh_tree"] != BUILDS[0]:
+            raise AssertionError(
+                f"{path}: {self.counts[path]['bh_tree']} launches of the "
+                f"tree kernel in {BUILDS[0]} tree builds")
         for name in need:
             if self.counts[path][name] < 1:
                 raise AssertionError(f"{path}: the {name} kernel was never "
@@ -423,6 +442,24 @@ def _count_hier_passes():
 
     counted.counts_passes = True
     traverse._hier_accel = counted
+
+
+def _count_builds():
+    """Count every tree build (a call of ``tree.build_tree``, which each
+    caller reaches through the module) in BUILDS, by a wrapper installed
+    once."""
+    from tpu_nbody_torch.ops import tree
+    real = tree.build_tree
+    if getattr(real, "counts_builds", False):
+        return
+
+    def counted(*args, **kw):
+        with BUILDS_LOCK:
+            BUILDS[0] += 1
+        return real(*args, **kw)
+
+    counted.counts_builds = True
+    tree.build_tree = counted
 
 
 def _only(**counts) -> dict:
@@ -518,7 +555,7 @@ def _rel_err(got, want):
 
 # calls whose device operations are counted after the bench (``_per_call``,
 # ``_count_device_ops``): (name, fn, its result dict, the launches it must
-# make)
+# make, or a function that counts them then)
 DEFERRED_OPS = []
 
 
@@ -528,8 +565,9 @@ def _per_call(name, fn, expect):
     (``timed_ms``) and the host's ms to enqueue it (host clock around the
     call, the card idle, median of 5). The device operations it enqueues
     (a profiler trace) are counted by ``_count_device_ops`` after the
-    bench, into the same dict, and must be ``expect``: a profiler session
-    leaves the host's later launches slower in this process."""
+    bench, into the same dict, and must be ``expect`` (or what it returns,
+    called then): a profiler session leaves the host's later launches
+    slower in this process."""
     import torch
     out = dict(device_ms=device_ms(fn), call_ms=timed_ms(fn))
     enq = []
@@ -555,6 +593,8 @@ def _count_device_ops():
     trace of one more call, after every timing of the run; fails where a
     call enqueued other than its expected count."""
     for name, fn, out, expect in DEFERRED_OPS:
+        if callable(expect):
+            expect = expect()
         ops = device_ops(fn)
         out.update(device_launches=len(ops), device_ops=ops)
         print(f"{name}: {len(ops)} device launches a call: "
@@ -1471,19 +1511,11 @@ def _bh_hier_shape(st, cfg, params, caps, n_sm, max_clock_hz):
     return out
 
 
-def _bh_lists_shape(dev):
-    """The lists kernel at the Barnes–Hut cell's shape (BH_CELL: its node
-    table, groups, hier sizes and candidate caps; N = 1M on the two-disk
-    scene, seed 3): on the arguments a lists-only pass hands
-    ``traverse.hier_lists``, the kernel against the plain version bit for
-    bit (the final lists, their validity and every need), the kernel per
-    call (``_per_call``: 2 + 3 x levels device operations, counted after
-    the bench) against its bytes bound (``traverse.lists_work``) and the
-    plain version's time (median of 3)."""
-    import torch
-    from tpu_nbody_torch import engine
+def _bh_cell(dev):
+    """(cfg, params, engine, n_bodies) of the Barnes–Hut cell (BH_CELL: its
+    node table, groups, hier sizes and candidate caps; N = 1M on the
+    two-disk scene, seed 3)."""
     from tpu_nbody_torch.config import Params, SimConfig
-    from tpu_nbody_torch.ops import traverse
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, BH_CELL)) as f:
         cell = json.load(f)
@@ -1494,6 +1526,20 @@ def _bh_lists_shape(dev):
     params = Params.default(**cell["params"])
     eng = _engine(cfg, params, dev, cell["n_bodies"], solver="bh",
                   integrator="kdk_reuse")
+    return cfg, params, eng, cell["n_bodies"]
+
+
+def _bh_lists_shape(cfg, params, eng, n_bodies):
+    """The lists kernel at the Barnes–Hut cell's shape (:func:`_bh_cell`):
+    on the arguments a lists-only pass hands ``traverse.hier_lists``, the
+    kernel against the plain version bit for bit (the final lists, their
+    validity and every need), the kernel per call (``_per_call``: 2 + 3 x
+    levels device operations, counted after the bench) against its bytes
+    bound (``traverse.lists_work``) and the plain version's time (median
+    of 3)."""
+    import torch
+    from tpu_nbody_torch import engine
+    from tpu_nbody_torch.ops import traverse
     seen = {}
     real = traverse.hier_lists
 
@@ -1542,7 +1588,7 @@ def _bh_lists_shape(dev):
                totals_max=[int(t.max()) for t in got.totals],
                leaf_need=int(got.leaf_need),
                direct_need=int(got.direct_need))
-    print(f"bh_lists at the cell's shape (N={cell['n_bodies']}, levels "
+    print(f"bh_lists at the cell's shape (N={n_bodies}, levels "
           f"{[tuple(lv) for lv in levels]}): lists, validity and needs equal "
           f"the plain version's; {call['device_ms']:.4f} ms on the device, "
           f"{call['call_ms']:.4f} a call, {call['host_enqueue_ms']:.4f} to "
@@ -1551,8 +1597,89 @@ def _bh_lists_shape(dev):
           f"{out['pct_of_bound']:.2f}% of it; largest totals "
           f"{out['totals_max']}, leaf_need {out['leaf_need']}, direct_need "
           f"{out['direct_need']}", flush=True)
-    del eng, got
-    torch.cuda.empty_cache()
+    return out
+
+
+def _bh_tree_shape(cfg, eng, n_bodies):
+    """The tree build at the Barnes–Hut cell's state (:func:`_bh_cell`):
+    the kernels' build against the plain one bit for bit (every integer
+    field, the sorted bodies, the root and the rows' geometry columns),
+    mass and centre of mass within 1e-6 of it; the build per call
+    (``_per_call``: the codes kernel, the sort's operations and the build
+    kernel, counted after the bench); the kernels alone on the sort's
+    order (the build's time with ``argsort`` left out) and the sort alone,
+    on the device; the kernels' time against their bytes bound
+    (``tree.build_work``); the plain build on the card (median of 3),
+    which no library call computes: ``library_ms`` repeats it, a yardstick
+    the port no longer calls on a card."""
+    import torch
+    from tpu_nbody_torch.engine import _root
+    from tpu_nbody_torch.ops import tree
+    st = eng.state
+    origin, side = _root(cfg)
+    mass = torch.where(st.alive, st.mass, 0.0)
+    kw = dict(num_nodes=eng.caps.num_nodes, leaf_size=cfg.leaf_size,
+              max_depth=cfg.max_depth)
+    geo = tree._geometry(origin, side)
+
+    def build():
+        return tree.build_tree(st.pos, mass, st.alive, origin, side, **kw)
+
+    def plain():
+        return tree.build_tree_ref(st.pos, mass, st.alive, origin, side,
+                                   **kw)
+
+    got, want = build(), plain()
+    torch.cuda.synchronize()
+    for name in ("code", "level", "start", "count", "child", "n_children",
+                 "parent", "n_nodes", "node_need", "sidx", "unsort",
+                 "n_alive", "spos", "smass", "body_rows", "origin",
+                 "root_side"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"bh_tree at the cell's state: {name} "
+                                 f"differs from the plain build's")
+    if not torch.equal(got.node_rows[:, 3:], want.node_rows[:, 3:]):
+        raise AssertionError("bh_tree at the cell's state: the node rows' "
+                             "geometry differs from the plain build's")
+    rel = max(float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+              for g, w in ((got.mass, want.mass), (got.com, want.com),
+                           (got.node_rows[:, :3], want.node_rows[:, :3])))
+    if not rel <= 1e-6:
+        raise AssertionError(f"bh_tree at the cell's state: mass or centre "
+                             f"of mass {rel:.3e} from the plain build's")
+    del want
+    codes = tree._codes_launch(st.pos, st.alive, geo)
+    order = torch.argsort(codes, stable=True)
+
+    def kernels():
+        return tree._sorted_launch(
+            st.pos, mass, tree._codes_launch(st.pos, st.alive, geo), order,
+            geo, kw["num_nodes"], kw["leaf_size"], kw["max_depth"])
+
+    # the codes and build kernels and the operations of the sort alone
+    call = _per_call("bh_tree", build, lambda: 2 + len(device_ops(
+        lambda: torch.argsort(codes, stable=True))))
+    kernels_ms = device_ms(kernels)
+    sort_ms = device_ms(lambda: torch.argsort(codes, stable=True))
+    plain_ms = timed_ms(plain, reps=3, warmup=1)
+    work = tree.build_work(st.pos.shape[0], kw["num_nodes"])
+    out = dict(ms=call["device_ms"], kernels_ms=kernels_ms, sort_ms=sort_ms,
+               plain_ms=plain_ms, library_ms=plain_ms,
+               library="none: the plain build_tree_ref on the card "
+                       "(plain_ms), which the port no longer calls there",
+               call=call, **bounds(work, kernels_ms), bytes=work["bytes"],
+               flops=work["flops"], n_nodes=int(got.n_nodes),
+               node_need=int(got.node_need), n_alive=int(got.n_alive),
+               mass_com_rel=rel)
+    print(f"bh_tree at the cell's state (N={n_bodies}, {out['n_nodes']} "
+          f"nodes): every integer field equals the plain build's, mass and "
+          f"centre of mass within {rel:.2e}; {call['device_ms']:.4f} ms on "
+          f"the device, {call['call_ms']:.4f} a call, "
+          f"{call['host_enqueue_ms']:.4f} to enqueue; without the sort "
+          f"{kernels_ms:.4f} ms (the sort {sort_ms:.4f}); bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}, "
+          f"{work['bytes'] / 1e6:.1f} MB), {out['pct_of_bound']:.2f}% of "
+          f"it; plain build {plain_ms:.2f} ms", flush=True)
     return out
 
 
@@ -1589,16 +1716,18 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
                   flush=True)
         return dt / n, n0, int(bh.state.n_alive())
 
-    sec, n0, n1 = paths.run("bh_engine", run, need=("bh_hier", "merge"))
+    sec, n0, n1 = paths.run("bh_engine", run,
+                            need=("bh_tree", "bh_hier", "merge"))
     counts = paths.counts["bh_engine"]
     steps = sum(n for _, n in BH_STEPS)
-    if (counts != _only(bh_hier=counts["bh_hier"],
+    if (counts != _only(bh_tree=counts["bh_hier"], bh_hier=counts["bh_hier"],
                         bh_lists=counts["bh_hier"], merge=counts["merge"])
             or counts["merge"] < steps):
         raise AssertionError(f"Barnes–Hut steps launched another kernel "
-                             f"than the hier, lists and merge kernels, the "
-                             f"lists other than once an evaluated pass, or "
-                             f"fewer than {steps} merges: {counts}")
+                             f"than the tree, hier, lists and merge "
+                             f"kernels, the tree or the lists other than "
+                             f"once an evaluated pass, or fewer than "
+                             f"{steps} merges: {counts}")
     st = bh.state
     if not all(bool(torch.isfinite(x).all()) for x in (st.pos, st.vel,
                                                         st.mass)):
@@ -1617,7 +1746,7 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
     results["bh_hier"] = paths.run(
         "bh_hier_check", lambda: _bh_hier_shape(st, cfg, params, bh.caps,
                                                 n_sm, max_clock_hz),
-        need=("bh_hier", "bh_pairs", "bh_lists"))
+        need=("bh_tree", "bh_hier", "bh_pairs", "bh_lists"))
 
     # force error of a fresh pass of the initial scene (the JAX package's
     # measurement point), from the engine's caps, against the exact
@@ -1633,9 +1762,13 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
             raise AssertionError(f"bh: mean force error {e['mean']:.3e} > "
                                  f"{BH_ERR_LIMIT:.3e}")
     paths.run("bh_force_error", bh_error,
-              need=("allpairs", "bh_hier", "bh_lists"))
+              need=("allpairs", "bh_tree", "bh_hier", "bh_lists"))
     del bh
-    results["bh_lists"] = _bh_lists_shape(dev)
+    cell = _bh_cell(dev)
+    results["bh_lists"] = _bh_lists_shape(*cell)
+    results["bh_tree"] = _bh_tree_shape(cell[0], cell[2], cell[3])
+    del cell
+    torch.cuda.empty_cache()
 
     # the needs of one pass on three scenes at N = 1M, caps grown to fit
     # (the lists are built and measured; no pair block is evaluated)
@@ -1657,7 +1790,7 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
                  scenes.multi_galaxy_merger(sg, n_total=N))):
             needs(name, state_lib.from_arrays(*pvm, cfg.capacity,
                                               device=dev))
-    paths.run("bh_needs", three_scenes, need=("bh_lists",))
+    paths.run("bh_needs", three_scenes, need=("bh_tree", "bh_lists"))
 
     # N = 65,536: theta = 1e-3 opens every cell, so BH is the exact sum;
     # and the dense traversal against hier
@@ -1678,7 +1811,8 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
         if not rel <= BH_OPEN_TOL:
             raise AssertionError(f"bh at theta=1e-3 is not the exact sum: "
                                  f"{rel:.3e} > {BH_OPEN_TOL}")
-    paths.run("bh_open_all", open_all, need=("allpairs", "bh_pairs"))
+    paths.run("bh_open_all", open_all,
+              need=("allpairs", "bh_tree", "bh_pairs"))
 
     def small_error():
         e = accuracy.sampled_force_error(s, small, params, SAMPLES, g,
@@ -1686,7 +1820,7 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
         print(f"bh theta={params.theta} N={N_SMALL} (dense): force error "
               f"mean {e['mean']:.3e} p99 {e['p99']:.3e}", flush=True)
     paths.run("bh_small_force_error", small_error,
-              need=("allpairs", "bh_pairs"))
+              need=("allpairs", "bh_tree", "bh_pairs"))
     results["bh_pairs"] = _bh_pairs_shape(s, small, params, n_sm,
                                           max_clock_hz)
 
@@ -1698,7 +1832,7 @@ def _path_d(paths, cfg, params, dev, st0, n_sm, max_clock_hz, results):
 
     accs = {}
     paths.run("bh_dense_vs_hier", dense_and_hier,
-              need=("bh_pairs", "bh_hier", "bh_lists"))
+              need=("bh_tree", "bh_pairs", "bh_hier", "bh_lists"))
     diff = float((accs["hier"] - accs["dense"]).abs().max())
     scale = float(accs["dense"].abs().max())
     print(f"bh dense vs hier N={N_SMALL}: max|diff| {diff:.3e} (max|a| "
@@ -2458,7 +2592,7 @@ def _path_f4(paths, params, dev, grp, g, n_sm, max_clock_hz, results):
     se.reset_default_scene(n1=N_F4 - N_F4 // 5, n2=N_F4 // 5)
     t0 = time.perf_counter()
     paths.run("sharded_bh", lambda: se.step(2),
-              need=("allpairs", "bh_pairs", "merge"))
+              need=("allpairs", "bh_tree", "bh_pairs", "merge"))
     sec = time.perf_counter() - t0
     print(f"sharded_bh step(2): {sec:.2f} s (retune rounds included), "
           f"{paths.counts['sharded_bh']['allpairs']} all-pairs launches "
@@ -2490,7 +2624,7 @@ def _path_f4(paths, params, dev, grp, g, n_sm, max_clock_hz, results):
         return local
 
     local = paths.run("sharded_bh_force_error", error,
-                      need=("allpairs", "bh_pairs"))
+                      need=("allpairs", "bh_tree", "bh_pairs"))
     # the all-pairs kernel at the LET import shape: rank 0's bodies against
     # (P, E, 3) rows, here the other ranks' first E bodies
     E = se.let_approx_cap + se.let_body_cap
@@ -2523,11 +2657,12 @@ def _path_f5(paths, dev):
     paths.run("dryrun_multichip",
               lambda: graft_entry.dryrun_multichip(DRYRUN_RANKS,
                                                    device=DEVICE),
-              need=P3M_PASS + ("merge", "allpairs", "bh_pairs"))
+              need=P3M_PASS + ("merge", "allpairs", "bh_tree",
+                               "bh_pairs"))
     fn, (st, prm) = graft_entry.entry(device=DEVICE)
     t0 = time.perf_counter()
-    out = paths.run("entry", lambda: fn(st, prm), need=("bh_pairs",
-                                                        "merge"))
+    out = paths.run("entry", lambda: fn(st, prm),
+                    need=("bh_tree", "bh_pairs", "merge"))
     card_s = time.perf_counter() - t0
     cpu_fn, _ = graft_entry.entry(device="cpu")
     t0 = time.perf_counter()
@@ -2741,6 +2876,7 @@ def main() -> int:
           flush=True)
     t_start = time.perf_counter()
     _count_hier_passes()
+    _count_builds()
 
     # -- build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3092,6 +3228,7 @@ def main() -> int:
                 "bh_pairs": paths.counts["bh_small_force_error"]["bh_pairs"],
                 "bh_hier": paths.counts["bh_engine"]["bh_hier"],
                 "bh_lists": paths.counts["bh_engine"]["bh_lists"],
+                "bh_tree": paths.counts["bh_engine"]["bh_tree"],
                 "merge": paths.counts["pm_main"]["merge"],
                 "interp": paths.counts["pm_main"]["interp"],
                 "deposit": paths.counts["pm_main"]["deposit"],
@@ -3172,6 +3309,14 @@ def main() -> int:
              launches=launches["bh_lists"],
              launches_by_path=paths.of("bh_lists"), library_ms=None,
              **results["bh_lists"]),
+        dict(name="bh_tree", route="cuda",
+             source="tpu_nbody_torch/csrc/bh_tree.cu",
+             replaces="tpu_nbody/ops/tree.py:148",
+             replaces_kind="XLA tree build: Hilbert codes, boundary scans "
+                           "over (L, cap) arrays, slot-wise gathers and "
+                           "prefix-sum aggregates (no Pallas original)",
+             launches=launches["bh_tree"],
+             launches_by_path=paths.of("bh_tree"), **results["bh_tree"]),
         dict(name="merge", route="cuda",
              source="tpu_nbody_torch/csrc/merge.cu",
              replaces="tpu_nbody/ops/merge.py:43",

@@ -79,7 +79,7 @@ def test_check_launch_keeps_the_one_launch_table(monkeypatch):
     """``_build.check_launch`` counts a launch under the kernel's name once
     its launcher returned 0, and raises without counting on an error;
     ``launches`` sums names; every launch site of the package passes one
-    of the fourteen names of ``_build.KERNELS`` (a grep of the sources)."""
+    of the fifteen names of ``_build.KERNELS`` (a grep of the sources)."""
     monkeypatch.setattr(_build, "LAUNCHES", collections.Counter())
 
     class Lib:
@@ -97,14 +97,14 @@ def test_check_launch_keeps_the_one_launch_table(monkeypatch):
     assert _build.LAUNCHES == {"band": 2, "fd": 1, "allpairs_pairs": 12}
     assert _build.launches("band", "fd", "interp") == 3
     assert _build.launches() == 0
-    assert len(set(_build.KERNELS)) == 14
+    assert len(set(_build.KERNELS)) == 15
     calls, names = 0, []
     for path in sorted(PKG.rglob("*.py")):
         text = path.read_text()
         calls += len(re.findall(r"(?<!def )check_launch\(", text))
         names += re.findall(r"(?<!def )check_launch\(\"(\w+)\", rc\)",
                             text)
-    assert calls == len(names) == 17
+    assert calls == len(names) == 18
     assert set(names) == set(_build.KERNELS)
 
 

@@ -104,6 +104,14 @@ SIGNATURES = {
     # pos, vel, mass, alive, fb, n, pd, vd, width, height, mode, params
     # (13 host floats), stream
     "tnt_render_splat": [_P] * 5 + [_I] * 6 + [_P, _P],
+    # pos, alive, n, ox, oy, scale, codes, stream
+    "tnt_bh_codes": [_P, _P, _I, _F, _F, _F, _P, _P],
+    # -> tree-build CTAs one SM holds at once (0 on error)
+    "tnt_bh_tree_blocks_per_sm": [],
+    # pos, mass, codes, order, cap, NC, leaf_size, max_depth, ox, oy,
+    # scale, unit, side, grid, scratch, scratch_bytes, outs (host
+    # pointers), stream
+    "tnt_bh_tree": [_P] * 4 + [_I] * 4 + [_F] * 5 + [_I, _P, _L, _P, _P],
 }
 
 _lib = None
@@ -241,8 +249,8 @@ def stream_counters(device: torch.device, name: str, n: int) -> torch.Tensor:
 
 # the kernels, each the name its launches pass to check_launch
 KERNELS = ("band", "rescue", "rescue_select", "select_unions", "boxes",
-           "allpairs", "bh_pairs", "bh_hier", "bh_lists", "merge", "interp",
-           "deposit", "fd", "render")
+           "allpairs", "bh_pairs", "bh_hier", "bh_lists", "bh_tree", "merge",
+           "interp", "deposit", "fd", "render")
 # launches of each of KERNELS, and "allpairs_pairs", the target x source
 # pairs of every all-pairs pass on either device
 LAUNCHES: collections.Counter = collections.Counter()
@@ -261,13 +269,19 @@ def launches(*names: str) -> int:
         return sum(LAUNCHES[n] for n in names)
 
 
-def check_launch(name: str, rc: int):
+def raise_on_error(name: str, rc: int):
     """Raise if a launcher returned a CUDA error (checked right after the
     launch: a refused launch never runs and a later synchronize would not
-    report it); else count one launch of the kernel ``name``."""
+    report it)."""
     if rc != 0:
         msg = library().tnt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({rc}): {msg}")
+
+
+def check_launch(name: str, rc: int):
+    """:func:`raise_on_error`, then count one launch of the kernel
+    ``name``."""
+    raise_on_error(name, rc)
     count(name)
 
 

@@ -34,18 +34,30 @@ boundaries. The build is branch-free and has no host sync:
 Every integer field is int32 and bit-equal to the JAX package's for the
 same float32 positions; ``mass`` and ``com`` agree to float32 rounding.
 
+That plain form is :func:`build_tree_ref`, which CPU tensors take. On the
+card :func:`build_tree` runs ``csrc/bh_tree.cu`` instead: the codes in one
+kernel, the same stable ``torch.argsort``, then one cooperative launch that
+finds each body's owned levels from its code and its neighbours' (no
+``(L, cap)`` array), ranks the owners by warp ballots and writes the same
+table, bit for bit in every integer field and the cell geometry, the
+aggregates from float64 prefix sums summed in another order (float32
+rounding apart).
+
 The root quad matches the reference sizing: centred at (W/2, H/2) with
 half-side max(W, H)/2 + 2 (``BarnesHutAlg.kt:359-362``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tpu_nbody_torch.kernels import _build
 from tpu_nbody_torch.ops import morton
 
 _BIG = 2_000_000_000
@@ -125,7 +137,168 @@ def build_tree(pos, mass_exert, alive, origin, root_side, *, num_nodes: int,
                leaf_size: int, max_depth: int) -> Tree:
     """Build the flat quadtree on ``pos``'s device. ``mass_exert`` must be
     0 for dead bodies; ``origin`` is a pair of floats and ``root_side`` a
-    float."""
+    float.
+
+    CPU tensors take :func:`build_tree_ref`; CUDA tensors launch
+    ``csrc/bh_tree.cu`` (:func:`_tree_launch`, counted once a build as
+    ``"bh_tree"``), which gives the same tree (module docstring). Shapes,
+    ``max_depth``, ``leaf_size`` and the id range are checked on any
+    device; a tensor off the CPU sends the call to the kernel's checks, so
+    a device the kernels do not run on raises."""
+    if pos.dim() != 2 or pos.shape[1] != 2 or pos.shape[0] < 1:
+        raise ValueError(f"pos: expected shape (cap, 2) with cap >= 1, got "
+                         f"{tuple(pos.shape)}")
+    cap = pos.shape[0]
+    for name, t in (("mass_exert", mass_exert), ("alive", alive)):
+        if tuple(t.shape) != (cap,):
+            raise ValueError(f"{name}: expected shape ({cap},), got "
+                             f"{tuple(t.shape)}")
+    if not 0 <= max_depth <= morton.COORD_BITS:
+        raise ValueError(f"max_depth {max_depth}: the codes resolve levels "
+                         f"0 .. {morton.COORD_BITS}")
+    if leaf_size < 0:
+        raise ValueError(f"leaf_size {leaf_size}: expected >= 0")
+    check_id_range(cap, num_nodes)
+    if all(t.device.type == "cpu" for t in (pos, mass_exert, alive)):
+        return build_tree_ref(pos, mass_exert, alive, origin, root_side,
+                              num_nodes=num_nodes, leaf_size=leaf_size,
+                              max_depth=max_depth)
+    dev = pos.device
+    _build.check_tensor("pos", pos, (cap, 2), device=dev, align=8)
+    _build.check_tensor("mass_exert", mass_exert, (cap,), device=dev)
+    _build.check_tensor("alive", alive, (cap,), device=dev, align=1,
+                        dtype=torch.bool)
+    return _tree_launch(pos, mass_exert, alive, origin, root_side,
+                        num_nodes, leaf_size, max_depth)
+
+
+# the levels the kernel's owned-level masks hold (csrc/bh_tree.cu LEVELS)
+_LEVELS = morton.COORD_BITS + 1
+
+
+def _tree_scratch(cap: int, grid: int) -> int:
+    """Bytes of ``csrc/bh_tree.cu``'s scratch (its ``carve``): the float64
+    prefix sums of the three mass terms, each CTA's sums and owner counts
+    a level, the sorted codes and each body's owned-level mask."""
+    return 8 * 3 * (cap + 1) + 8 * 3 * grid + 4 * cap + 4 * _LEVELS * grid \
+        + 2 * cap
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_grid(device_index: int) -> int:
+    """CTAs of the build's cooperative launch the card holds at once (its
+    SMs times the occupancy API's count), asked once a device: the most
+    such a launch may have."""
+    with torch.cuda.device(device_index):
+        per_sm = _build.library().tnt_bh_tree_blocks_per_sm()
+        n_sm = torch.cuda.get_device_properties(
+            device_index).multi_processor_count
+    if per_sm < 1:
+        raise RuntimeError("bh_tree: no occupancy for the build kernel")
+    return n_sm * per_sm
+
+
+# threads a CTA of the build (csrc/bh_tree.cu THREADS)
+_TREE_THREADS = 256
+
+
+def _geometry(origin, root_side) -> tuple:
+    """(ox, oy, scale, unit, side) as float32 values: the root's low
+    corner, the multiply of ``morton.cell_coords`` (2^15 / side, as torch
+    rounds the Python scalar to the tensor's float32), a finest cell's
+    side and the root's side, as the plain build rounds them."""
+    ox, oy = (float(np.float32(v)) for v in origin)
+    side = np.float32(root_side)
+    return (ox, oy, float(np.float32((1 << morton.COORD_BITS) / float(side))),
+            float(side / np.float32(1 << morton.COORD_BITS)), float(side))
+
+
+def _codes_launch(pos, alive, geo: tuple):
+    """``csrc/bh_tree.cu``'s codes kernel on checked CUDA tensors: the
+    (cap,) int32 codes of ``morton.hilbert_codes``, bit for bit, on the
+    current stream. Not counted: a build counts once, at its last launch."""
+    codes = torch.empty((pos.shape[0],), dtype=torch.int32,
+                        device=pos.device)
+    ox, oy, scale = (ctypes.c_float(v) for v in geo[:3])
+    _build.raise_on_error("bh_tree", _build.library().tnt_bh_codes(
+        pos.data_ptr(), alive.data_ptr(), pos.shape[0], ox, oy, scale,
+        codes.data_ptr(), _build.stream(pos.device)))
+    return codes
+
+
+def _tree_launch(pos, mass_exert, alive, origin, root_side, NC: int,
+                 leaf_size: int, max_depth: int) -> Tree:
+    """Launch ``csrc/bh_tree.cu`` on checked arguments: the codes kernel,
+    ``torch.argsort`` of the codes (stable), then the cooperative build
+    kernel (:func:`_sorted_launch`), all on the current stream; no host
+    sync."""
+    geo = _geometry(origin, root_side)
+    codes = _codes_launch(pos, alive, geo)
+    order = torch.argsort(codes, stable=True)
+    return _sorted_launch(pos, mass_exert, codes, order, geo, NC, leaf_size,
+                          max_depth)
+
+
+def _sorted_launch(pos, mass_exert, codes, order, geo: tuple, NC: int,
+                   leaf_size: int, max_depth: int) -> Tree:
+    """The cooperative build kernel on the bodies' codes and their stable
+    sort's ``order`` (int64) with the root's :func:`_geometry`, counted as
+    one ``"bh_tree"`` launch; outputs from ``torch.empty`` (the kernel
+    writes every entry)."""
+    cap = pos.shape[0]
+    dev = pos.device
+    i32, f32 = torch.int32, torch.float32
+    ints = torch.empty((7, NC), dtype=i32, device=dev)
+    mass = torch.empty((NC,), dtype=f32, device=dev)
+    com = torch.empty((NC, 2), dtype=f32, device=dev)
+    rows = torch.empty((NC, 14), dtype=f32, device=dev)
+    body_rows = torch.empty((cap, 4), dtype=f32, device=dev)
+    spos = torch.empty((cap, 2), dtype=f32, device=dev)
+    smass = torch.empty((cap,), dtype=f32, device=dev)
+    idx = torch.empty((2, cap), dtype=i32, device=dev)
+    scalars = torch.empty((3,), dtype=i32, device=dev)
+    root = torch.empty((3,), dtype=f32, device=dev)
+    grid = min(_tree_grid(dev.index), -(-cap // _TREE_THREADS))
+    nbytes = _tree_scratch(cap, grid)
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    fields = ints.unbind(0)
+    sidx, unsort = idx.unbind(0)
+    outs = (ctypes.c_void_p * 17)(
+        *(t.data_ptr() for t in fields + (mass, com, rows, body_rows, spos,
+                                          smass, sidx, unsort, scalars,
+                                          root)))
+    rc = _build.library().tnt_bh_tree(
+        pos.data_ptr(), mass_exert.data_ptr(), codes.data_ptr(),
+        order.data_ptr(), cap, NC, leaf_size, max_depth,
+        *(ctypes.c_float(v) for v in geo), grid, scratch.data_ptr(), nbytes,
+        outs, _build.stream(dev))
+    _build.check_launch("bh_tree", rc)
+    code, level, start, count, child, n_children, parent = fields
+    n_nodes, node_need, n_alive = scalars.unbind(0)
+    return Tree(code=code, level=level, start=start, count=count,
+                child=child, n_children=n_children, parent=parent,
+                mass=mass, com=com, n_nodes=n_nodes, node_need=node_need,
+                node_rows=rows, body_rows=body_rows, spos=spos, smass=smass,
+                sidx=sidx, unsort=unsort, n_alive=n_alive, origin=root[:2],
+                root_side=root[2])
+
+
+def build_work(cap: int, num_nodes: int) -> dict:
+    """Bytes ``csrc/bh_tree.cu`` must move for a build of ``cap`` slots
+    into a table of ``num_nodes`` slots, each once (no flops count): each
+    body's position, exerted mass and flag read (13 bytes), its code
+    written and read again (8) and the sort's order read (8), its sorted
+    position, mass, body row, index and inverse written (36); each table
+    slot's seven int32 fields, mass, centre of mass and 14-float row
+    written (96); the three counts and the root's geometry (24). The sort
+    itself is not counted."""
+    return dict(flops=0, bytes=cap * (13 + 8 + 8 + 36) + 96 * num_nodes + 24)
+
+
+def build_tree_ref(pos, mass_exert, alive, origin, root_side, *,
+                   num_nodes: int, leaf_size: int, max_depth: int) -> Tree:
+    """Plain version of :func:`build_tree` (the module docstring's steps
+    1-4), same arguments and result, on ``pos``'s device."""
     cap = pos.shape[0]
     NC = num_nodes
     L = max_depth + 1
