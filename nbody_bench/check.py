@@ -6,9 +6,13 @@ of the state before and after some of the window's calls (and the frame
 the call rendered); set-up keeps the generated scene and the state after
 the program's first, short ``Engine.step`` from it (the start). Once the
 window has closed and the program is freed, the reference follows each
-kept call from its state before: the start from the benchmark's own
+kept call from its state before, by the configuration's integrator
+(:mod:`nbody_bench.reference.follow`): the start from the benchmark's own
 scene, the window's calls from the program's state (the reference cannot
-reach them otherwise: see ``PERF.md``). For each it compares, against the limits of the cell's
+reach them otherwise: see ``PERF.md``). In 2D every body follows the
+reference's plain P3M and the sampled targets exact forces; in 3D
+(``sim_config.dim`` 3) every body follows exact forces. For each kept
+call it compares, against the limits of the cell's
 ``workloads/<cell>.json``:
 
 * ``dv_p99`` — over the sampled targets (random alive bodies and the
@@ -18,7 +22,7 @@ reach them otherwise: see ``PERF.md``). For each it compares, against the limits
   integrator, against exact gravity;
 * ``dx_max_px`` — over every body alive on both sides and farther than
   ``calm_px`` from every heavy at the call's start, the largest
-  |x_program − x_reference| in px, the reference's plain P3M trajectory:
+  |x_program − x_reference| in px, the reference's trajectory:
   an answer altered anywhere (near a heavy an orbit of a few steps a turn
   parts any two solvers' trajectories by px);
 * ``merge_left`` — the alive bodies of the program's state after the call
@@ -38,7 +42,8 @@ reach them otherwise: see ``PERF.md``). For each it compares, against the limits
 * ``frame_px_share`` (a call that renders) — of the pixels lit in either
   frame, the share whose channels differ by more than one level between
   the program's frame and the reference's frame of its own state: the
-  render.
+  render. A 3D loop returns its frame with the camera's yaw, and the
+  reference's frame is taken under the same camera.
 
 Each number is the largest over the run's checked calls.
 """
@@ -59,6 +64,9 @@ from nbody_bench.reference.p3m import P3M
 
 NUMBERS = ("dv_p99", "dx_max_px", "merge_left", "killed_far", "mass_gap",
            "frame_px_share")
+# the traffic's keys that the reference's frame takes
+RENDER_KEYS = ("width", "height", "speed_scale", "size_mass_scale", "gain",
+               "cam_pitch", "world_scale")
 
 
 class Kept(NamedTuple):
@@ -66,7 +74,7 @@ class Kept(NamedTuple):
     steps: int
     before: tuple       # (pos, vel, mass, alive) copies
     after: tuple
-    frame: object       # the host uint8 frame, or None
+    frame: object       # the host uint8 frame, (frame, yaw) in 3D, or None
 
 
 def copy_state(st) -> tuple:
@@ -100,9 +108,12 @@ def physics(config: dict) -> Physics:
 
 
 def reference_solver(config: dict, sample: dict, device,
-                     dtype=torch.float64) -> P3M:
+                     dtype=torch.float64) -> P3M | None:
     """The reference's own P3M: cells of side root / 2^``ref_level``, the
-    short range within 2 x ``ref_split_cells`` cells."""
+    short range within 2 x ``ref_split_cells`` cells; None in 3D, where
+    every body follows exact forces."""
+    if config["sim_config"].get("dim", 2) == 3:
+        return None
     _, side = work.root(config["world_w"], config["world_h"])
     h = side / (1 << sample["ref_level"])
     ph = physics(config)
@@ -123,14 +134,15 @@ def targets(alive, heavy, count: int, seed: int, index: int):
 
 
 def judge_one(kept: Kept, config: dict, sample: dict, render_cfg, seed: int,
-              solver: P3M) -> dict:
+              solver: P3M | None) -> dict:
     """The numbers of one kept call, with counts beside them."""
     ph = physics(config)
     pos0, _, mass0, alive0 = kept.before
     heavy = merge.heavies(mass0, alive0, ph.merge_max_mass)
     tid = targets(alive0, heavy, sample["random_targets"], seed, kept.index)
     t = time.perf_counter()
-    f = follow(*kept.before, tid, kept.steps, ph, solver)
+    f = follow(*kept.before, tid, kept.steps, ph, solver,
+               config["integrator"])
     follow_s = time.perf_counter() - t
     pos, vel, mass, alive = (t.to(f.pos.device) for t in kept.after)
     v0 = kept.before[1][tid].double()
@@ -163,8 +175,15 @@ def judge_one(kept: Kept, config: dict, sample: dict, render_cfg, seed: int,
                calm=int(calm.sum()), absorbed=n0 - int(alive.sum()),
                absorbed_ref=n0 - int(f.alive.sum()), follow_s=follow_s)
     if kept.frame is not None:
-        ref = ref_render.frame(f.pos, f.vel, f.mass, f.alive, **render_cfg)
-        got = torch.as_tensor(kept.frame).to(ref.device)
+        got, yaw = kept.frame if isinstance(kept.frame, tuple) \
+            else (kept.frame, None)
+        if yaw is None:
+            ref = ref_render.frame(f.pos, f.vel, f.mass, f.alive,
+                                   **render_cfg)
+        else:
+            ref = ref_render.frame3d(f.pos, f.vel, f.mass, f.alive,
+                                     cam_angle=float(yaw), **render_cfg)
+        got = torch.as_tensor(got).to(ref.device)
         diff = (got.to(torch.int16) - ref.to(torch.int16)).abs().amax(dim=2)
         lit = (got.amax(dim=2) > 0) | (ref.amax(dim=2) > 0)
         out["frame_px_share"] = float((diff > 1).sum()) / max(

@@ -2,9 +2,13 @@
 program's place, computed in bfloat16, the precision below the float32
 that the configurations state.
 
-Every body follows the reference's kick-drift-kick with the plain P3M
-(:mod:`nbody_bench.reference.p3m`; its FFT in float32, which torch cannot
-run in bfloat16) and the absorb rule, the state held in bfloat16. The
+Every body follows the reference's steps by the configuration's
+integrator (kick-drift-kick, or semi-implicit Euler) with the plain P3M
+in 2D (:mod:`nbody_bench.reference.p3m`; its FFT in float32, which torch
+cannot run in bfloat16) or exact forces in 3D
+(:mod:`nbody_bench.reference.gravity`), and the absorb rule, every
+number of a call computed in bfloat16; between calls the state keeps
+those values in the program's float32, which the loops' render takes. The
 harness drives it through the cell's own loop and window and judges it
 like the program: its ``correct`` has to come out false. On the card, at
 the cell's own size:
@@ -26,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from nbody_bench import check
-from nbody_bench.reference import merge
+from nbody_bench.reference import gravity, merge
 from nbody_bench.reference.p3m import P3M
 
 DTYPE = torch.bfloat16
@@ -37,6 +41,7 @@ class State(NamedTuple):
     vel: torch.Tensor
     mass: torch.Tensor
     alive: torch.Tensor
+    step: torch.Tensor          # () int32, the steps taken
 
 
 class Engine:
@@ -45,25 +50,41 @@ class Engine:
     def __init__(self, config: dict, device, sample: dict, dtype=DTYPE):
         self.phys = check.physics(config)
         ref = check.reference_solver(config, sample, device)
-        self.solver = P3M(ref.h, ref.rc, ref.soft2, ref.G, dtype=dtype,
-                          device=device)
+        self.solver = None if ref is None else P3M(
+            ref.h, ref.rc, ref.soft2, ref.G, dtype=dtype, device=device)
+        self.euler = config["integrator"] == "euler"
         self.dtype = dtype
         self.state = None
 
+    def accel(self, P, M):
+        if self.solver is not None:
+            return self.solver.accel(P, M).to(self.dtype)
+        own = torch.arange(P.shape[0], device=P.device)
+        return gravity.direct_accel(P, P, M, self.phys.G, self.phys.soft2,
+                                    self_idx=own, dtype=self.dtype)
+
     def step(self, n: int):
         ph, dt = self.phys, self.dtype
-        P, V, M, A = self.state
+        st = self.state
+        P, V, M = (t.to(dt) for t in (st.pos, st.vel, st.mass))
+        A = st.alive
         half = torch.tensor(0.5 * ph.dt, dtype=dt, device=P.device)
         step = torch.tensor(ph.dt, dtype=dt, device=P.device)
-        a = self.solver.accel(P, M).to(dt)
+        a = None if self.euler else self.accel(P, M)
         for _ in range(n):
-            V = V + a * half
-            P = P + V * step
-            a = self.solver.accel(P, M).to(dt)
-            V = V + a * half
+            if self.euler:
+                V = V + self.accel(P, M) * step
+                P = P + V * step
+            else:
+                V = V + a * half
+                P = P + V * step
+                a = self.accel(P, M)
+                V = V + a * half
             M, A = merge.absorb(P, M, A, ph.merge_max_mass,
                                 ph.merge_min_dist)
-        self.state = State(P, V, M, A)
+        kept = st.pos.dtype
+        self.state = State(P.to(kept), V.to(kept), M.to(kept), A,
+                           st.step + n)
         return self.state
 
 
@@ -76,9 +97,10 @@ class Control:
         self.eng = Engine(config, device, workload["check"])
 
     def load(self, pos, vel, mass):
-        dt = self.eng.dtype
         alive = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
-        self.eng.state = State(pos.to(dt), vel.to(dt), mass.to(dt), alive)
+        self.eng.state = State(pos, vel, mass, alive,
+                               torch.zeros((), dtype=torch.int32,
+                                           device=pos.device))
 
     def tuning(self):
         return ()

@@ -4,10 +4,11 @@
 
 Set-up (counted in ``setup_s``, from the process's start): the imports,
 the CUDA context, loading or building the program's kernel library, the
-scene made on the card from ``--seed`` (:mod:`nbody_bench.scene`), and
-the warm-up: a short ``Engine.step`` from the scene (the check's start,
-kept), one call of the cell's loop, whose state is kept as a device
-copy, the segment's start; then from there the traffic's ``warm_calls``
+configuration's scene made on the card from ``--seed``
+(:mod:`nbody_bench.scene`), and the warm-up: a short ``Engine.step``
+from the scene (the check's start, kept), one call of the cell's loop,
+whose state is kept as a device copy, the segment's start; then from
+there the traffic's ``warm_calls``
 calls, and more while a call still grows a cap (the engine's retune),
 which load every kernel, cuFFT plan and shape the window uses; then the
 segment's start put back.
@@ -103,10 +104,7 @@ def set_up(cell, seed: int, device, make_system):
     """Build the system, load the scene, warm up. Returns (system, the
     kept start call, the segment's start, the warm-up's calls)."""
     sysm = make_system(cell.config, device, cell.workload)
-    pos, vel, mass = scene.two_disk(seed, cell.config["n_bodies"], device,
-                                    world_w=cell.config["world_w"],
-                                    world_h=cell.config["world_h"],
-                                    G=cell.config["params"]["G"])
+    pos, vel, mass = scene.make(cell.config, seed, device)
     sysm.load(pos, vel, mass)
     before = check.copy_state(sysm.eng.state)
     n = int(cell.workload["check"]["start_steps"])
@@ -262,8 +260,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
         dev_info["busy_s"] = rec.trace.busy_s()
         dev_info["window_s"] = rec.trace.window_s()
         result["breakdown"] = trace.breakdown(rec.trace)
-    render_cfg = {key: cell.traffic[key] for key in
-                  ("width", "height", "speed_scale", "size_mass_scale")
+    render_cfg = {key: cell.traffic[key] for key in check.RENDER_KEYS
                   if key in cell.traffic}
     kept = [first] + [kk for kk in rec.kept if kk is not None]
     t = time.perf_counter()

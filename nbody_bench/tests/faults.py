@@ -1,6 +1,8 @@
 """Faults planted under the timed path, for the tests: each wraps the
 program (:class:`nbody_bench.system.Program`) so that its engine's
-``step`` or the loop's frame goes wrong in one way."""
+``step`` or the loop's frame goes wrong in one way. :data:`FAULTS` are
+step faults every cell can have; :data:`FAULTS_3D` those of a 3D
+Euler cell with no merging, where a merge fault changes nothing."""
 
 from __future__ import annotations
 
@@ -88,9 +90,26 @@ def mass_lost(eng, n):
     return eng.state
 
 
+def z_dropped(eng, n):
+    """The forces lose their z component: each Euler step leaves the z
+    velocity as it was and drifts z by it."""
+    dt = eng.params.dt
+    for _ in range(n):
+        before = eng.state
+        after = eng.step(1)
+        vz = before.vel[:, 2:]
+        eng.state = after._replace(
+            vel=torch.cat([after.vel[:, :2], vz], dim=1),
+            pos=torch.cat([after.pos[:, :2], before.pos[:, 2:] + vz * dt],
+                          dim=1))
+    return eng.state
+
+
 FAULTS = {"unchanged": unchanged, "half_left_out": half_left_out,
           "one_altered": one_altered, "merge_skipped": merge_skipped,
           "merge_too_far": merge_too_far, "mass_lost": mass_lost}
+FAULTS_3D = {"unchanged": unchanged, "half_left_out": half_left_out,
+             "one_altered": one_altered, "z_dropped": z_dropped}
 
 
 def program_with(fault):
@@ -100,3 +119,24 @@ def program_with(fault):
         p.eng = _Wrapped(p.eng, fault)
         return p
     return make
+
+
+def program_as(integrator: str):
+    """A ``make_system`` whose engine steps by ``integrator`` in place of
+    the configuration's (kick-drift-kick in place of Euler)."""
+    def make(config, device, workload=None):
+        return Program({**config, "integrator": integrator}, device)
+    return make
+
+
+def camera_turned(monkeypatch, by: float = 0.05):
+    """The program's 3D frames rendered at a yaw ``by`` rad past the one
+    the loop returns."""
+    from tpu_nbody_torch.ops import render
+
+    real = render.render_frame_3d
+
+    def turned(*args, cam_angle=0.0, **kw):
+        return real(*args, cam_angle=cam_angle + by, **kw)
+
+    monkeypatch.setattr(render, "render_frame_3d", turned)

@@ -35,7 +35,8 @@ def test_tiny_run(tmp_path, traced):
             "allpairs_device_ms_per_pass", "allpairs_roofline_pct"]
         assert res["metrics"] == {}
     else:
-        assert set(res["metrics"]) == {"body_updates_per_s.bh", "setup_s"}
+        assert set(res["metrics"]) == {"body_updates_per_s.allpairs",
+                                       "setup_s"}
         assert all(v["value"] > 0 for v in res["metrics"].values())
 
 
@@ -120,3 +121,15 @@ def test_the_frozen_count_is_the_programs_at_the_alive_counts(
                                        None, alive))
     assert allpairs_work.pass_work(ctx) == forces.pair_work(n_alive, n_alive,
                                                             dim)
+
+
+@pytest.mark.parametrize("dim,flops,source_bytes", [(2, 13, 12), (3, 18, 16)])
+def test_the_frozen_count_by_dim(dim, flops, source_bytes):
+    """A pair's flops, and each source's position and mass read once (x,
+    y, m in 2D; x, y, z, m in 3D, 16 B), each target's position read and
+    its acceleration written once: the 3D cell's roofline reads this
+    count with no code of its own."""
+    w = allpairs_work.pair_work(50_001, 50_001, dim)
+    assert w["pairs"] == 50_001 ** 2
+    assert w["flops"] == flops * 50_001 ** 2
+    assert w["bytes"] == 50_001 * (source_bytes + 2 * 4 * dim)
